@@ -1,0 +1,39 @@
+"""tinaural_torch imports neither jax nor flax, and its CPU route never
+reaches the kernel build."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+PROBE = """
+import sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+import tinaural_torch
+from tinaural_torch.models.renderer import _neighbours
+from tinaural_torch.ops import block_render as br
+assert not any(m == "jax" or m.startswith(("jax.", "flax", "tinaural."))
+               or m == "tinaural" for m in sys.modules), "JAX package imported"
+t = tinaural_torch.TorchTable.from_hrir_table(
+    tinaural_torch.load_hrir_set("synthetic"), "cpu")
+r = tinaural_torch.BinauralRenderer(t, tinaural_torch.RenderConfig(block_size=256))
+y = r.render_trajectory(np.ones(1000, np.float32), np.zeros((4, 2), np.float32))
+assert y.shape == (2, 1000 + 191) and bool(torch.isfinite(y).all())
+assert "tinaural_torch.ops._build" not in sys.modules, "CPU route reached the build"
+assert all(v == 0 for v in br.launches.values())
+assert "jax" not in sys.modules and "flax" not in sys.modules
+print("ok")
+"""
+
+
+def test_import_leaves_out_jax_and_build():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", PROBE], capture_output=True,
+                          text=True, env=env, cwd=ROOT, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")

@@ -1,0 +1,2 @@
+"""Render-time ops: direction lookup, filter assembly, overlap-add and the
+block-render kernels."""

@@ -1,0 +1,93 @@
+"""Build the package's CUDA sources at first use and bind them with ctypes.
+
+`nvcc` compiles ``tinaural_torch/csrc/*.cu`` for ``sm_90a`` into one shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds). The library lands in ``tinaural_torch/_build/`` under a name keyed
+by a hash of the sources and flags, and is rebuilt only when they change.
+A failed build raises with nvcc's output; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "tt_assemble_filters": [_P] * 6 + [_I] * 6 + [_F] * 4 + [_P],
+    "tt_block_spectra_mix_inverse": [_P] * 3 + [_I] * 5 + [_P],
+    "tt_overlap_add": [_P] * 2 + [_I] * 3 + [_P],
+}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    return str(Path(home) / "bin" / "nvcc")
+
+
+def _sources() -> list[Path]:
+    return sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")])
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libtinaural_torch_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources if their library does not exist yet. The
+    compiler's report (registers, shared memory, spills per kernel) is
+    kept beside the library as ``.log``."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}")
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The built library with every entry point's argtypes declared."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.tt_error_string.argtypes = [ctypes.c_int]
+    lib.tt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if rc != 0:
+        msg = library().tt_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc}: {msg}")
