@@ -6,14 +6,26 @@
 Phases, each of which fails the run on any error (nothing is caught):
   1. device: require CUDA, print the card, its power limit and the toolchain;
   2. build the kernels of tinaural_torch/csrc/ (timed);
-  3. each kernel against its plain torch version at the main path's shapes
-     (128-tap synthetic table, B = 1024, n_fft = 2048): SNR ≥ 100 dB;
+  3. each block-render kernel against its plain torch version at the main
+     path's shapes (128-tap synthetic table, B = 1024, n_fft = 2048): SNR
+     ≥ 100 dB;
+  3b. each partitioned-convolution kernel against its plain version, SNR
+     ≥ 100 dB: the streaming step at 128 taps (S = 1024, B = 256, P = 1)
+     and 2048 taps (S = 64, B = 256, P = 9), the offline render at 2048
+     taps (nb = 2048, B = 512, P = 5), and a chain of pushes that carries
+     the delay line and the previous filter;
   4. the renders through the public entry points — (a) a 2^23-sample
      trajectory, (b) a 64-source moving scene and (c) a 64-source static
      scene of 2^17 samples each — with every kernel's launch count read
      around them, each output held against the port's own plain path in
      float64 on the card (SNR ≥ 60 dB), and the kernel and plain float32
-     routes timed with CUDA events.
+     routes timed with CUDA events;
+  4b. the same for the streaming and partitioned renders — (d) serving,
+     `BatchedStream.push_many` of 1024 streams × 32 blocks; (e) BRIR
+     serving, 64 streams × 8 blocks at 2048 taps, update rate 1 and 4;
+     (f) 64 single `Stream.push` calls; (g) `render_streamed` of 2^20
+     samples at 2048 taps — (d) and (e) under
+     ``torch.cuda.set_sync_debug_mode("error")``, so a host sync fails.
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -31,6 +43,12 @@ KERNEL_SNR_DB = 100.0
 RENDER_SNR_DB = 60.0
 SOURCE = "tinaural_torch/csrc/block_render.cu"
 REPLACES = "tinaural/ops/pallas_kernels.py:1089"
+PART_SOURCE = "tinaural_torch/csrc/partitioned.cu"
+PALLAS = "tinaural/ops/pallas_kernels.py"
+# each partitioned kernel → the TPU kernels it replaces (def lines)
+PART_REPLACES = {"assemble_partitions": (2215, 1710),
+                 "stream_conv": (2215, 2338),
+                 "partitioned_conv": (1413, 1710)}
 
 
 def card_line() -> str:
@@ -184,6 +202,355 @@ def check_render(name: str, public_call, core_call, audio_sec: float,
     return res
 
 
+PART_FLAGS = dict(apply_itd=True, apply_ild=True)
+
+
+def _report(res: dict, name: str, got, ref, kern, plain, label: str,
+            reps: int) -> None:
+    """Hold one kernel output against its plain version, time both."""
+    import torch
+
+    require(bool(torch.isfinite(torch.view_as_real(got) if got.is_complex()
+                                else got).all()), f"{name} not finite")
+    s = snr_db(ref, got)
+    r = {"snr_db": s, "max_abs_err": max_abs(ref, got),
+         "ms": cuda_ms(kern, reps), "plain_ms": cuda_ms(plain, reps)}
+    res[name] = r
+    print(f"[{label}] {name}: SNR {s:.2f} dB vs plain fp32, max abs err "
+          f"{r['max_abs_err']:.3e}, kernel {r['ms']:.4f} ms, plain "
+          f"{r['plain_ms']:.4f} ms", flush=True)
+    require(s >= KERNEL_SNR_DB, f"{label} {name}: SNR {s:.2f} < "
+                                f"{KERNEL_SNR_DB} dB")
+
+
+def _rows(table, shape, seed: int):
+    import numpy as np
+    import torch
+
+    from tinaural_torch.config import RenderConfig
+    from tinaural_torch.models.renderer import _neighbours
+
+    rng = np.random.default_rng(seed)
+    dirs = np.stack([rng.uniform(0, 360, shape), rng.uniform(-40, 90, shape)],
+                    -1).astype(np.float32)
+    return _neighbours(table, torch.tensor(dirs, device=table.device),
+                       RenderConfig())
+
+
+def check_stream_kernels(table, S: int, B: int, label: str, reps: int) -> dict:
+    """assemble_partitions, and stream_conv as update and as hold step,
+    against their plain versions on one random carried state (half the
+    streams started, half not)."""
+    import numpy as np
+    import torch
+
+    from tinaural_torch.ops import partitioned_conv as pc
+
+    dev = table.device
+    rng = np.random.default_rng(S + B + table.taps)
+    idx, w = _rows(table, (S,), seed=1)
+    ph_re, ph_im = pc.assemble_partitions_reference(*_rows(table, (S,), 2),
+                                                    table, B, **PART_FLAGS)
+    P = ph_re.shape[1]
+    t32 = lambda *shape: torch.tensor(rng.standard_normal(shape),
+                                      dtype=torch.float32, device=dev)
+    xb, prev_in = t32(S, B), t32(S, B)
+    fdl_re, fdl_im = t32(S, P, B + 1) * 8, t32(S, P, B + 1) * 8
+    started = (torch.arange(S, device=dev) % 2).float()
+
+    res = {}
+    H = pc.assemble_partitions_cuda(idx, w, table, B, **PART_FLAGS)
+    H_ref = pc.assemble_partitions_reference(idx, w, table, B, **PART_FLAGS)
+    _report(res, "assemble_partitions", torch.complex(*H),
+            torch.complex(*H_ref),
+            lambda: pc.assemble_partitions_cuda(idx, w, table, B,
+                                                **PART_FLAGS),
+            lambda: pc.assemble_partitions_reference(idx, w, table, B,
+                                                     **PART_FLAGS),
+            label, reps)
+    H64 = pc.assemble_partitions_reference(idx, w.double(), table, B,
+                                           **PART_FLAGS)
+    print(f"[{label}] assemble_partitions: SNR "
+          f"{snr_db(torch.complex(*H64), torch.complex(*H)):.2f} dB vs plain "
+          f"fp64 (plain fp32: "
+          f"{snr_db(torch.complex(*H64), torch.complex(*H_ref)):.2f} dB)",
+          flush=True)
+
+    for name, args, cf in (
+            ("stream_conv", (xb, prev_in, fdl_re, fdl_im, *H, ph_re, ph_im,
+                             started), True),
+            ("stream_conv_hold", (xb, prev_in, fdl_re, fdl_im, ph_re, ph_im,
+                                  ph_re, ph_im, started), False)):
+        got = pc.stream_conv_cuda(*args, crossfade=cf)
+        ref = pc.stream_conv_reference(*args, crossfade=cf)
+        require(torch.equal(got[1], xb), f"{name}: prev_in' is not the block")
+        for what, g, r in (("fdl_re", got[2], ref[2]), ("fdl_im", got[3], ref[3])):
+            s = snr_db(r, g)
+            require(s >= KERNEL_SNR_DB, f"{label} {name} {what}: SNR {s:.2f}")
+        _report(res, name, got[0], ref[0],
+                lambda: pc.stream_conv_cuda(*args, crossfade=cf),
+                lambda: pc.stream_conv_reference(*args, crossfade=cf),
+                label, reps)
+    return res
+
+
+def check_partitioned_kernels(table, nb: int, B: int, label: str,
+                              reps: int) -> dict:
+    """assemble_partitions per block and partitioned_conv against their
+    plain versions at the offline render's shape."""
+    import numpy as np
+    import torch
+
+    from tinaural_torch.ops import partitioned_conv as pc
+
+    idx, w = _rows(table, (nb,), seed=3)
+    xb = torch.tensor(np.random.default_rng(4).standard_normal((nb, B)),
+                      dtype=torch.float32, device=table.device)
+    res = {}
+    H = pc.assemble_partitions_cuda(idx, w, table, B, **PART_FLAGS)
+    _report(res, "assemble_partitions", torch.complex(*H),
+            torch.complex(*pc.assemble_partitions_reference(
+                idx, w, table, B, **PART_FLAGS)),
+            lambda: pc.assemble_partitions_cuda(idx, w, table, B,
+                                                **PART_FLAGS),
+            lambda: pc.assemble_partitions_reference(idx, w, table, B,
+                                                     **PART_FLAGS),
+            label, reps)
+    _report(res, "partitioned_conv",
+            pc.partitioned_conv_cuda(xb, *H, crossfade=True),
+            pc.partitioned_conv_reference(xb, *H, crossfade=True),
+            lambda: pc.partitioned_conv_cuda(xb, *H, crossfade=True),
+            lambda: pc.partitioned_conv_reference(xb, *H, crossfade=True),
+            label, reps)
+    return res
+
+
+def check_stream_chain(table, S: int, B: int, n: int, label: str) -> None:
+    """n chained pushes at update rate 2 through the kernels and through
+    the plain float32 versions, each route carrying its own state: the
+    delay line and the previous filter carry without drift."""
+    import numpy as np
+    import torch
+
+    from tinaural_torch.config import RenderConfig
+    from tinaural_torch.models.streaming import _batch_scan_core, init_state
+    from tinaural_torch.ops import partitioned_conv as pc
+
+    cfg = RenderConfig(stream_block=B, stream_update_rate=2)
+    rng = np.random.default_rng(6)
+    blocks = torch.tensor(rng.standard_normal((n, S, B)), dtype=torch.float32,
+                          device=table.device)
+    azs = torch.tensor(rng.uniform(0, 360, (n, S)), dtype=torch.float32,
+                       device=table.device)
+    els = torch.zeros_like(azs)
+    st0 = init_state(table, cfg, S)
+    kst, ky = _batch_scan_core(table, st0, blocks, azs, els, cfg)
+    pst, py = _batch_scan_core(table, st0, blocks, azs, els, cfg,
+                               pc.stream_step_reference,
+                               pc.stream_hold_reference)
+    snrs = [snr_db(py[i], ky[i]) for i in range(n)]
+    snrs += [snr_db(p, k) for p, k in zip(pst, kst)]
+    print(f"[{label}] chain of {n} pushes: per-push SNR "
+          f"{min(snrs[:n]):.2f}–{max(snrs[:n]):.2f} dB, final state min "
+          f"{min(snrs[n:]):.2f} dB vs the plain fp32 chain", flush=True)
+    require(min(snrs) >= KERNEL_SNR_DB, f"{label}: chain SNR {min(snrs):.2f}")
+
+
+def profiled_device_ms(fn) -> float:
+    """Device time (kernels and copies) of one call of fn, from a
+    torch.profiler trace; 0.0 when the trace holds no device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+
+
+def _counts_after(fn, expect: dict, name: str, launches_total: dict,
+                  no_sync: bool):
+    """Run fn with every launch count at 0 and check the counts after."""
+    import torch
+
+    from tinaural_torch.ops import block_render as br
+    from tinaural_torch.ops import partitioned_conv as pc
+
+    br.reset_launches()
+    pc.reset_launches()
+    torch.cuda.synchronize()
+    if no_sync:
+        torch.cuda.set_sync_debug_mode("error")
+    out = fn()
+    torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    counts = {**br.launches, **pc.launches}
+    want = {k: expect.get(k, 0) for k in counts}
+    require(counts == want, f"render {name}: launches {counts}, want {want}")
+    for k, v in counts.items():
+        launches_total[k] += v
+    return out, {k: v for k, v in counts.items() if v}
+
+
+def check_serving(name: str, table, S: int, K: int, k: int,
+                  launches_total: dict, reps: int) -> dict:
+    """BatchedStream.push_many of K device-staged blocks per stream, heads
+    moving 2° per push, with no host sync; then the float64 plain check
+    and the kernel / plain fp32 timings of the same burst."""
+    import numpy as np
+    import torch
+
+    import tinaural_torch as tt
+    from tinaural_torch.models.streaming import StreamState, _batch_scan_core
+    from tinaural_torch.ops import partitioned_conv as pc
+
+    B = 256
+    cfg = tt.RenderConfig(stream_block=B, stream_update_rate=k)
+    dev = table.device
+    rng = np.random.default_rng(S + K + k)
+    blocks = torch.tensor(rng.standard_normal((K, S, B)), dtype=torch.float32,
+                          device=dev)
+    azs = torch.tensor((np.linspace(0, 350, S)[None]
+                        + 2.0 * np.arange(K)[:, None]) % 360.0,
+                       dtype=torch.float32, device=dev)
+    els = torch.zeros_like(azs)
+    bs = tt.BatchedStream(table, S, cfg)
+    st0 = bs.state
+    n_upd = -(-K // k)
+    ys, counts = _counts_after(lambda: bs.push_many(blocks, azs, els),
+                               {"assemble_partitions": n_upd,
+                                "stream_conv": K}, name, launches_total,
+                               no_sync=True)
+    require(bool(torch.isfinite(ys).all()), f"render {name}: not finite")
+
+    def core(bl, st, plain=False):
+        ops = ((pc.stream_step_reference, pc.stream_hold_reference) if plain
+               else (pc.stream_step, pc.stream_hold))
+        return _batch_scan_core(table, st, bl, azs, els, cfg, *ops)[1]
+
+    require(torch.equal(ys, core(blocks, st0)),
+            f"render {name}: public call and core differ")
+    st64 = StreamState(*(t.double() for t in st0))
+    s = snr_db(core(blocks.double(), st64, plain=True), ys)
+    require(s >= RENDER_SNR_DB, f"render {name}: SNR {s:.2f}")
+    ms = cuda_ms(lambda: core(blocks, st0), reps) / K
+    plain_ms = cuda_ms(lambda: core(blocks, st0, plain=True), reps) / K
+    block_s = B / SR
+    res = {"snr_db_vs_plain_fp64": s, "S": S, "K": K, "update_rate": k,
+           "taps": table.taps, "launches": counts,
+           "kernel_ms_per_block": ms, "plain_fp32_ms_per_block": plain_ms,
+           "kernel_realtime_listeners": S * block_s / (ms / 1e3),
+           "plain_fp32_realtime_listeners": S * block_s / (plain_ms / 1e3)}
+    print(f"[render {name}] S={S} K={K} k={k}: SNR {s:.2f} dB vs plain fp64,"
+          f" launches {counts}, no host sync; kernel {ms:.4f} ms/block = "
+          f"{res['kernel_realtime_listeners']:.0f} real-time listeners, "
+          f"plain fp32 {plain_ms:.4f} ms/block = "
+          f"{res['plain_fp32_realtime_listeners']:.0f}", flush=True)
+    return res
+
+
+def check_latency(table, n: int, launches_total: dict) -> dict:
+    """n single Stream.push calls on host blocks, each read back to the
+    host: wall time per push, and the device time of the same pushes."""
+    import numpy as np
+    import torch
+
+    import tinaural_torch as tt
+    from tinaural_torch.models.streaming import StreamState, _scan_core
+    from tinaural_torch.ops import partitioned_conv as pc
+
+    B = 256
+    cfg = tt.RenderConfig(stream_block=B)
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((n, B)).astype(np.float32)
+    azs = ((30.0 + 2.0 * np.arange(n)) % 360.0).astype(np.float32)
+
+    def pushes(s, host):
+        out = []
+        for i in range(n):
+            y = s.push(x[i], float(azs[i]), 0.0)
+            out.append(y.cpu() if host else y)
+        return out
+
+    s = tt.Stream(table, cfg)
+    st0 = s.state
+    ys, counts = _counts_after(lambda: pushes(s, False),
+                               {"assemble_partitions": n, "stream_conv": n},
+                               "f latency", launches_total, no_sync=False)
+    y = torch.cat(ys, dim=-1)
+    dirs = torch.tensor(np.stack([azs, np.zeros(n, np.float32)], -1),
+                        device=table.device)
+    xb = torch.tensor(x, device=table.device)
+    st64 = StreamState(*(t.double() for t in st0))
+    y64 = _scan_core(table, st64, xb.double(), dirs, cfg,
+                     pc.stream_step_reference, pc.stream_hold_reference)[1]
+    s64 = snr_db(y64, y)
+    require(s64 >= RENDER_SNR_DB, f"render f latency: SNR {s64:.2f}")
+    walls = []
+    s = tt.Stream(table, cfg)
+    for i in range(n):
+        t0 = time.perf_counter()
+        s.push(x[i], float(azs[i]), 0.0).cpu()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    dev_ms = profiled_device_ms(lambda: pushes(tt.Stream(table, cfg), True)) / n
+    res = {"snr_db_vs_plain_fp64": s64, "pushes": n, "launches": counts,
+           "wall_ms_per_push_median": float(np.median(walls)),
+           "wall_ms_per_push_max": float(np.max(walls)),
+           "device_ms_per_push": dev_ms if dev_ms > 0 else "not measured"}
+    print(f"[render f latency] {n} Stream.push: SNR {s64:.2f} dB vs plain "
+          f"fp64, launches {counts}; wall {res['wall_ms_per_push_median']:.3f}"
+          f" ms/push median (max {res['wall_ms_per_push_max']:.3f}), device "
+          f"{res['device_ms_per_push']} ms/push (profiler)", flush=True)
+    return res
+
+
+def check_streamed(table, N: int, launches_total: dict, reps: int) -> dict:
+    """render_streamed of N samples at block 512, bench.py's BRIR
+    direction track; float64 plain check and both routes' throughput."""
+    import numpy as np
+    import torch
+
+    import tinaural_torch as tt
+    from tinaural_torch.models.renderer import _partitioned_core
+    from tinaural_torch.ops import partitioned_conv as pc
+
+    B = 512
+    cfg = tt.RenderConfig(stream_block=B)
+    nb = N // B
+    x = np.random.default_rng(6).standard_normal(N).astype(np.float32)
+    dirs = np.stack([np.linspace(0, 350, nb) % 360,
+                     20 * np.sin(np.linspace(0, 9, nb))],
+                    axis=1).astype(np.float32)
+    r = tt.BinauralRenderer(table, cfg)
+    y, counts = _counts_after(lambda: r.render_streamed(x, dirs),
+                              {"assemble_partitions": 1,
+                               "partitioned_conv": 1}, "g streamed",
+                              launches_total, no_sync=False)
+    require(bool(torch.isfinite(y).all()), "render g: not finite")
+    xb = torch.tensor(x.reshape(nb, B), device=table.device)
+    dirs_t = torch.tensor(dirs, device=table.device)
+    core = lambda xx, render=pc.partitioned_render: _partitioned_core(
+        table, xx, dirs_t, cfg, render=render)
+    require(torch.equal(y, core(xb)), "render g: public call and core differ")
+    s = snr_db(core(xb.double(), pc.partitioned_render_reference), y)
+    require(s >= RENDER_SNR_DB, f"render g: SNR {s:.2f}")
+    ms = cuda_ms(lambda: core(xb), reps)
+    plain_ms = cuda_ms(lambda: core(xb, pc.partitioned_render_reference), reps)
+    res = {"snr_db_vs_plain_fp64": s, "shape": list(y.shape),
+           "launches": counts, "kernel_ms": ms, "plain_fp32_ms": plain_ms,
+           "kernel_audio_sec_per_sec": N / SR / (ms / 1e3),
+           "plain_fp32_audio_sec_per_sec": N / SR / (plain_ms / 1e3)}
+    print(f"[render g streamed] 2^{N.bit_length() - 1} samples, {table.taps} "
+          f"taps, B={B}: SNR {s:.2f} dB vs plain fp64, launches {counts}, "
+          f"kernel {ms:.3f} ms = {res['kernel_audio_sec_per_sec']:.1f} "
+          f"audio-s/s, plain fp32 {plain_ms:.3f} ms = "
+          f"{res['plain_fp32_audio_sec_per_sec']:.1f} audio-s/s", flush=True)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -197,6 +564,7 @@ def main() -> int:
                                                 _scene_static_core,
                                                 _trajectory_core)
     from tinaural_torch.ops import _build
+    from tinaural_torch.ops import partitioned_conv as pc
 
     # 1. device
     card = card_line()
@@ -230,9 +598,21 @@ def main() -> int:
     k_scene = check_kernels(table, 64, 128, True, "scene", reps=5)
     check_kernels(table, 64, 128, False, "static scene", reps=5)
 
+    # 3b. the partitioned-convolution kernels against their plain versions
+    brir = tt.TorchTable.from_hrir_table(
+        tt.load_hrir_set("synthetic", taps=2048), dev)
+    k_serve = check_stream_kernels(table, 1024, 256, "stream 128 taps P=1",
+                                   reps=10)
+    k_brir = check_stream_kernels(brir, 64, 256, "stream 2048 taps P=9",
+                                  reps=10)
+    k_part = check_partitioned_kernels(brir, 2048, 512,
+                                       "partitioned 2048 taps P=5", reps=5)
+    check_stream_chain(brir, 64, 256, 12, "stream 2048 taps P=9")
+    check_stream_chain(table, 1024, 256, 4, "stream 128 taps P=1")
+
     # 4. the renders
     r = tt.BinauralRenderer(table, cfg)
-    launches = dict.fromkeys(k_traj, 0)
+    launches = dict.fromkeys([*k_traj, *pc.KERNELS], 0)
     renders = {}
 
     rng = np.random.default_rng(0)
@@ -269,6 +649,16 @@ def main() -> int:
                                               cfg, render=render),
         S * N / SR, launches, reps=3)
 
+    # 4b. the streaming and partitioned renders
+    renders["d_serving"] = check_serving("d serving", table, 1024, 32, 1,
+                                         launches, reps=3)
+    renders["e_brir_serving_k1"] = check_serving("e BRIR serving", brir, 64,
+                                                 8, 1, launches, reps=3)
+    renders["e_brir_serving_k4"] = check_serving("e BRIR serving", brir, 64,
+                                                 8, 4, launches, reps=3)
+    renders["f_latency"] = check_latency(table, 64, launches)
+    renders["g_streamed"] = check_streamed(brir, 1 << 20, launches, reps=3)
+
     kernels = [{"name": name, "route": "cuda", "source": SOURCE,
                 "replaces": REPLACES, "launches": launches[name],
                 "max_abs_err": k_traj[name]["max_abs_err"],
@@ -276,6 +666,32 @@ def main() -> int:
                 "scene_ms": k_scene[name]["ms"],
                 "scene_plain_ms": k_scene[name]["plain_ms"]}
                for name in k_traj]
+    # main shapes: the serving step (128 taps, S = 1024) and the offline
+    # BRIR render; the BRIR serving step's times ride along
+    main = {"assemble_partitions": k_serve, "stream_conv": k_serve,
+            "partitioned_conv": k_part}
+    extra = {"assemble_partitions": {
+                 "brir_stream_ms": k_brir["assemble_partitions"]["ms"],
+                 "brir_stream_plain_ms":
+                     k_brir["assemble_partitions"]["plain_ms"]},
+             "stream_conv": {
+                 "hold_ms": k_serve["stream_conv_hold"]["ms"],
+                 "hold_plain_ms": k_serve["stream_conv_hold"]["plain_ms"],
+                 "brir_stream_ms": k_brir["stream_conv"]["ms"],
+                 "brir_stream_plain_ms": k_brir["stream_conv"]["plain_ms"],
+                 "brir_hold_ms": k_brir["stream_conv_hold"]["ms"],
+                 "brir_hold_plain_ms": k_brir["stream_conv_hold"]["plain_ms"]}}
+    for name in pc.KERNELS:
+        first, *also = PART_REPLACES[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": PART_SOURCE,
+            "replaces": f"{PALLAS}:{first}",
+            "also_replaces": [f"{PALLAS}:{n}" for n in also],
+            "launches": launches[name],
+            "max_abs_err": main[name][name]["max_abs_err"],
+            "ms": main[name][name]["ms"],
+            "plain_ms": main[name][name]["plain_ms"],
+            **extra.get(name, {})})
     print(json.dumps({"renders": renders}), flush=True)
     print(f"card: {card_line()}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,4 +1,8 @@
-"""The CUDA kernels against their plain versions, on a card.
+"""The CUDA kernels against their plain versions, on a card: the block
+render's three and the partitioned convolution's three (the streaming step
+with its hold step at P = 1, 5 and 9, S = 1 and block 128, a batched
+stream's offline render, and the partitioned offline render, chunked and
+whole).
 
 This file imports neither the JAX package nor the shared conftest (which
 does), so it also runs where `tinaural` cannot be imported, as on a
@@ -16,7 +20,10 @@ import torch
 import tinaural_torch
 from tinaural_torch.data import TorchTable
 from tinaural_torch.models.renderer import _n_fft, _neighbours
+from tinaural_torch.models.streaming import (StreamState, _batch_scan_core,
+                                             init_state)
 from tinaural_torch.ops import block_render as br
+from tinaural_torch.ops import partitioned_conv as pc
 
 torch.set_num_threads(1)
 
@@ -92,3 +99,141 @@ def test_cuda_route_rejects_bad_inputs(table):
         br.block_render(xbs, idx + 5000, w, table, n_fft, **flags)
     with pytest.raises(ValueError):
         br.block_render(xbs.cpu(), idx, w, table, n_fft, **flags)
+
+
+# ---------------------------------------------------------------- partitioned
+
+
+@pytest.fixture(scope="module")
+def long_tables():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return {taps: TorchTable.from_hrir_table(
+        tinaural_torch.load_hrir_set("synthetic", taps=taps),
+        torch.device("cuda")) for taps in (128, 2048)}
+
+
+def _rows(t, shape, seed):
+    rng = np.random.default_rng(seed)
+    dirs = np.stack([rng.uniform(0, 360, shape),
+                     rng.uniform(-40, 90, shape)], -1).astype(np.float32)
+    return _neighbours(t, torch.from_numpy(dirs).to(t.device),
+                       tinaural_torch.RenderConfig())
+
+
+FLAGS = dict(apply_itd=True, apply_ild=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("taps,B", [(128, 256), (2048, 512), (2048, 256),
+                                    (128, 128)])
+def test_assemble_partitions_matches_plain(long_tables, taps, B):
+    t = long_tables[taps]
+    idx, w = _rows(t, (6,), seed=B)
+    hr, hi = pc.assemble_partitions_cuda(idx, w, t, B, **FLAGS)
+    r64, i64 = pc.assemble_partitions_reference(idx, w.double(), t, B, **FLAGS)
+    assert hr.shape == (6, -(-(taps + 64) // B), 2, B + 1)
+    assert _snr_db(torch.complex(r64, i64), torch.complex(hr, hi)) >= 100
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("taps,B,S", [(128, 256, 5), (2048, 512, 3),
+                                      (2048, 256, 1), (128, 128, 2)])
+def test_stream_conv_chain_matches_plain(long_tables, taps, B, S):
+    """Update, update, hold, update: every kernel output against the plain
+    float64 step on the same carried state, over a chain that carries the
+    delay line and the previous filter."""
+    t = long_tables[taps]
+    cfg = tinaural_torch.RenderConfig(stream_block=B)
+    st = init_state(t, cfg, S)
+    rng = np.random.default_rng(taps + B + S)
+    for i, update in enumerate((True, True, False, True)):
+        xb = torch.from_numpy(rng.standard_normal((S, B)).astype(np.float32)
+                              ).to(t.device)
+        args = (xb, st.prev_in, st.fdl_re, st.fdl_im, st.prev_h_re,
+                st.prev_h_im, st.started)
+        args64 = tuple(a.double() for a in args)
+        if update:
+            idx, w = _rows(t, (S,), seed=10 * i)
+            got = pc.stream_step(t, idx, w, *args, crossfade=True, **FLAGS)
+            ref = pc.stream_step_reference(t, idx, w.double(), *args64,
+                                           crossfade=True, **FLAGS)
+        else:
+            got = pc.stream_hold(*args)
+            ref = pc.stream_hold_reference(*args64)
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            assert g.shape == r.shape
+            assert _snr_db(r, g) >= 100, i
+        h = got[4:] if update else (st.prev_h_re, st.prev_h_im)
+        st = st._replace(prev_in=got[1], fdl_re=got[2], fdl_im=got[3],
+                         prev_h_re=h[0], prev_h_im=h[1],
+                         started=torch.ones_like(st.started))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("taps,B,crossfade", [(2048, 512, True),
+                                              (2048, 256, True),
+                                              (128, 256, False),
+                                              (128, 128, True)])
+def test_partitioned_conv_matches_plain(long_tables, taps, B, crossfade,
+                                        monkeypatch):
+    t = long_tables[taps]
+    nb = 40
+    idx, w = _rows(t, (nb,), seed=nb + B)
+    xb = torch.from_numpy(np.random.default_rng(B).standard_normal(
+        (nb, B)).astype(np.float32)).to(t.device)
+    hr, hi = pc.assemble_partitions_cuda(idx, w, t, B, **FLAGS)
+    y = pc.partitioned_conv_cuda(xb, hr, hi, crossfade=crossfade)
+    y64 = pc.partitioned_conv_reference(xb.double(), hr.double(), hi.double(),
+                                        crossfade=crossfade)
+    assert _snr_db(y64, y) >= 100
+    kw = dict(crossfade=crossfade, **FLAGS)
+    whole = pc.partitioned_render(xb, idx, w, t, **kw)
+    monkeypatch.setattr(pc, "CHUNK_BYTES", 3 * hr[0].numel() * 8)  # 3 blocks
+    chunked = pc.partitioned_render(xb, idx, w, t, **kw)
+    assert torch.equal(whole, chunked)
+    ref = pc.partitioned_render_reference(xb.double(), idx, w, t, **kw)
+    assert _snr_db(ref, whole) >= 100
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 4])
+def test_batched_render_offline_matches_plain(long_tables, k):
+    """BatchedStream.render_offline, whose burst reaches the kernels as a
+    transposed view, against the plain float64 chain of the same pushes."""
+    t = long_tables[128]
+    cfg = tinaural_torch.RenderConfig(stream_update_rate=k)
+    B, S, nb = cfg.stream_block, 3, 7
+    rng = np.random.default_rng(k)
+    xs = torch.from_numpy(rng.standard_normal((S, nb * B)).astype(np.float32)
+                          ).to(t.device)
+    dirs = torch.from_numpy(rng.uniform(0, 90, (S, nb, 2)).astype(np.float32)
+                            ).to(t.device)
+    y = tinaural_torch.BatchedStream(t, S, cfg).render_offline(xs, dirs)
+    st64 = StreamState(*(f.double() for f in init_state(t, cfg, S)))
+    ys = _batch_scan_core(t, st64, xs.double().reshape(S, nb, B).transpose(0, 1),
+                          dirs[..., 0].T, dirs[..., 1].T, cfg,
+                          pc.stream_step_reference, pc.stream_hold_reference)[1]
+    assert _snr_db(ys.permute(1, 2, 0, 3).reshape(S, 2, nb * B), y) >= 100
+
+
+@pytest.mark.gpu
+def test_partitioned_cuda_route_rejects_bad_inputs(long_tables):
+    t = long_tables[128]
+    B, S = 256, 2
+    st = init_state(t, tinaural_torch.RenderConfig(stream_block=B), S)
+    xb = torch.zeros((S, B), device=t.device)
+    with pytest.raises(TypeError):
+        pc.stream_hold(xb.double(), *(f.double() for f in st[:5]),
+                       st.started.double())
+    with pytest.raises(ValueError):
+        pc.stream_hold(xb, st.prev_in, st.fdl_re[:1], *st[2:])
+    with pytest.raises(ValueError):
+        pc.stream_hold(xb, st.prev_in.cpu(), *st[1:])
+    idx, w = _rows(t, (4,), seed=0)
+    with pytest.raises(TypeError):
+        pc.partitioned_render(torch.zeros((4, B), device=t.device,
+                                          dtype=torch.float64),
+                              idx, w, t, crossfade=True, **FLAGS)

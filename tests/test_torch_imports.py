@@ -16,6 +16,7 @@ torch.set_num_threads(1)
 import tinaural_torch
 from tinaural_torch.models.renderer import _neighbours
 from tinaural_torch.ops import block_render as br
+from tinaural_torch.ops import partitioned_conv as pc
 assert not any(m == "jax" or m.startswith(("jax.", "flax", "tinaural."))
                or m == "tinaural" for m in sys.modules), "JAX package imported"
 t = tinaural_torch.TorchTable.from_hrir_table(
@@ -23,8 +24,16 @@ t = tinaural_torch.TorchTable.from_hrir_table(
 r = tinaural_torch.BinauralRenderer(t, tinaural_torch.RenderConfig(block_size=256))
 y = r.render_trajectory(np.ones(1000, np.float32), np.zeros((4, 2), np.float32))
 assert y.shape == (2, 1000 + 191) and bool(torch.isfinite(y).all())
+s = tinaural_torch.Stream(t)
+assert s.push(np.ones(256, np.float32), 30.0, 0.0).shape == (2, 256)
+bs = tinaural_torch.BatchedStream(t, 2, tinaural_torch.RenderConfig(
+    stream_update_rate=2))
+assert bs.push_many(np.ones((3, 2, 256), np.float32), np.zeros(2),
+                    np.zeros(2)).shape == (3, 2, 2, 256)
+assert r.render_streamed(np.ones(1024, np.float32),
+                         np.zeros((4, 2), np.float32)).shape == (2, 1024)
 assert "tinaural_torch.ops._build" not in sys.modules, "CPU route reached the build"
-assert all(v == 0 for v in br.launches.values())
+assert all(v == 0 for v in (*br.launches.values(), *pc.launches.values()))
 assert "jax" not in sys.modules and "flax" not in sys.modules
 print("ok")
 """

@@ -10,6 +10,7 @@ picked by the device of the tensors: CUDA tensors run the kernels of
 from .config import DEFAULT_CONFIG, RenderConfig
 from .data import HrirArrays, TorchTable, load_hrir_set
 from .models.renderer import BinauralRenderer, render_scene, render_trajectory
+from .models.streaming import BatchedStream, Stream, StreamState, init_state
 
 __version__ = "0.1.0"
 
@@ -22,4 +23,8 @@ __all__ = [
     "BinauralRenderer",
     "render_trajectory",
     "render_scene",
+    "Stream",
+    "BatchedStream",
+    "StreamState",
+    "init_state",
 ]

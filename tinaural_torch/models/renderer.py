@@ -1,9 +1,10 @@
 """Moving-source and scene renderers.
 
 Counterpart of `tinaural.models.renderer`'s default route: every moving
-source, moving scene and static scene ends in one `block_render` call —
-the hand-written CUDA kernels for tensors on the card, the plain torch
-version for tensors on the CPU. Numerical semantics are those of
+source, moving scene and static scene ends in one `block_render` call, and
+`render_streamed` in one `partitioned_render` call — the hand-written CUDA
+kernels for tensors on the card, the plain torch versions for tensors on
+the CPU. Numerical semantics are those of
 `tinaural.reference.golden` (≥60 dB SNR; f32 against f64 in practice
 ~90 dB).
 """
@@ -18,6 +19,7 @@ from ..data.table import DELAY_PAD, TorchTable
 from ..ops.block_render import block_render
 from ..ops.filters import next_pow2
 from ..ops.interp import direction_weights
+from ..ops.partitioned_conv import partitioned_render
 
 
 def _n_fft(table: TorchTable, B: int) -> int:
@@ -36,14 +38,20 @@ def _snap_dirs(dirs, dir_rate: int):
 
 
 def _neighbours(table: TorchTable, dirs: torch.Tensor, config: RenderConfig):
-    """dirs (S, nb, 2) → flat table rows idx (S, nb, 4) int32 and bilinear
-    (or nearest) weights w (S, nb, 4) f32, contiguous."""
-    S, nb, _ = dirs.shape
-    flat = dirs.reshape(S * nb, 2)
+    """dirs (..., 2) → flat table rows idx (..., 4) int32 and bilinear (or
+    nearest) weights w (..., 4) f32, contiguous."""
+    lead = dirs.shape[:-1]
+    flat = dirs.reshape(-1, 2)
     eidx, aidx, w = direction_weights(table.elevs, table.az_counts,
                                       flat[:, 0], flat[:, 1], config.interp)
-    idx = (eidx * table.a_max + aidx).to(torch.int32).reshape(S, nb, 4)
-    return idx, w.to(torch.float32).reshape(S, nb, 4).contiguous()
+    idx = (eidx * table.a_max + aidx).to(torch.int32).reshape(*lead, 4)
+    return idx, w.to(torch.float32).reshape(*lead, 4).contiguous()
+
+
+def _flags(table: TorchTable, config: RenderConfig) -> dict:
+    """ITD/ILD apply only to decomposed tables."""
+    return dict(apply_itd=bool(table.decomposed and config.apply_itd),
+                apply_ild=bool(table.decomposed and config.apply_ild))
 
 
 def _block_render(table: TorchTable, xbs: torch.Tensor, dirs: torch.Tensor,
@@ -54,9 +62,7 @@ def _block_render(table: TorchTable, xbs: torch.Tensor, dirs: torch.Tensor,
     ``render`` is `block_render` or, for checks, a plain version of it."""
     idx, w = _neighbours(table, dirs, config)
     return render(xbs, idx, w, table, _n_fft(table, xbs.shape[-1]),
-                  crossfade=crossfade,
-                  apply_itd=bool(table.decomposed and config.apply_itd),
-                  apply_ild=bool(table.decomposed and config.apply_ild))
+                  crossfade=crossfade, **_flags(table, config))
 
 
 def _trajectory_core(table: TorchTable, xb: torch.Tensor, dirs: torch.Tensor,
@@ -85,6 +91,20 @@ def _scene_static_core(table: TorchTable, xbs: torch.Tensor,
     S, nb, _ = xbs.shape
     dirs_b = dirs[:, None, :].expand(S, nb, 2)
     return _block_render(table, xbs, dirs_b, config, False, render)
+
+
+def _partitioned_core(table: TorchTable, xb: torch.Tensor,
+                      dirs: torch.Tensor, config: RenderConfig,
+                      render=partitioned_render) -> torch.Tensor:
+    """Batched partitioned convolution: the streaming renderer's map with
+    every block at once. xb: (nb, B); dirs: (nb, 2) → (2, nb·B). Reads
+    ``dir_rate`` (snapped track); ``stream_update_rate`` is the streams'
+    knob. ``render`` is `partitioned_render` or, for checks, its plain
+    version."""
+    dirs = _snap_dirs(dirs, config.dir_rate)
+    idx, w = _neighbours(table, dirs, config)
+    return render(xb, idx, w, table, crossfade=config.crossfade,
+                  **_flags(table, config))
 
 
 def _dedupe_sources(xs: np.ndarray, dirs: np.ndarray, config: RenderConfig):
@@ -192,6 +212,29 @@ class BinauralRenderer:
         core = _scene_static_core if static else _scene_core
         y = core(self.table, xbs, self._dirs(dirs), self.config)
         return y[:, : self._out_len(N)]
+
+    def render_streamed(self, x, dirs) -> torch.Tensor:
+        """What `Stream.push` would give block by block, as one batched
+        partitioned convolution (frame 2·stream_block, so the filter length
+        never grows the FFT). x: (N,), N a positive multiple of
+        ``config.stream_block``; dirs: (n_blocks, 2) → (2, N).
+
+        Equal to `Stream.render_offline` at the default knobs. This route
+        reads ``dir_rate`` (snapped track) and ignores
+        ``stream_update_rate``; the streams do the reverse, so at either
+        knob > 1 the two differ by design."""
+        B = self.config.stream_block
+        x = np.asarray(x, dtype=np.float32)
+        if x.ndim != 1:
+            raise ValueError(f"x must be a mono signal (N,), got {x.shape}")
+        if x.shape[0] == 0 or x.shape[0] % B:
+            raise ValueError(f"signal length must be a positive multiple of {B}")
+        nb = x.shape[0] // B
+        dirs = np.asarray(dirs, dtype=np.float32)
+        if dirs.shape != (nb, 2):
+            raise ValueError(f"dirs must be ({nb}, 2), got {dirs.shape}")
+        xb = torch.from_numpy(x.reshape(nb, B)).to(self.device)
+        return _partitioned_core(self.table, xb, self._dirs(dirs), self.config)
 
 
 def render_trajectory(table: TorchTable, x, dirs,

@@ -1,2 +1,2 @@
-"""Render-time ops: direction lookup, filter assembly, overlap-add and the
-block-render kernels."""
+"""Render-time ops: direction lookup, filter assembly, overlap-add, and the
+block-render and partitioned-convolution kernels."""

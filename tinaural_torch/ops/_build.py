@@ -1,6 +1,7 @@
 """Build the package's CUDA sources at first use and bind them with ctypes.
 
-`nvcc` compiles ``tinaural_torch/csrc/*.cu`` for ``sm_90a`` into one shared
+`nvcc` compiles each ``tinaural_torch/csrc/*.cu`` for ``sm_90a`` (all of
+them at once, one process per source) and links them into one shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds). The library lands in ``tinaural_torch/_build/`` under a name keyed
 by a hash of the sources and flags, and is rebuilt only when they change.
@@ -21,13 +22,16 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "tt_assemble_filters": [_P] * 6 + [_I] * 6 + [_F] * 4 + [_P],
     "tt_block_spectra_mix_inverse": [_P] * 3 + [_I] * 5 + [_P],
     "tt_overlap_add": [_P] * 2 + [_I] * 3 + [_P],
+    "tt_assemble_partitions": [_P] * 7 + [_I] * 7 + [_F] * 4 + [_P],
+    "tt_stream_conv": [_P] * 13 + [_I] * 4 + [_P],
+    "tt_partitioned_conv": [_P] * 4 + [_I] * 7 + [_P],
 }
 
 
@@ -60,17 +64,31 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    tag = f"{out.stem}.{os.getpid()}"
+    compiles = []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        compiles.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log = [proc.communicate()[0] for _, _, proc in compiles]
+    for (cmd, _, proc), text in zip(compiles, log):
+        _check_nvcc(cmd, proc.returncode, text)
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+           *[str(obj) for _, obj, _ in compiles]]
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    _check_nvcc(cmd, proc.returncode, proc.stdout + proc.stderr)
+    for _, obj, _ in compiles:
+        obj.unlink()
+    out.with_suffix(".log").write_text("".join(log))
     os.replace(tmp, out)
     return out
+
+
+def _check_nvcc(cmd: list[str], rc: int, output: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{output}")
 
 
 @functools.cache

@@ -143,3 +143,29 @@ def effective_filter(h: torch.Tensor, d: torch.Tensor, g: torch.Tensor,
     L = next_pow2(T_pad)
     H = torch.fft.rfft(h, n=L) * delay_ramp(L, _clip_delay(d)) * g[..., None]
     return torch.fft.irfft(H, n=L)[..., :T_pad]
+
+
+def n_parts(taps: int, block: int) -> int:
+    """Partitions of ``block`` samples that cover the effective filter."""
+    return -(-(taps + DELAY_PAD) // block)
+
+
+def partition_spectra(h_eff: torch.Tensor, block: int) -> torch.Tensor:
+    """rfft_2B of the B-sample partitions of effective filters, each
+    zero-padded to 2B (`golden.partition_filter`). h_eff: (..., 2, T_eff)
+    → (..., P, 2, block+1)."""
+    P = -(-h_eff.shape[-1] // block)
+    parts = torch.nn.functional.pad(h_eff, (0, P * block - h_eff.shape[-1]))
+    parts = parts.reshape(*h_eff.shape[:-1], P, block)
+    return torch.fft.rfft(parts, n=2 * block).transpose(-3, -2)
+
+
+def filter_partitions(h: torch.Tensor, d: torch.Tensor, g: torch.Tensor,
+                      taps: int, block: int) -> torch.Tensor:
+    """Streaming / partitioned-convolution filter spectra through the FFT
+    chain, in h's precision: the map of `tinaural.ops.filters.
+    filter_partitions` (whose zoom-matmul branch is the same linear map).
+
+    h: (..., 2, taps); d, g: (..., 2) → (..., P, 2, block+1) complex.
+    """
+    return partition_spectra(effective_filter(h, d, g, taps), block)
