@@ -14,6 +14,9 @@ Phases, each of which fails the run on any error (nothing is caught):
      and 2048 taps (S = 64, B = 256, P = 9), the offline render at 2048
      taps (nb = 2048, B = 512, P = 5), and a chain of pushes that carries
      the delay line and the previous filter;
+  3c. the block-step kernels (`block_spectra`, `spectra_inverse`, the
+     per-source `overlap_add`) against their plain versions at S = 64,
+     nb = 128 and at S = 32, nb = 1 (B = 1024, 128 taps), SNR ≥ 100 dB;
   4. the renders through the public entry points — (a) a 2^23-sample
      trajectory, (b) a 64-source moving scene and (c) a 64-source static
      scene of 2^17 samples each — with every kernel's launch count read
@@ -25,14 +28,26 @@ Phases, each of which fails the run on any error (nothing is caught):
      serving, 64 streams × 8 blocks at 2048 taps, update rate 1 and 4;
      (f) 64 single `Stream.push` calls; (g) `render_streamed` of 2^20
      samples at 2048 taps — (d) and (e) under
-     ``torch.cuda.set_sync_debug_mode("error")``, so a host sync fails.
-The line before the last is the kernels' JSON record; the last line is
+     ``torch.cuda.set_sync_debug_mode("error")``, so a host sync fails;
+  4c. (h) static `render` of 2^22 samples at (123.4°, 5.6°) and one short
+     call on the direct route; (i) `render_batch` of 64 requests × 2^17
+     samples on moving tracks; (j) the sizes above
+     shared memory: `render_streamed` at 44,100 taps (L = 65536, P = 87)
+     and a trajectory at 16,384 taps (n_fft = 32768) — each against the
+     float64 plain path (SNR ≥ 100 dB) with its exact launch counts;
+  5. one torch.profiler window per block render, after every timing: device
+     busy time, idle share and the largest kernels.
+Every render reads every kernel's launch count, all set to 0 just before
+it. The line before the last is the kernels' JSON record (with each
+kernel's bound: the larger of its bytes over 3.35 TB/s and its FLOPs,
+FFTs counted as 5·n·log2 n, over 67 TFLOP/s fp32); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -41,14 +56,53 @@ SR = 44100
 B = 1024
 KERNEL_SNR_DB = 100.0
 RENDER_SNR_DB = 60.0
+NEW_RENDER_SNR_DB = 100.0  # renders (h)–(j)
 SOURCE = "tinaural_torch/csrc/block_render.cu"
-REPLACES = "tinaural/ops/pallas_kernels.py:1089"
 PART_SOURCE = "tinaural_torch/csrc/partitioned.cu"
+STEP_SOURCE = "tinaural_torch/csrc/block_step.cu"
 PALLAS = "tinaural/ops/pallas_kernels.py"
 # each partitioned kernel → the TPU kernels it replaces (def lines)
 PART_REPLACES = {"assemble_partitions": (2215, 1710),
                  "stream_conv": (2215, 2338),
                  "partitioned_conv": (1413, 1710)}
+FUSED_BLOCK_RENDER, FUSED_BLOCK_STEP, FUSED_EPILOGUE = 1089, 814, 2587
+# the card's peaks (NVIDIA H100 SXM data sheet, at 700 W)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+
+
+def fft_flops(n: int) -> float:
+    """Operations of one complex n-point FFT, by the usual 5·n·log2 n."""
+    return 5.0 * n * math.log2(n)
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: the larger of the bytes moved
+    (each input read once, each output written once) over the memory rate
+    and the operations over the fp32 rate."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    tf = flops / FP32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(tb, tf), "bound_by": "bytes" if tb >= tf
+            else "operations"}
+
+
+def table_bytes(table) -> int:
+    return 4 * (table.h.numel() + table.delays.numel() + table.gains.numel())
+
+
+def assembly_work(table, rows: int, n_fft: int) -> dict:
+    """assemble_filters: gather and lerp of 4 rows, rfft_L, ramp·gain,
+    irfft_L, rfft_nfft per row."""
+    L = 1 << math.ceil(math.log2(table.taps + 64))
+    F = n_fft // 2 + 1
+    return bound(rows * 32 + table_bytes(table) + rows * 2 * F * 8,
+                 rows * (16 * table.taps + 2 * fft_flops(L) + 16 * (L // 2 + 1)
+                         + fft_flops(n_fft)))
+
+
+def ola_work(S: int, nb: int, B: int, n_fft: int) -> dict:
+    out = (nb - 1) * B + n_fft
+    return bound(S * nb * 2 * n_fft * 4 + S * 2 * out * 4, S * nb * 2 * n_fft)
 
 
 def card_line() -> str:
@@ -130,7 +184,7 @@ def check_kernels(table, S: int, nb: int, crossfade: bool, label: str,
                                                crossfade=crossfade)
     frames_ref = br.block_spectra_mix_inverse_reference(
         xbs, H, n_fft, crossfade=crossfade)
-    out = br.overlap_add_cuda(frames, B)
+    out = br.overlap_add_cuda(frames[None], B)[0]
     out_ref = br.overlap_add(frames.transpose(0, 1), B)
     torch.cuda.synchronize()
 
@@ -146,7 +200,7 @@ def check_kernels(table, S: int, nb: int, crossfade: bool, label: str,
              lambda: br.block_spectra_mix_inverse_reference(
                  xbs, H, n_fft, crossfade=crossfade)),
             ("overlap_add", out, out_ref,
-             lambda: br.overlap_add_cuda(frames, B),
+             lambda: br.overlap_add_cuda(frames[None], B),
              lambda: br.overlap_add(frames.transpose(0, 1), B))):
         require(bool(torch.isfinite(torch.view_as_real(got) if got.is_complex()
                                     else got).all()), f"{name} not finite")
@@ -160,36 +214,67 @@ def check_kernels(table, S: int, nb: int, crossfade: bool, label: str,
         require(s >= KERNEL_SNR_DB, f"{name} SNR {s:.2f} < {KERNEL_SNR_DB} dB")
     print(f"[{label}] assemble_filters: SNR {snr_db(H_64, H):.2f} dB vs plain "
           f"fp64 (plain fp32: {snr_db(H_64, H_ref):.2f} dB)", flush=True)
+    F = n_fft // 2 + 1
+    mac = 16 if crossfade else 8
+    res["assemble_filters"].update(assembly_work(table, S * nb, n_fft))
+    res["block_spectra_mix_inverse"].update(bound(
+        S * nb * B * 4 + S * nb * 2 * F * 8 + nb * 2 * n_fft * 4,
+        S * nb * (fft_flops(n_fft) + 2 * F * mac) + nb * fft_flops(n_fft)))
+    res["overlap_add"].update(ola_work(1, nb, B, n_fft))
+    res["overlap_add"]["library_ms"] = fold_ms(frames[None], B, reps)
+    print(f"[{label}] bounds: " + ", ".join(
+        f"{k} {v['bound_ms']:.4f} ms ({v['bound_by']})" for k, v in res.items())
+        + f"; overlap_add library (fold) {res['overlap_add']['library_ms']:.4f}"
+        " ms", flush=True)
     return res
 
 
+def fold_ms(frames, hop: int, reps: int) -> float:
+    """Time of `torch.nn.functional.fold`, one PyTorch call that
+    overlap-adds (S, nb, 2, n) frames laid out as (S·2, n, nb), checked
+    against the plain version first."""
+    import torch
+    import torch.nn.functional as F
+
+    S, nb, _, n = frames.shape
+    out = (nb - 1) * hop + n
+    cols = frames.permute(0, 2, 3, 1).reshape(S * 2, n, nb).contiguous()
+    call = lambda: F.fold(cols, (1, out), (1, n), stride=(1, hop))
+    from tinaural_torch.ops.ola import overlap_add
+
+    ref = overlap_add(frames.transpose(1, 2), hop)
+    require(torch.allclose(call().reshape(S, 2, out), ref, atol=1e-5),
+            "fold is not the overlap-add")
+    return cuda_ms(call, reps)
+
+
+B1_COUNTS = {"assemble_filters": 1, "block_spectra_mix_inverse": 1,
+             "overlap_add": 1}
+STEP_COUNTS = {"assemble_filters": 1, "block_spectra": 1,
+               "spectra_inverse": 1, "overlap_add": 1}
+
+
 def check_render(name: str, public_call, core_call, audio_sec: float,
-                 launches_total: dict, reps: int) -> dict:
-    """One render through the public entry point with its launch counts,
-    then the float64 plain check and the kernel / plain fp32 timings, both
-    on the render core with the inputs already on the card."""
+                 expect: dict, launches_total: dict, reps: int,
+                 min_snr: float = RENDER_SNR_DB, no_sync: bool = False) -> dict:
+    """One render through the public entry point with every launch count
+    at 0 before it and exactly ``expect`` after, then the float64 plain
+    check and the kernel / plain fp32 timings, both on the render core
+    with the inputs already on the card. core_call(plain, dtype)."""
     import torch
 
-    from tinaural_torch.ops import block_render as br
-
-    br.reset_launches()
-    y = public_call()
-    torch.cuda.synchronize()
-    counts = dict(br.launches)
-    for k, v in counts.items():
-        require(v > 0, f"render {name}: kernel {k} was not launched")
-        launches_total[k] += v
+    y, counts = _counts_after(public_call, expect, name, launches_total,
+                              no_sync)
     require(bool(torch.isfinite(y).all()), f"render {name}: output not finite")
 
-    y_core = core_call(br.block_render, torch.float32)
-    y64 = core_call(br.block_render_reference, torch.float64)
-    require(torch.equal(y, y_core[:, : y.shape[1]]),
+    y_core = core_call(False, torch.float32)
+    y64 = core_call(True, torch.float64)
+    require(torch.equal(y, y_core[..., : y.shape[-1]]),
             f"render {name}: public call and core differ")
     s = snr_db(y64, y_core)
-    require(s >= RENDER_SNR_DB, f"render {name}: SNR {s:.2f} < {RENDER_SNR_DB}")
-    ms = cuda_ms(lambda: core_call(br.block_render, torch.float32), reps)
-    plain_ms = cuda_ms(
-        lambda: core_call(br.block_render_reference, torch.float32), reps)
+    require(s >= min_snr, f"render {name}: SNR {s:.2f} < {min_snr}")
+    ms = cuda_ms(lambda: core_call(False, torch.float32), reps)
+    plain_ms = cuda_ms(lambda: core_call(True, torch.float32), reps)
     res = {"snr_db_vs_plain_fp64": s, "shape": list(y.shape),
            "launches": counts, "kernel_ms": ms, "plain_fp32_ms": plain_ms,
            "kernel_audio_sec_per_sec": audio_sec / (ms / 1e3),
@@ -199,26 +284,87 @@ def check_render(name: str, public_call, core_call, audio_sec: float,
           f"{res['kernel_audio_sec_per_sec']:.1f} audio-s/s, plain fp32 "
           f"{plain_ms:.3f} ms = {res['plain_fp32_audio_sec_per_sec']:.1f} "
           f"audio-s/s", flush=True)
+    TO_PROFILE.append((name, res, lambda: core_call(False, torch.float32)))
     return res
+
+
+# (name, result, core call) of each block render, profiled once all renders
+# are timed, so that no trace runs between two timings
+TO_PROFILE = []
+
+
+def profile_renders() -> None:
+    """Each block render's core in a torch.profiler window: device busy
+    time, idle share against its CUDA-event time, and the device time of
+    its largest kernels, added to its result. A trace can come back
+    missing device events, so one counts only when it holds every kernel
+    the render launched; after three that do not, "not measured"."""
+    for name, res, fn in TO_PROFILE:
+        want = {f"{k}_kernel" for k in res["launches"]}
+        for _ in range(3):
+            busy, by_kernel = device_breakdown(fn)
+            if want <= by_kernel.keys():
+                break
+        else:
+            res["device_busy_ms"] = "not measured"
+            print(f"[profile {name}] incomplete traces: not measured",
+                  flush=True)
+            continue
+        top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6])
+        res.update(device_busy_ms=busy, device_ms_by_kernel=top,
+                   idle_share=max(0.0, 1.0 - busy / res["kernel_ms"]))
+        print(f"[profile {name}] device busy {busy:.3f} ms of "
+              f"{res['kernel_ms']:.3f} (idle {100 * res['idle_share']:.0f}%): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in top.items()),
+              flush=True)
+
+
+def device_breakdown(fn) -> tuple[float, dict]:
+    """Device time of one call of fn from a torch.profiler trace: the sum
+    of all kernel and copy times, and the time by name (kernel names cut
+    to their function)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "")
+            name = name.removeprefix("void ").split("(")[0].split("<")[0]
+            name = name.split("::")[-1].strip()
+            by[name] = by.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return sum(by.values()), by
 
 
 PART_FLAGS = dict(apply_itd=True, apply_ild=True)
 
 
 def _report(res: dict, name: str, got, ref, kern, plain, label: str,
-            reps: int) -> None:
-    """Hold one kernel output against its plain version, time both."""
+            reps: int, work: dict | None = None, library=None) -> None:
+    """Hold one kernel output against its plain version, time both (and
+    the library call, where there is one); ``work`` is its bound."""
     import torch
 
     require(bool(torch.isfinite(torch.view_as_real(got) if got.is_complex()
                                 else got).all()), f"{name} not finite")
     s = snr_db(ref, got)
     r = {"snr_db": s, "max_abs_err": max_abs(ref, got),
-         "ms": cuda_ms(kern, reps), "plain_ms": cuda_ms(plain, reps)}
+         "ms": cuda_ms(kern, reps), "plain_ms": cuda_ms(plain, reps),
+         "library_ms": cuda_ms(library, reps) if library else None,
+         **(work or {})}
     res[name] = r
     print(f"[{label}] {name}: SNR {s:.2f} dB vs plain fp32, max abs err "
           f"{r['max_abs_err']:.3e}, kernel {r['ms']:.4f} ms, plain "
-          f"{r['plain_ms']:.4f} ms", flush=True)
+          f"{r['plain_ms']:.4f} ms"
+          + (f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+             if work else "")
+          + (f", library {r['library_ms']:.4f} ms" if library else ""),
+          flush=True)
     require(s >= KERNEL_SNR_DB, f"{label} {name}: SNR {s:.2f} < "
                                 f"{KERNEL_SNR_DB} dB")
 
@@ -267,7 +413,7 @@ def check_stream_kernels(table, S: int, B: int, label: str, reps: int) -> dict:
                                                 **PART_FLAGS),
             lambda: pc.assemble_partitions_reference(idx, w, table, B,
                                                      **PART_FLAGS),
-            label, reps)
+            label, reps, partitions_work(table, S, B))
     H64 = pc.assemble_partitions_reference(idx, w.double(), table, B,
                                            **PART_FLAGS)
     print(f"[{label}] assemble_partitions: SNR "
@@ -287,11 +433,25 @@ def check_stream_kernels(table, S: int, B: int, label: str, reps: int) -> dict:
         for what, g, r in (("fdl_re", got[2], ref[2]), ("fdl_im", got[3], ref[3])):
             s = snr_db(r, g)
             require(s >= KERNEL_SNR_DB, f"{label} {name} {what}: SNR {s:.2f}")
+        n_h = 2 if cf else 1  # H and the previous filter, or H alone
         _report(res, name, got[0], ref[0],
                 lambda: pc.stream_conv_cuda(*args, crossfade=cf),
                 lambda: pc.stream_conv_reference(*args, crossfade=cf),
-                label, reps)
+                label, reps, bound(
+                    S * (B * 4 * 2 + 4 + P * (B + 1) * 8 * 2
+                         + n_h * P * 2 * (B + 1) * 8 + 3 * B * 4),
+                    S * ((1 + n_h) * fft_flops(2 * B)
+                         + n_h * P * (B + 1) * 2 * 8)))
     return res
+
+
+def partitions_work(table, rows: int, B: int) -> dict:
+    """assemble_partitions: the effective-filter chain, then P rfft_2B."""
+    L = 1 << math.ceil(math.log2(table.taps + 64))
+    P = -(-(table.taps + 64) // B)
+    return bound(rows * 32 + table_bytes(table) + rows * P * 2 * (B + 1) * 8,
+                 rows * (16 * table.taps + 2 * fft_flops(L) + 16 * (L // 2 + 1)
+                         + P * fft_flops(2 * B)))
 
 
 def check_partitioned_kernels(table, nb: int, B: int, label: str,
@@ -315,13 +475,61 @@ def check_partitioned_kernels(table, nb: int, B: int, label: str,
                                                 **PART_FLAGS),
             lambda: pc.assemble_partitions_reference(idx, w, table, B,
                                                      **PART_FLAGS),
-            label, reps)
+            label, reps, partitions_work(table, nb, B))
+    P = H[0].shape[1]
     _report(res, "partitioned_conv",
             pc.partitioned_conv_cuda(xb, *H, crossfade=True),
             pc.partitioned_conv_reference(xb, *H, crossfade=True),
             lambda: pc.partitioned_conv_cuda(xb, *H, crossfade=True),
             lambda: pc.partitioned_conv_reference(xb, *H, crossfade=True),
-            label, reps)
+            label, reps, bound(
+                nb * B * 4 + nb * P * 2 * (B + 1) * 8 + 2 * nb * B * 4,
+                nb * (-(-P // 2) * fft_flops(2 * B) + 2 * P * (B + 1) * 2 * 8
+                      + 2 * fft_flops(2 * B))))
+    return res
+
+
+def check_step_kernels(table, S: int, nb: int, label: str, reps: int) -> dict:
+    """block_spectra, spectra_inverse and the per-source overlap_add
+    against their plain fp32 versions on one set of inputs, with S − 1
+    source boundaries inside the rows."""
+    import numpy as np
+    import torch
+
+    from tinaural_torch.ops import block_render as br
+    from tinaural_torch.ops import block_step as bs
+
+    n_fft = 2048
+    F = n_fft // 2 + 1
+    idx, w = _rows(table, (S, nb), seed=S + nb)
+    xbs = torch.tensor(np.random.default_rng(nb).standard_normal((S, nb, B)),
+                       dtype=torch.float32, device=table.device)
+    H = br.assemble_filters_cuda(idx, w, table, n_fft, **PART_FLAGS)
+    Y = bs.block_spectra_cuda(xbs, H, n_fft, crossfade=True)
+    frames = bs.spectra_inverse_cuda(Y, n_fft)
+    res = {}
+    _report(res, "block_spectra", Y,
+            bs.block_spectra_reference(xbs, H, n_fft, crossfade=True),
+            lambda: bs.block_spectra_cuda(xbs, H, n_fft, crossfade=True),
+            lambda: bs.block_spectra_reference(xbs, H, n_fft, crossfade=True),
+            label, reps, bound(
+                S * nb * (B * 4 + 2 * 2 * F * 8),
+                S * nb * (fft_flops(n_fft) + 2 * F * 14)))
+    _report(res, "spectra_inverse", frames,
+            bs.spectra_inverse_reference(Y, n_fft),
+            lambda: bs.spectra_inverse_cuda(Y, n_fft),
+            lambda: bs.spectra_inverse_reference(Y, n_fft), label, reps,
+            bound(S * nb * (2 * F * 8 + 2 * n_fft * 4),
+                  S * nb * fft_flops(n_fft)),
+            library=lambda: torch.fft.irfft(Y, n=n_fft))
+    _report(res, "overlap_add", br.overlap_add_cuda(frames, B),
+            br.overlap_add(frames.transpose(1, 2), B),
+            lambda: br.overlap_add_cuda(frames, B),
+            lambda: br.overlap_add(frames.transpose(1, 2), B), label, reps,
+            ola_work(S, nb, B, n_fft))
+    res["overlap_add"]["library_ms"] = fold_ms(frames, B, reps)
+    print(f"[{label}] overlap_add library (fold) "
+          f"{res['overlap_add']['library_ms']:.4f} ms", flush=True)
     return res
 
 
@@ -356,30 +564,17 @@ def check_stream_chain(table, S: int, B: int, n: int, label: str) -> None:
     require(min(snrs) >= KERNEL_SNR_DB, f"{label}: chain SNR {min(snrs):.2f}")
 
 
-def profiled_device_ms(fn) -> float:
-    """Device time (kernels and copies) of one call of fn, from a
-    torch.profiler trace; 0.0 when the trace holds no device events."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return sum(e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-
-
 def _counts_after(fn, expect: dict, name: str, launches_total: dict,
                   no_sync: bool):
     """Run fn with every launch count at 0 and check the counts after."""
     import torch
 
     from tinaural_torch.ops import block_render as br
+    from tinaural_torch.ops import block_step as bs
     from tinaural_torch.ops import partitioned_conv as pc
 
     br.reset_launches()
+    bs.reset_launches()
     pc.reset_launches()
     torch.cuda.synchronize()
     if no_sync:
@@ -387,7 +582,7 @@ def _counts_after(fn, expect: dict, name: str, launches_total: dict,
     out = fn()
     torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    counts = {**br.launches, **pc.launches}
+    counts = {**br.launches, **bs.launches, **pc.launches}
     want = {k: expect.get(k, 0) for k in counts}
     require(counts == want, f"render {name}: launches {counts}, want {want}")
     for k, v in counts.items():
@@ -495,7 +690,7 @@ def check_latency(table, n: int, launches_total: dict) -> dict:
         t0 = time.perf_counter()
         s.push(x[i], float(azs[i]), 0.0).cpu()
         walls.append((time.perf_counter() - t0) * 1e3)
-    dev_ms = profiled_device_ms(lambda: pushes(tt.Stream(table, cfg), True)) / n
+    dev_ms = device_breakdown(lambda: pushes(tt.Stream(table, cfg), True))[0] / n
     res = {"snr_db_vs_plain_fp64": s64, "pushes": n, "launches": counts,
            "wall_ms_per_push_median": float(np.median(walls)),
            "wall_ms_per_push_max": float(np.max(walls)),
@@ -551,6 +746,137 @@ def check_streamed(table, N: int, launches_total: dict, reps: int) -> dict:
     return res
 
 
+def check_static(table, N: int, launches_total: dict, reps: int) -> dict:
+    """(h) static `render` of N samples at bench.py's direction (B = 1024)
+    on the block route, then one short call on the direct route, which
+    launches no kernel (`torch.fft` on the card)."""
+    import numpy as np
+    import torch
+
+    import tinaural_torch as tt
+    from tinaural_torch.models.renderer import (_static_block_core,
+                                                _static_core)
+    from tinaural_torch.ops import block_step as bs
+    from tinaural_torch.ops.filters import next_pow2
+
+    cfg = tt.RenderConfig(block_size=B)
+    r = tt.BinauralRenderer(table, cfg)
+    x = np.random.default_rng(3).standard_normal(N).astype(np.float32)
+    xb = torch.tensor(x.reshape(-1, B), device=table.device)
+    dir2 = torch.tensor([123.4, 5.6], device=table.device)
+    res = check_render(
+        f"h static 2^{N.bit_length() - 1}", lambda: r.render(x, 123.4, 5.6),
+        lambda plain, dt: _static_block_core(
+            table, xb.to(dt), dir2, cfg,
+            render=bs.block_step_render_reference if plain
+            else bs.block_step_render),
+        N / SR, STEP_COUNTS, launches_total, reps, NEW_RENDER_SNR_DB)
+
+    short = 4000  # under 8 blocks of 1024
+    y, counts = _counts_after(lambda: r.render(x[:short], 123.4, 5.6), {},
+                              "h direct", launches_total, no_sync=False)
+    n = next_pow2(short + table.taps + 64 - 1)
+    xs = torch.tensor(x[:short], device=table.device)
+    y64 = _static_core(table, xs.double(), dir2, cfg, n)
+    s = snr_db(y64[:, : y.shape[-1]], y)
+    require(s >= NEW_RENDER_SNR_DB, f"render h direct: SNR {s:.2f}")
+    ms = cuda_ms(lambda: _static_core(table, xs, dir2, cfg, n), reps)
+    res["direct"] = {"samples": short, "snr_db_vs_plain_fp64": s,
+                     "launches": counts, "torch_fft_ms": ms}
+    print(f"[render h direct] {short} samples: SNR {s:.2f} dB vs plain fp64,"
+          f" no kernel launched, {ms:.4f} ms", flush=True)
+    return res
+
+
+def check_batch(table, S: int, N: int, launches_total: dict,
+                reps: int) -> dict:
+    """(i) `render_batch` of S requests of N samples, each on its own
+    moving track drawn as render (b)'s directions."""
+    import numpy as np
+    import torch
+
+    import tinaural_torch as tt
+    from tinaural_torch.models.renderer import _batch_core
+    from tinaural_torch.ops import block_step as bs
+
+    cfg = tt.RenderConfig(block_size=B)
+    r = tt.BinauralRenderer(table, cfg)
+    rng = np.random.default_rng(2)
+    nb = N // B
+    xs = rng.standard_normal((S, N)).astype(np.float32)
+    dirs = np.stack([rng.uniform(0, 360, (S, nb)),
+                     rng.uniform(-40, 90, (S, nb))], -1).astype(np.float32)
+    xbs = torch.tensor(xs.reshape(S, nb, B), device=table.device)
+    dirs_t = torch.tensor(dirs, device=table.device)
+    return check_render(
+        f"i batch {S} moving", lambda: r.render_batch(xs, dirs),
+        lambda plain, dt: _batch_core(
+            table, xbs.to(dt), dirs_t, cfg,
+            render=bs.block_step_render_reference if plain
+            else bs.block_step_render),
+        S * N / SR, STEP_COUNTS, launches_total, reps, NEW_RENDER_SNR_DB)
+
+
+def check_long(long_streamed, long_traj, N: int, launches_total: dict,
+               reps: int) -> dict:
+    """(j) the sizes above shared memory, through the public entry points:
+    `render_streamed` at 44,100 taps (stream_block 512: L = 65536, P = 87)
+    and a trajectory at 16,384 taps (B = 1024: n_fft = L = 32768), N
+    samples each."""
+    from tinaural_torch.models.renderer import (_partitioned_core,
+                                                _trajectory_core)
+    from tinaural_torch.ops import block_render as br
+    from tinaural_torch.ops import partitioned_conv as pc
+
+    return {"streamed_44100_taps": long_render(
+                "j streamed 44100 taps", long_streamed, 512, N, True,
+                _partitioned_core, pc.partitioned_render,
+                pc.partitioned_render_reference,
+                {"assemble_partitions": 1, "partitioned_conv": 1},
+                launches_total, reps),
+            "trajectory_16384_taps": long_render(
+                "j trajectory 16384 taps", long_traj, 1024, N, False,
+                _trajectory_core, br.block_render, br.block_render_reference,
+                B1_COUNTS, launches_total, reps)}
+
+
+def long_render(name: str, table, Bj: int, N: int, streamed: bool, core,
+                kern, plain_fn, expect: dict, launches_total: dict,
+                reps: int) -> dict:
+    """One render of (j) on bench.py's BRIR direction track."""
+    import numpy as np
+    import torch
+
+    import tinaural_torch as tt
+
+    cfg = tt.RenderConfig(block_size=Bj, stream_block=Bj)
+    r = tt.BinauralRenderer(table, cfg)
+    nb = N // Bj
+    x = np.random.default_rng(6).standard_normal(N).astype(np.float32)
+    dirs = np.stack([np.linspace(0, 350, nb) % 360,
+                     20 * np.sin(np.linspace(0, 9, nb))],
+                    axis=1).astype(np.float32)
+    public = r.render_streamed if streamed else r.render_trajectory
+    xb = torch.tensor(x.reshape(nb, Bj), device=table.device)
+    dirs_t = torch.tensor(dirs, device=table.device)
+    return check_render(
+        name, lambda: public(x, dirs),
+        lambda plain, dt: core(table, xb.to(dt), dirs_t, cfg,
+                               render=plain_fn if plain else kern),
+        N / SR, expect, launches_total, reps, NEW_RENDER_SNR_DB)
+
+
+def kernel_entry(name: str, source: str, replaces: int, launches: int,
+                 m: dict, **extra) -> dict:
+    """One kernel's record in the kernels line, from its check ``m``."""
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": f"{PALLAS}:{replaces}", "launches": launches,
+            "max_abs_err": m["max_abs_err"], "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": m.get("library_ms"),
+            **extra}
+
+
 def main() -> int:
     import torch
 
@@ -564,6 +890,8 @@ def main() -> int:
                                                 _scene_static_core,
                                                 _trajectory_core)
     from tinaural_torch.ops import _build
+    from tinaural_torch.ops import block_render as br
+    from tinaural_torch.ops import block_step as bs
     from tinaural_torch.ops import partitioned_conv as pc
 
     # 1. device
@@ -610,9 +938,14 @@ def main() -> int:
     check_stream_chain(brir, 64, 256, 12, "stream 2048 taps P=9")
     check_stream_chain(table, 1024, 256, 4, "stream 128 taps P=1")
 
+    # 3c. the block-step kernels against their plain versions
+    k_step = check_step_kernels(table, 64, 128, "block step S=64 nb=128",
+                                reps=5)
+    check_step_kernels(table, 32, 1, "block step S=32 nb=1", reps=5)
+
     # 4. the renders
     r = tt.BinauralRenderer(table, cfg)
-    launches = dict.fromkeys([*k_traj, *pc.KERNELS], 0)
+    launches = dict.fromkeys([*br.KERNELS, *bs.KERNELS, *pc.KERNELS], 0)
     renders = {}
 
     rng = np.random.default_rng(0)
@@ -621,11 +954,12 @@ def main() -> int:
     dirs = trajectory_dirs(N // B)
     xb = torch.tensor(x.reshape(-1, B), device=dev)
     dirs_t = torch.tensor(dirs, device=dev)
+    block_op = lambda plain: br.block_render_reference if plain else br.block_render
     renders["a_trajectory"] = check_render(
         "a trajectory 2^23", lambda: r.render_trajectory(x, dirs),
-        lambda render, dt: _trajectory_core(table, xb.to(dt), dirs_t, cfg,
-                                            render=render),
-        N / SR, launches, reps=3)
+        lambda plain, dt: _trajectory_core(table, xb.to(dt), dirs_t, cfg,
+                                           render=block_op(plain)),
+        N / SR, B1_COUNTS, launches, reps=3)
 
     rng = np.random.default_rng(2)
     S, N = 64, 1 << 17
@@ -636,18 +970,18 @@ def main() -> int:
     dmov_t = torch.tensor(dmov, device=dev)
     renders["b_scene_moving"] = check_render(
         "b scene 64 moving", lambda: r.render_scene(xs, dmov),
-        lambda render, dt: _scene_core(table, xbs.to(dt), dmov_t, cfg,
-                                       render=render),
-        S * N / SR, launches, reps=3)
+        lambda plain, dt: _scene_core(table, xbs.to(dt), dmov_t, cfg,
+                                      render=block_op(plain)),
+        S * N / SR, B1_COUNTS, launches, reps=3)
 
     dstat = np.stack([rng.uniform(0, 360, S), rng.uniform(-40, 90, S)],
                      -1).astype(np.float32)
     dstat_t = torch.tensor(dstat, device=dev)
     renders["c_scene_static"] = check_render(
         "c scene 64 static", lambda: r.render_scene(xs, dstat),
-        lambda render, dt: _scene_static_core(table, xbs.to(dt), dstat_t,
-                                              cfg, render=render),
-        S * N / SR, launches, reps=3)
+        lambda plain, dt: _scene_static_core(table, xbs.to(dt), dstat_t,
+                                             cfg, render=block_op(plain)),
+        S * N / SR, B1_COUNTS, launches, reps=3)
 
     # 4b. the streaming and partitioned renders
     renders["d_serving"] = check_serving("d serving", table, 1024, 32, 1,
@@ -659,13 +993,30 @@ def main() -> int:
     renders["f_latency"] = check_latency(table, 64, launches)
     renders["g_streamed"] = check_streamed(brir, 1 << 20, launches, reps=3)
 
-    kernels = [{"name": name, "route": "cuda", "source": SOURCE,
-                "replaces": REPLACES, "launches": launches[name],
-                "max_abs_err": k_traj[name]["max_abs_err"],
-                "ms": k_traj[name]["ms"], "plain_ms": k_traj[name]["plain_ms"],
-                "scene_ms": k_scene[name]["ms"],
-                "scene_plain_ms": k_scene[name]["plain_ms"]}
-               for name in k_traj]
+    # 4c. static render, render_batch, and the sizes above shared memory
+    renders["h_static"] = check_static(table, 1 << 22, launches, reps=3)
+    renders["i_batch"] = check_batch(table, 64, 1 << 17, launches, reps=3)
+    t0 = time.perf_counter()
+    long_streamed = tt.TorchTable.from_hrir_table(
+        tt.load_hrir_set("synthetic", taps=44100), dev)
+    long_traj = tt.TorchTable.from_hrir_table(
+        tt.load_hrir_set("synthetic", taps=16384), dev)
+    print(f"long tables: {time.perf_counter() - t0:.1f} s", flush=True)
+    renders["j_long"] = check_long(long_streamed, long_traj, 1 << 17,
+                                   launches, reps=2)
+    profile_renders()
+
+    # overlap_add ends the B1 renders and is the OLA half of B2 in (h), (i)
+    ola_b2 = sum(renders[k]["launches"].get("overlap_add", 0)
+                 for k in ("h_static", "i_batch"))
+    kernels = [kernel_entry(
+        name, SOURCE, FUSED_BLOCK_RENDER,
+        launches[name] - (ola_b2 if name == "overlap_add" else 0),
+        k_traj[name], scene_ms=k_scene[name]["ms"],
+        scene_plain_ms=k_scene[name]["plain_ms"],
+        **({"also_replaces": [f"{PALLAS}:{FUSED_BLOCK_STEP}"]}
+           if name == "assemble_filters" else {}))
+        for name in br.KERNELS]
     # main shapes: the serving step (128 taps, S = 1024) and the offline
     # BRIR render; the BRIR serving step's times ride along
     main = {"assemble_partitions": k_serve, "stream_conv": k_serve,
@@ -683,15 +1034,19 @@ def main() -> int:
                  "brir_hold_plain_ms": k_brir["stream_conv_hold"]["plain_ms"]}}
     for name in pc.KERNELS:
         first, *also = PART_REPLACES[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": PART_SOURCE,
-            "replaces": f"{PALLAS}:{first}",
-            "also_replaces": [f"{PALLAS}:{n}" for n in also],
-            "launches": launches[name],
-            "max_abs_err": main[name][name]["max_abs_err"],
-            "ms": main[name][name]["ms"],
-            "plain_ms": main[name][name]["plain_ms"],
-            **extra.get(name, {})})
+        kernels.append(kernel_entry(
+            name, PART_SOURCE, first, launches[name], main[name][name],
+            also_replaces=[f"{PALLAS}:{n}" for n in also],
+            **extra.get(name, {})))
+    kernels += [
+        kernel_entry("block_spectra", STEP_SOURCE, FUSED_BLOCK_STEP,
+                     launches["block_spectra"], k_step["block_spectra"]),
+        kernel_entry("spectra_inverse", STEP_SOURCE, FUSED_EPILOGUE,
+                     launches["spectra_inverse"], k_step["spectra_inverse"]),
+        kernel_entry("overlap_add", SOURCE, FUSED_EPILOGUE, ola_b2,
+                     k_step["overlap_add"], sources=64)]
+    for k in kernels:
+        require(k["launches"] > 0, f"kernel {k['name']} was not launched")
     print(json.dumps({"renders": renders}), flush=True)
     print(f"card: {card_line()}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

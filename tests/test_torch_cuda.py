@@ -1,8 +1,11 @@
 """The CUDA kernels against their plain versions, on a card: the block
-render's three and the partitioned convolution's three (the streaming step
+render's three, the partitioned convolution's three (the streaming step
 with its hold step at P = 1, 5 and 9, S = 1 and block 128, a batched
 stream's offline render, and the partitioned offline render, chunked and
-whole).
+whole), and the block step's two with the per-source overlap-add; each
+family again in the split buffer mode, forced at small shapes, and at the
+sizes that need it (a 44,100-tap `render_streamed`, a 16,384-tap
+trajectory).
 
 This file imports neither the JAX package nor the shared conftest (which
 does), so it also runs where `tinaural` cannot be imported, as on a
@@ -22,7 +25,10 @@ from tinaural_torch.data import TorchTable
 from tinaural_torch.models.renderer import _n_fft, _neighbours
 from tinaural_torch.models.streaming import (StreamState, _batch_scan_core,
                                              init_state)
+from tinaural_torch.models.renderer import _partitioned_core, _trajectory_core
+from tinaural_torch.ops import _layout
 from tinaural_torch.ops import block_render as br
+from tinaural_torch.ops import block_step as bs
 from tinaural_torch.ops import partitioned_conv as pc
 
 torch.set_num_threads(1)
@@ -237,3 +243,102 @@ def test_partitioned_cuda_route_rejects_bad_inputs(long_tables):
         pc.partitioned_render(torch.zeros((4, B), device=t.device,
                                           dtype=torch.float64),
                               idx, w, t, crossfade=True, **FLAGS)
+
+
+# ----------------------------------------------------------------- block step
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,nb,crossfade,one_filter", [
+    (3, 40, True, False), (3, 40, False, True), (4, 1, True, False),
+    (2, 9, True, True)])
+def test_block_step_kernels_match_plain(table, S, nb, crossfade, one_filter):
+    """block_spectra, spectra_inverse and the per-source overlap_add
+    against their plain float64 versions on the same inputs, with source
+    boundaries inside the rows."""
+    xbs, idx, w = _inputs(table, S, nb, seed=S * 10 + nb)
+    if one_filter:
+        idx, w = idx[:, :1].contiguous(), w[:, :1].contiguous()
+    n_fft = _n_fft(table, B)
+    H = br.assemble_filters_cuda(idx, w, table, n_fft, **FLAGS)
+    Y = bs.block_spectra_cuda(xbs, H, n_fft, crossfade=crossfade)
+    Y64 = bs.block_spectra_reference(xbs.double(), H.to(torch.complex128),
+                                     n_fft, crossfade=crossfade)
+    assert Y.shape == Y64.shape == (S, nb, 2, n_fft // 2 + 1)
+    assert _snr_db(Y64, Y) >= 100
+    frames = bs.spectra_inverse_cuda(Y, n_fft)
+    f64 = bs.spectra_inverse_reference(Y.to(torch.complex128), n_fft)
+    assert _snr_db(f64, frames) >= 100
+    out = br.overlap_add_cuda(frames, B)
+    ref = br.overlap_add(frames.transpose(1, 2), B)
+    assert out.shape == (S, 2, (nb - 1) * B + n_fft)
+    assert torch.allclose(out, ref, rtol=0, atol=1e-6)
+    before = (dict(br.launches), dict(bs.launches))
+    y = bs.block_step_render(xbs, idx, w, table, n_fft, crossfade=crossfade,
+                             **FLAGS)
+    torch.cuda.synchronize()
+    assert br.launches["assemble_filters"] == before[0]["assemble_filters"] + 1
+    assert br.launches["overlap_add"] == before[0]["overlap_add"] + 1
+    assert all(bs.launches[k] == before[1][k] + 1 for k in bs.KERNELS)
+    y64 = bs.block_step_render_reference(xbs.double(), idx, w, table, n_fft,
+                                         crossfade=crossfade, **FLAGS)
+    assert _snr_db(y64, y) >= 100
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("work", [64, 256])
+def test_split_mode_matches_plain(table, long_tables, monkeypatch, work):
+    """Every kernel with its buffers in the device scratch and its FFTs
+    split in two passes, forced at small shapes (work² ≥ each FFT)."""
+    monkeypatch.setattr(_layout, "force_work", work)
+    # block render and block step: n_fft 2048 = 32·64, L 256
+    xbs, idx, w = _inputs(table, 3, 6, seed=work)
+    n_fft = _n_fft(table, B)
+    kw = dict(crossfade=True, **FLAGS)
+    for render, ref in ((br.block_render, br.block_render_reference),
+                        (bs.block_step_render, bs.block_step_render_reference)):
+        y = render(xbs, idx, w, table, n_fft, **kw)
+        assert _snr_db(ref(xbs.double(), idx, w, table, n_fft, **kw), y) >= 100
+    # partitioned: L 4096 = 64·64 at 2048 taps, frames of 512
+    t = long_tables[2048]
+    idx, w = _rows(t, (12,), seed=work)
+    xb = torch.from_numpy(np.random.default_rng(work).standard_normal(
+        (12, 256)).astype(np.float32)).to(t.device)
+    y = pc.partitioned_render(xb, idx, w, t, **kw)
+    assert _snr_db(pc.partitioned_render_reference(xb.double(), idx, w, t,
+                                                   **kw), y) >= 100
+    st = init_state(t, tinaural_torch.RenderConfig(stream_block=256), 12)
+    args = (xb, st.prev_in, st.fdl_re, st.fdl_im, st.prev_h_re, st.prev_h_im,
+            torch.ones_like(st.started))
+    got = pc.stream_step(t, idx, w, *args, **kw)
+    ref = pc.stream_step_reference(t, idx, w.double(),
+                                   *(a.double() for a in args), **kw)
+    for g, r in zip(got, ref):
+        assert _snr_db(r, g) >= 100
+
+
+@pytest.mark.gpu
+def test_long_filters_render_on_the_card():
+    """The sizes that exceed shared memory: `render_streamed` at 44,100
+    taps (L = 65536, P = 87 at stream_block 512) and a trajectory at
+    16,384 taps, B = 1024 (n_fft = L = 32768), each against the float64
+    plain path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(7)
+    for taps, core, render, B_, nb in (
+            (44100, _partitioned_core, pc.partitioned_render_reference, 512, 24),
+            (16384, _trajectory_core, br.block_render_reference, 1024, 12)):
+        t = TorchTable.from_hrir_table(
+            tinaural_torch.load_hrir_set("synthetic", taps=taps), dev)
+        cfg = tinaural_torch.RenderConfig(block_size=B_, stream_block=B_)
+        xb = torch.from_numpy(rng.standard_normal((nb, B_)).astype(
+            np.float32)).to(dev)
+        dirs = torch.from_numpy(np.stack(
+            [np.linspace(0, 300, nb), np.linspace(-30, 60, nb)], 1).astype(
+                np.float32)).to(dev)
+        y = core(t, xb, dirs, cfg)
+        y64 = core(t, xb.double(), dirs, cfg, render=render)
+        assert bool(torch.isfinite(y).all())
+        assert _snr_db(y64, y) >= 100, taps

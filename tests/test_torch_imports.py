@@ -16,6 +16,7 @@ torch.set_num_threads(1)
 import tinaural_torch
 from tinaural_torch.models.renderer import _neighbours
 from tinaural_torch.ops import block_render as br
+from tinaural_torch.ops import block_step as step
 from tinaural_torch.ops import partitioned_conv as pc
 assert not any(m == "jax" or m.startswith(("jax.", "flax", "tinaural."))
                or m == "tinaural" for m in sys.modules), "JAX package imported"
@@ -32,8 +33,14 @@ assert bs.push_many(np.ones((3, 2, 256), np.float32), np.zeros(2),
                     np.zeros(2)).shape == (3, 2, 2, 256)
 assert r.render_streamed(np.ones(1024, np.float32),
                          np.zeros((4, 2), np.float32)).shape == (2, 1024)
+for n in (500, 2048):  # the direct route, then the block route
+    assert tinaural_torch.render(t, np.ones(n, np.float32), 30.0, 0.0,
+                                 r.config).shape == (2, n + 191)
+assert r.render_batch(np.ones((2, 600), np.float32),
+                      np.zeros((2, 2), np.float32)).shape == (2, 2, 600 + 191)
 assert "tinaural_torch.ops._build" not in sys.modules, "CPU route reached the build"
-assert all(v == 0 for v in (*br.launches.values(), *pc.launches.values()))
+assert all(v == 0 for v in (*br.launches.values(), *step.launches.values(),
+                            *pc.launches.values()))
 assert "jax" not in sys.modules and "flax" not in sys.modules
 print("ok")
 """

@@ -9,7 +9,8 @@ picked by the device of the tensors: CUDA tensors run the kernels of
 
 from .config import DEFAULT_CONFIG, RenderConfig
 from .data import HrirArrays, TorchTable, load_hrir_set
-from .models.renderer import BinauralRenderer, render_scene, render_trajectory
+from .models.renderer import (BinauralRenderer, render, render_scene,
+                              render_trajectory)
 from .models.streaming import BatchedStream, Stream, StreamState, init_state
 
 __version__ = "0.1.0"
@@ -21,6 +22,7 @@ __all__ = [
     "TorchTable",
     "load_hrir_set",
     "BinauralRenderer",
+    "render",
     "render_trajectory",
     "render_scene",
     "Stream",

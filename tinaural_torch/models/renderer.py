@@ -1,10 +1,12 @@
-"""Moving-source and scene renderers.
+"""Static, moving-source, batch and scene renderers.
 
 Counterpart of `tinaural.models.renderer`'s default route: every moving
-source, moving scene and static scene ends in one `block_render` call, and
-`render_streamed` in one `partitioned_render` call — the hand-written CUDA
-kernels for tensors on the card, the plain torch versions for tensors on
-the CPU. Numerical semantics are those of
+source, moving scene and static scene ends in one `block_render` call,
+`render_batch` and a long static `render` in one `block_step_render` call,
+and `render_streamed` in one `partitioned_render` call — the hand-written
+CUDA kernels for tensors on the card, the plain torch versions for tensors
+on the CPU. A short static `render` is one direct FFT convolution in
+`torch.fft` on either device. Numerical semantics are those of
 `tinaural.reference.golden` (≥60 dB SNR; f32 against f64 in practice
 ~90 dB).
 """
@@ -17,8 +19,9 @@ import torch
 from ..config import DEFAULT_CONFIG, RenderConfig
 from ..data.table import DELAY_PAD, TorchTable
 from ..ops.block_render import block_render
-from ..ops.filters import next_pow2
-from ..ops.interp import direction_weights
+from ..ops.block_step import block_step_render
+from ..ops.filters import effective_filter, next_pow2
+from ..ops.interp import direction_weights, gather_rows
 from ..ops.partitioned_conv import partitioned_render
 
 
@@ -63,6 +66,41 @@ def _block_render(table: TorchTable, xbs: torch.Tensor, dirs: torch.Tensor,
     idx, w = _neighbours(table, dirs, config)
     return render(xbs, idx, w, table, _n_fft(table, xbs.shape[-1]),
                   crossfade=crossfade, **_flags(table, config))
+
+
+def _static_core(table: TorchTable, x: torch.Tensor, dir2: torch.Tensor,
+                 config: RenderConfig, n: int) -> torch.Tensor:
+    """Direct FFT convolution at one direction, in x's precision. x: (N,)
+    with N + taps + DELAY_PAD − 1 ≤ n; dir2: (2,) → (2, n) circular
+    frame."""
+    idx, w = _neighbours(table, dir2[None], config)
+    h, d, g = gather_rows(table, idx, w.to(x.dtype), **_flags(table, config))
+    h_eff = effective_filter(h[0], d[0], g[0], table.taps)  # (2, T_eff)
+    X = torch.fft.rfft(x, n=n)
+    return torch.fft.irfft(X * torch.fft.rfft(h_eff, n=n), n=n)
+
+
+def _static_block_core(table: TorchTable, xb: torch.Tensor,
+                       dir2: torch.Tensor, config: RenderConfig,
+                       render=block_step_render) -> torch.Tensor:
+    """OLA block convolution at one fixed direction: one filter, assembled
+    once, serves every block, with no crossfade (between equal filters it
+    is the identity). xb: (nb, B); dir2: (2,) → (2, (nb−1)·B + n_fft).
+    ``render`` is `block_step_render` or, for checks, its plain version."""
+    idx, w = _neighbours(table, dir2[None, None], config)
+    return render(xb[None], idx, w, table, _n_fft(table, xb.shape[-1]),
+                  crossfade=False, **_flags(table, config))[0]
+
+
+def _batch_core(table: TorchTable, xbs: torch.Tensor, dirs: torch.Tensor,
+                config: RenderConfig, render=block_step_render) -> torch.Tensor:
+    """Independent renders, no mixdown: xbs (S, nb, B); dirs (S, nb, 2) →
+    (S, 2, (nb−1)·B + n_fft). Crossfades per ``config.crossfade`` even
+    where a source's track is constant, as the JAX package does."""
+    dirs = _snap_dirs(dirs, config.dir_rate)
+    idx, w = _neighbours(table, dirs, config)
+    return render(xbs, idx, w, table, _n_fft(table, xbs.shape[-1]),
+                  crossfade=config.crossfade, **_flags(table, config))
 
 
 def _trajectory_core(table: TorchTable, xb: torch.Tensor, dirs: torch.Tensor,
@@ -175,6 +213,26 @@ class BinauralRenderer:
     def _dirs(self, dirs: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(dirs, np.float32)).to(self.device)
 
+    # Signals of at least this many blocks take the OLA block route, one
+    # filter for every block; shorter ones one direct FFT convolution.
+    STATIC_BLOCK_THRESHOLD_BLOCKS = 8
+
+    def render(self, x, az: float, el: float) -> torch.Tensor:
+        """Render a mono signal at a fixed direction → (2, out_len)."""
+        x = np.asarray(x, dtype=np.float32)
+        if x.ndim != 1:
+            raise ValueError(f"x must be a mono signal (N,), got {x.shape}")
+        N = x.shape[0]
+        dir2 = self._dirs(np.array([az, el], np.float32))
+        if N >= self.STATIC_BLOCK_THRESHOLD_BLOCKS * self.config.block_size:
+            xb, _ = self._blockify(x)
+            y = _static_block_core(self.table, xb, dir2, self.config)
+        else:
+            n = next_pow2(N + self.t_eff - 1)
+            y = _static_core(self.table, torch.from_numpy(x).to(self.device),
+                             dir2, self.config, n)
+        return y[:, : self._out_len(N)]
+
     def render_trajectory(self, x, dirs) -> torch.Tensor:
         """Moving-source render. x: (N,); dirs: (n_blocks, 2) per-block
         (az, el) → (2, out_len)."""
@@ -213,6 +271,25 @@ class BinauralRenderer:
         y = core(self.table, xbs, self._dirs(dirs), self.config)
         return y[:, : self._out_len(N)]
 
+    def render_batch(self, xs, dirs) -> torch.Tensor:
+        """S independent mono signals, each along its own path, in one
+        call, with no mixdown → (S, 2, out_len). xs: (S, N); dirs: (S, 2)
+        static (broadcast to every block, so (1, 2) serves all) or
+        (S, n_blocks, 2)."""
+        xs = np.asarray(xs, dtype=np.float32)
+        if xs.ndim != 2:
+            raise ValueError(f"xs must be (S, N), got {xs.shape}")
+        S, N = xs.shape
+        nb = self._true_nb(N)
+        dirs = np.asarray(dirs, dtype=np.float32)
+        if dirs.ndim == 2:
+            dirs = np.broadcast_to(dirs[:, None, :], (S, nb, 2))
+        elif dirs.shape != (S, nb, 2):
+            raise ValueError(f"dirs must be ({S}, {nb}, 2), got {dirs.shape}")
+        xbs, N = self._blockify(xs)
+        y = _batch_core(self.table, xbs, self._dirs(dirs), self.config)
+        return y[:, :, : self._out_len(N)]
+
     def render_streamed(self, x, dirs) -> torch.Tensor:
         """What `Stream.push` would give block by block, as one batched
         partitioned convolution (frame 2·stream_block, so the filter length
@@ -235,6 +312,12 @@ class BinauralRenderer:
             raise ValueError(f"dirs must be ({nb}, 2), got {dirs.shape}")
         xb = torch.from_numpy(x.reshape(nb, B)).to(self.device)
         return _partitioned_core(self.table, xb, self._dirs(dirs), self.config)
+
+
+def render(table: TorchTable, x, az: float, el: float,
+           config: RenderConfig = DEFAULT_CONFIG) -> torch.Tensor:
+    """Render a mono signal at a fixed direction (az, el) → (2, out)."""
+    return BinauralRenderer(table, config).render(x, az, el)
 
 
 def render_trajectory(table: TorchTable, x, dirs,

@@ -25,13 +25,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the entry points of kernels with FFTs end in (scratch, slices, work,
+# stream): see ops/_layout.py
+_SPLIT = [_P, _I, _I, _P]
 _SIGNATURES = {
-    "tt_assemble_filters": [_P] * 6 + [_I] * 6 + [_F] * 4 + [_P],
-    "tt_block_spectra_mix_inverse": [_P] * 3 + [_I] * 5 + [_P],
-    "tt_overlap_add": [_P] * 2 + [_I] * 3 + [_P],
-    "tt_assemble_partitions": [_P] * 7 + [_I] * 7 + [_F] * 4 + [_P],
-    "tt_stream_conv": [_P] * 13 + [_I] * 4 + [_P],
-    "tt_partitioned_conv": [_P] * 4 + [_I] * 7 + [_P],
+    "tt_max_shared_bytes": [_I],
+    "tt_assemble_filters": [_P] * 6 + [_I] * 6 + [_F] * 4 + _SPLIT,
+    "tt_block_spectra_mix_inverse": [_P] * 3 + [_I] * 5 + _SPLIT,
+    "tt_overlap_add": [_P] * 2 + [_I] * 4 + [_P],
+    "tt_assemble_partitions": [_P] * 7 + [_I] * 7 + [_F] * 4 + _SPLIT,
+    "tt_stream_conv": [_P] * 13 + [_I] * 4 + _SPLIT,
+    "tt_partitioned_conv": [_P] * 4 + [_I] * 7 + _SPLIT,
+    "tt_block_spectra": [_P] * 3 + [_I] * 6 + _SPLIT,
+    "tt_spectra_inverse": [_P] * 2 + [_I] * 2 + _SPLIT,
 }
 
 

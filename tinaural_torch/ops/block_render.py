@@ -12,8 +12,10 @@ in-kernel gather mode. Per source s and block b, with ``F = n_fft/2 + 1``:
 
 `block_render` launches the hand-written CUDA kernels of
 ``csrc/block_render.cu`` on CUDA tensors and calls the plain version,
-`block_render_reference`, on CPU tensors; any other device raises.
-``launches`` counts each kernel's launches.
+`block_render_reference`, on CPU tensors; any other device raises. The
+kernels take every FFT size: above shared memory they run with their
+buffers in a device scratch (``ops/_layout.py``). ``launches`` counts each
+kernel's launches.
 """
 
 from __future__ import annotations
@@ -22,16 +24,13 @@ import torch
 
 from ..data.table import (ALIGN_GUARD, DELAY_PAD, MAX_RENDER_SHIFT,
                           TAPER_HI, TAPER_LO, TorchTable)
-from .filters import filter_spectrum_mm
+from ._layout import layout
+from .filters import effective_filter, next_pow2
 from .interp import gather_rows
 from .ola import overlap_add
 
 KERNELS = ("assemble_filters", "block_spectra_mix_inverse", "overlap_add")
 launches = dict.fromkeys(KERNELS, 0)
-
-# Largest FFT the kernels take: their dynamic shared memory is about
-# 20·n_fft bytes, under the H100's 227 KB per block.
-MAX_N_FFT = 8192
 
 
 def reset_launches() -> None:
@@ -39,12 +38,17 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def _check_inputs(xbs, idx, w, table: TorchTable, n_fft: int) -> None:
+def _check_inputs(xbs, idx, w, table: TorchTable, n_fft: int, *,
+                  one_filter_ok: bool = False) -> None:
+    """Shapes, types and devices of a block render's inputs; with
+    ``one_filter_ok`` idx and w may also hold one row set per source
+    (S, 1, 4)."""
     if xbs.dim() != 3:
         raise ValueError(f"xbs must be (S, nb, B), got {tuple(xbs.shape)}")
     S, nb, B = xbs.shape
+    shapes = {(S, nb, 4), (S, 1, 4)} if one_filter_ok else {(S, nb, 4)}
     for name, t in (("idx", idx), ("w", w)):
-        if tuple(t.shape) != (S, nb, 4):
+        if tuple(t.shape) not in shapes:
             raise ValueError(f"{name} must be ({S}, {nb}, 4), got {tuple(t.shape)}")
     if idx.dtype != torch.int32:
         raise TypeError(f"idx must be int32, got {idx.dtype}")
@@ -81,7 +85,7 @@ def _block_render_cuda(xbs, idx, w, table: TorchTable, n_fft: int, *,
                               apply_ild=apply_ild)
     frames = block_spectra_mix_inverse_cuda(xbs, H, n_fft,
                                             crossfade=crossfade)
-    return overlap_add_cuda(frames, xbs.shape[-1])
+    return overlap_add_cuda(frames[None], xbs.shape[-1])[0]
 
 
 def _cuda_inputs(*tensors: torch.Tensor) -> int:
@@ -108,21 +112,24 @@ def assemble_filters_cuda(idx: torch.Tensor, w: torch.Tensor,
     stream = _cuda_inputs(idx, w, table.h, table.delays, table.gains)
     if idx.dtype != torch.int32 or w.dtype != torch.float32:
         raise TypeError("idx must be int32 and w float32")
-    if n_fft & (n_fft - 1) or not table.taps + DELAY_PAD <= n_fft <= MAX_N_FFT:
-        raise ValueError(f"n_fft={n_fft} must be a power of two in "
-                         f"[taps + {DELAY_PAD}, {MAX_N_FFT}]")
+    if n_fft & (n_fft - 1) or n_fft < table.taps + DELAY_PAD:
+        raise ValueError(f"n_fft={n_fft} must be a power of two of at least "
+                         f"taps + {DELAY_PAD}")
     rows = table.h.shape[0] * table.h.shape[1]
     if bool(((idx < 0) | (idx >= rows)).any()):
         raise ValueError(f"idx holds rows outside the table's {rows}")
     S, nb, _ = idx.shape
     H = torch.empty((S, nb, 2, n_fft // 2 + 1), dtype=torch.complex64,
                     device=idx.device)
+    L = next_pow2(table.taps + DELAY_PAD)
+    *split, _keep = layout(idx.device, n_fft // 2 + n_fft + 2 * L,
+                           n_fft + 2 * L, S * nb, n_fft)
     _build.check(_build.library().tt_assemble_filters(
         idx.data_ptr(), w.data_ptr(), table.h.data_ptr(),
         table.delays.data_ptr(), table.gains.data_ptr(), H.data_ptr(),
         S * nb, table.taps, table.taps + DELAY_PAD, n_fft, int(apply_itd),
         int(apply_ild), ALIGN_GUARD, MAX_RENDER_SHIFT, TAPER_LO, TAPER_HI,
-        stream), "assemble_filters")
+        *split, stream), "assemble_filters")
     launches["assemble_filters"] += 1
     return H
 
@@ -141,32 +148,37 @@ def block_spectra_mix_inverse_cuda(xbs: torch.Tensor, H: torch.Tensor,
     if tuple(H.shape) != (S, nb, 2, n_fft // 2 + 1):
         raise ValueError(f"H must be ({S}, {nb}, 2, {n_fft // 2 + 1}), "
                          f"got {tuple(H.shape)}")
-    if n_fft & (n_fft - 1) or not B <= n_fft <= MAX_N_FFT:
-        raise ValueError(f"n_fft={n_fft} must be a power of two in "
-                         f"[B, {MAX_N_FFT}]")
+    if n_fft & (n_fft - 1) or n_fft < B:
+        raise ValueError(f"n_fft={n_fft} must be a power of two of at least "
+                         f"B={B}")
     frames = torch.empty((nb, 2, n_fft), dtype=torch.float32,
                          device=xbs.device)
+    F = n_fft // 2 + 1
+    *split, _keep = layout(xbs.device, n_fft // 2 + n_fft + 2 * F,
+                           n_fft + 2 * F, nb, n_fft)
     _build.check(_build.library().tt_block_spectra_mix_inverse(
         xbs.data_ptr(), H.data_ptr(), frames.data_ptr(), S, nb, B, n_fft,
-        int(crossfade), stream), "block_spectra_mix_inverse")
+        int(crossfade), *split, stream), "block_spectra_mix_inverse")
     launches["block_spectra_mix_inverse"] += 1
     return frames
 
 
 def overlap_add_cuda(frames: torch.Tensor, hop: int) -> torch.Tensor:
-    """Kernel `overlap_add`: frames (nb, 2, n_fft) f32 → (2, (nb−1)·hop +
-    n_fft) f32."""
+    """Kernel `overlap_add`: frames (S, nb, 2, n_fft) f32 → (S, 2,
+    (nb−1)·hop + n_fft) f32, each source's frames added on their own."""
     from . import _build
 
     stream = _cuda_inputs(frames)
-    nb, ears, n_fft = frames.shape
-    if frames.dtype != torch.float32 or ears != 2 or n_fft % hop:
-        raise ValueError(f"frames must be float32 (nb, 2, n_fft) with n_fft "
-                         f"a multiple of {hop}, got {tuple(frames.shape)}")
-    out = torch.empty((2, (nb - 1) * hop + n_fft), dtype=torch.float32,
+    if (frames.dim() != 4 or frames.dtype != torch.float32
+            or frames.shape[2] != 2 or frames.shape[3] % hop):
+        raise ValueError(f"frames must be float32 (S, nb, 2, n_fft) with "
+                         f"n_fft a multiple of {hop}, got "
+                         f"{tuple(frames.shape)}")
+    S, nb, _, n_fft = frames.shape
+    out = torch.empty((S, 2, (nb - 1) * hop + n_fft), dtype=torch.float32,
                       device=frames.device)
     _build.check(_build.library().tt_overlap_add(
-        frames.data_ptr(), out.data_ptr(), nb, hop, n_fft, stream),
+        frames.data_ptr(), out.data_ptr(), S, nb, hop, n_fft, stream),
         "overlap_add")
     launches["overlap_add"] += 1
     return out
@@ -176,25 +188,20 @@ def assemble_filters_reference(idx, w, table: TorchTable, n_fft: int, *,
                                apply_itd: bool, apply_ild: bool
                                ) -> torch.Tensor:
     """Plain version of `assemble_filters`: (S, nb, 4) rows/weights →
-    H (S, nb, 2, F) in w's precision."""
+    H (S, nb, 2, F) in w's precision, through the kernel's FFT chain (the
+    map of `filter_spectrum_mm`, whose dense matrices grow as taps·L)."""
     h, d, g = gather_rows(table, idx, w, apply_itd=apply_itd,
                           apply_ild=apply_ild)
-    return filter_spectrum_mm(h, d, g, table.taps, n_fft)
+    return torch.fft.rfft(effective_filter(h, d, g, table.taps), n=n_fft)
 
 
 def block_spectra_mix_inverse_reference(xbs, H, n_fft: int, *,
                                         crossfade: bool) -> torch.Tensor:
     """Plain version of `block_spectra_mix_inverse`: xbs (S, nb, B) and
     H (S, nb, 2, F) → frames (nb, 2, n_fft)."""
-    B = xbs.shape[-1]
-    if crossfade:
-        u = (torch.arange(B, dtype=xbs.dtype, device=xbs.device) + 0.5) / B
-        Xu = torch.fft.rfft(xbs * u, n=n_fft)[:, :, None]
-        Xd = torch.fft.rfft(xbs * (1.0 - u), n=n_fft)[:, :, None]
-        Hp = torch.cat([H[:, :1], H[:, :-1]], dim=1)  # block 0: own filter
-        Y = Xu * H + Xd * Hp
-    else:
-        Y = torch.fft.rfft(xbs, n=n_fft)[:, :, None] * H
+    from .block_step import block_spectra_reference  # which imports this
+
+    Y = block_spectra_reference(xbs, H, n_fft, crossfade=crossfade)
     return torch.fft.irfft(Y.sum(0), n=n_fft)
 
 
@@ -203,7 +210,7 @@ def block_render_reference(xbs: torch.Tensor, idx: torch.Tensor,
                            crossfade: bool, apply_itd: bool,
                            apply_ild: bool) -> torch.Tensor:
     """`block_render` in plain torch, in xbs' precision (float32 or
-    float64): gather → filter_spectrum_mm → rfft MAC → source sum → irfft
+    float64): gather → effective filter → rfft MAC → source sum → irfft
     → overlap_add."""
     H = assemble_filters_reference(idx, w.to(xbs.dtype), table, n_fft,
                                    apply_itd=apply_itd, apply_ild=apply_ild)

@@ -1,0 +1,152 @@
+"""The two-launch block render: block spectra per (source, block), their
+inverse, and an overlap-add per source, with no mixdown.
+
+Counterpart of `tinaural.ops.pallas_kernels`' `fused_block_step` (forward
+FFT, filter assembly, crossfaded MAC → block spectra) and `fused_epilogue`
+(inverse FFT of both ears, OLA that never crosses a source boundary). Per
+source s and block b, with ``F = n_fft/2 + 1``:
+
+1. kernel `assemble_filters` (``ops/block_render.py``): H[s,b] =
+   rfft_nfft(effective_filter(gather(idx, w))), or one H[s] per source
+   when idx holds one row set per source;
+2. kernel `block_spectra`: Y[s,b] = rfft(x·u)·H[s,b] + rfft(x·(1−u))·
+   H[s,b−1] with u = (i + 0.5)/B and H[s,−1] := H[s,0]; without crossfade
+   Y = rfft(x)·H[s,b];
+3. kernel `spectra_inverse`: frames[s,b] = irfft(Y[s,b]) per ear;
+4. kernel `overlap_add` (``ops/block_render.py``) at hop B within each
+   source → (S, 2, (nb−1)·B + n_fft).
+
+`block_step_render` launches the hand-written CUDA kernels of
+``csrc/block_step.cu`` and ``csrc/block_render.cu`` on CUDA tensors and
+runs the plain versions on CPU tensors; any other device raises. The
+kernels take every FFT size (``ops/_layout.py``). ``launches`` counts the
+two kernels of this module.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ._layout import layout
+from .block_render import (_check_inputs, _cuda_inputs,
+                           assemble_filters_cuda, assemble_filters_reference,
+                           overlap_add_cuda)
+from .ola import overlap_add
+
+KERNELS = ("block_spectra", "spectra_inverse")
+launches = dict.fromkeys(KERNELS, 0)
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        launches[k] = 0
+
+
+def block_step_render(xbs: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
+                      table, n_fft: int, *, crossfade: bool, apply_itd: bool,
+                      apply_ild: bool) -> torch.Tensor:
+    """xbs (S, nb, B) f32; idx (S, nb, 4) int32 flat table rows (e·A_max +
+    a) or (S, 1, 4), one filter per source; w the weights of idx's shape
+    → (S, 2, (nb−1)·B + n_fft) f32, one render per source."""
+    _check_inputs(xbs, idx, w, table, n_fft, one_filter_ok=True)
+    kw = dict(crossfade=crossfade, apply_itd=apply_itd, apply_ild=apply_ild)
+    if xbs.device.type == "cpu":
+        return block_step_render_reference(xbs, idx, w, table, n_fft, **kw)
+    if xbs.device.type != "cuda":
+        raise ValueError(f"block_step_render runs on cpu or cuda, not {xbs.device}")
+    if xbs.dtype != torch.float32:  # before the first launch
+        raise TypeError(f"the CUDA route takes float32 blocks, got {xbs.dtype}")
+    H = assemble_filters_cuda(idx, w, table, n_fft, apply_itd=apply_itd,
+                              apply_ild=apply_ild)
+    Y = block_spectra_cuda(xbs, H, n_fft, crossfade=crossfade)
+    return overlap_add_cuda(spectra_inverse_cuda(Y, n_fft), xbs.shape[-1])
+
+
+def block_step_render_reference(xbs: torch.Tensor, idx: torch.Tensor,
+                                w: torch.Tensor, table, n_fft: int, *,
+                                crossfade: bool, apply_itd: bool,
+                                apply_ild: bool) -> torch.Tensor:
+    """`block_step_render` in plain torch, in xbs' precision (float32 or
+    float64)."""
+    H = assemble_filters_reference(idx, w.to(xbs.dtype), table, n_fft,
+                                   apply_itd=apply_itd, apply_ild=apply_ild)
+    Y = block_spectra_reference(xbs, H, n_fft, crossfade=crossfade)
+    frames = spectra_inverse_reference(Y, n_fft)  # (S, nb, 2, n_fft)
+    return overlap_add(frames.transpose(1, 2), xbs.shape[-1])
+
+
+def _check_fft(n_fft: int, B: int) -> None:
+    if n_fft & (n_fft - 1) or n_fft < B:
+        raise ValueError(f"n_fft={n_fft} must be a power of two of at least "
+                         f"B={B}")
+
+
+def block_spectra_cuda(xbs: torch.Tensor, H: torch.Tensor, n_fft: int, *,
+                       crossfade: bool) -> torch.Tensor:
+    """Kernel `block_spectra`: xbs (S, nb, B) f32, H (S, nb, 2, F) or
+    (S, 1, 2, F) complex64 → Y (S, nb, 2, F) complex64."""
+    from . import _build
+
+    stream = _cuda_inputs(xbs, H)
+    if xbs.dtype != torch.float32 or H.dtype != torch.complex64:
+        raise TypeError("xbs must be float32 and H complex64")
+    if xbs.dim() != 3:
+        raise ValueError(f"xbs must be (S, nb, B), got {tuple(xbs.shape)}")
+    S, nb, B = xbs.shape
+    F = n_fft // 2 + 1
+    if H.dim() != 4 or H.shape[0] != S or H.shape[1] not in (1, nb) \
+            or H.shape[2:] != (2, F):
+        raise ValueError(f"H must be ({S}, {nb} or 1, 2, {F}), got "
+                         f"{tuple(H.shape)}")
+    _check_fft(n_fft, B)
+    Y = torch.empty((S, nb, 2, F), dtype=torch.complex64, device=xbs.device)
+    *split, _keep = layout(xbs.device, n_fft // 2 + n_fft, n_fft, S * nb,
+                           n_fft)
+    _build.check(_build.library().tt_block_spectra(
+        xbs.data_ptr(), H.data_ptr(), Y.data_ptr(), S, nb, B, n_fft,
+        H.shape[1], int(crossfade), *split, stream), "block_spectra")
+    launches["block_spectra"] += 1
+    return Y
+
+
+def spectra_inverse_cuda(Y: torch.Tensor, n_fft: int) -> torch.Tensor:
+    """Kernel `spectra_inverse`: Y (..., 2, F) complex64 → frames (..., 2,
+    n_fft) f32, the irfft of each ear."""
+    from . import _build
+
+    stream = _cuda_inputs(Y)
+    F = n_fft // 2 + 1
+    if Y.dtype != torch.complex64:
+        raise TypeError(f"Y must be complex64, got {Y.dtype}")
+    if Y.dim() < 2 or Y.shape[-2:] != (2, F) or n_fft & (n_fft - 1) \
+            or n_fft < 2:
+        raise ValueError(f"Y must be (..., 2, {F}) with n_fft a power of "
+                         f"two, got {tuple(Y.shape)} and n_fft={n_fft}")
+    rows = Y.numel() // (2 * F)
+    frames = torch.empty((*Y.shape[:-1], n_fft), dtype=torch.float32,
+                         device=Y.device)
+    *split, _keep = layout(Y.device, n_fft // 2 + n_fft, n_fft, rows, n_fft)
+    _build.check(_build.library().tt_spectra_inverse(
+        Y.data_ptr(), frames.data_ptr(), rows, n_fft, *split, stream),
+        "spectra_inverse")
+    launches["spectra_inverse"] += 1
+    return frames
+
+
+def block_spectra_reference(xbs: torch.Tensor, H: torch.Tensor, n_fft: int,
+                            *, crossfade: bool) -> torch.Tensor:
+    """Plain version of `block_spectra`, in xbs' precision: xbs (S, nb, B),
+    H (S, nb or 1, 2, F) → Y (S, nb, 2, F)."""
+    B = xbs.shape[-1]
+    if not crossfade:
+        return torch.fft.rfft(xbs, n=n_fft)[:, :, None] * H
+    u = (torch.arange(B, dtype=xbs.dtype, device=xbs.device) + 0.5) / B
+    Xu = torch.fft.rfft(xbs * u, n=n_fft)[:, :, None]
+    Xd = torch.fft.rfft(xbs * (1.0 - u), n=n_fft)[:, :, None]
+    Hp = torch.cat([H[:, :1], H[:, :-1]], dim=1)  # block 0: own filter
+    return Xu * H + Xd * Hp
+
+
+def spectra_inverse_reference(Y: torch.Tensor, n_fft: int) -> torch.Tensor:
+    """Plain version of `spectra_inverse`: (..., 2, F) → (..., 2, n_fft)."""
+    return torch.fft.irfft(Y, n=n_fft)

@@ -25,6 +25,8 @@ Every output is a fresh tensor: no input is written.
 The device of the tensors picks the route: CUDA tensors launch the
 hand-written kernels of ``csrc/partitioned.cu`` (and raise on failure), CPU
 tensors run the plain versions ``*_reference`` in the tensors' precision.
+The kernels take every filter length and block: above shared memory they
+run with their buffers in a device scratch (``ops/_layout.py``).
 ``launches`` counts each kernel's launches.
 """
 
@@ -34,6 +36,7 @@ import torch
 
 from ..data.table import (ALIGN_GUARD, DELAY_PAD, MAX_RENDER_SHIFT,
                           TAPER_HI, TAPER_LO, TorchTable)
+from ._layout import layout
 from .block_render import _cuda_inputs
 from .filters import (effective_filter, filter_partitions, n_parts,
                       next_pow2, partition_spectra)
@@ -43,12 +46,6 @@ from .partitioned import (crossfade_tails, delayed, frame_spectra,
 
 KERNELS = ("assemble_partitions", "stream_conv", "partitioned_conv")
 launches = dict.fromkeys(KERNELS, 0)
-
-# Largest sizes the kernels take: assemble_partitions holds the twiddles,
-# two L-point and one 2B-point buffers in shared memory, ~24·L bytes at
-# most, under the H100's 227 KB per block.
-MAX_L = 8192
-MAX_BLOCK = 2048
 
 # The CUDA route of `partitioned_render` assembles the partition planes of
 # at most this many bytes at a time (rows·P·2·F2·8): blocks go through
@@ -178,9 +175,8 @@ def partitioned_render_reference(xb: torch.Tensor, idx: torch.Tensor,
 
 
 def _check_block(block: int) -> None:
-    if block & (block - 1) or not 2 <= block <= MAX_BLOCK:
-        raise ValueError(f"block={block} must be a power of two in "
-                         f"[2, {MAX_BLOCK}]")
+    if block & (block - 1) or block < 2:
+        raise ValueError(f"block={block} must be a power of two of at least 2")
 
 
 def assemble_partitions_cuda(idx: torch.Tensor, w: torch.Tensor,
@@ -199,19 +195,21 @@ def assemble_partitions_cuda(idx: torch.Tensor, w: torch.Tensor,
                          f"{tuple(idx.shape)} and {tuple(w.shape)}")
     _check_block(block)
     t_pad = table.taps + DELAY_PAD
-    if next_pow2(t_pad) > MAX_L:
-        raise ValueError(f"taps={table.taps}: the assembly FFT "
-                         f"{next_pow2(t_pad)} exceeds {MAX_L}")
+    L = next_pow2(t_pad)
     P = n_parts(table.taps, block)
     shape = (*idx.shape[:-1], P, 2, block + 1)
     h_re = torch.empty(shape, dtype=torch.float32, device=idx.device)
     h_im = torch.empty_like(h_re)
+    rows = idx.numel() // 4
+    *split, _keep = layout(idx.device, max(L, 2 * block) // 2 + 2 * L
+                           + 2 * block, 2 * L + 2 * block, rows,
+                           max(L, 2 * block))
     _build.check(_build.library().tt_assemble_partitions(
         idx.data_ptr(), w.data_ptr(), table.h.data_ptr(),
         table.delays.data_ptr(), table.gains.data_ptr(), h_re.data_ptr(),
-        h_im.data_ptr(), idx.numel() // 4, table.taps, t_pad, block, P,
+        h_im.data_ptr(), rows, table.taps, t_pad, block, P,
         int(apply_itd), int(apply_ild), ALIGN_GUARD, MAX_RENDER_SHIFT,
-        TAPER_LO, TAPER_HI, stream), "assemble_partitions")
+        TAPER_LO, TAPER_HI, *split, stream), "assemble_partitions")
     launches["assemble_partitions"] += 1
     return h_re, h_im
 
@@ -243,10 +241,11 @@ def stream_conv_cuda(xb, prev_in, fdl_re, fdl_im, h_re, h_im, hp_re, hp_im,
     pin = torch.empty_like(xb)
     fr = torch.empty_like(fdl_re)
     fi = torch.empty_like(fdl_im)
+    *split, _keep = layout(xb.device, 7 * B, 6 * B, S, 2 * B)
     _build.check(_build.library().tt_stream_conv(
         *(t.data_ptr() for t in ins), y.data_ptr(), pin.data_ptr(),
-        fr.data_ptr(), fi.data_ptr(), S, B, P, int(crossfade), stream),
-        "stream_conv")
+        fr.data_ptr(), fi.data_ptr(), S, B, P, int(crossfade), *split,
+        stream), "stream_conv")
     launches["stream_conv"] += 1
     return y, pin, fr, fi
 
@@ -276,10 +275,12 @@ def partitioned_conv_cuda(xb: torch.Tensor, h_re: torch.Tensor,
     _cuda_inputs(out)
     if tuple(out.shape) != (2, nb * B) or out.dtype != torch.float32:
         raise ValueError(f"out must be float32 (2, {nb * B})")
+    *split, _keep = layout(xb.device, 5 * B + 4 * (B + 1),
+                           4 * B + 4 * (B + 1), n, 2 * B)
     _build.check(_build.library().tt_partitioned_conv(
         xb.data_ptr(), h_re.data_ptr(), h_im.data_ptr(), out.data_ptr(), nb,
-        start, n, has_prev, B, h_re.shape[1], int(crossfade), stream),
-        "partitioned_conv")
+        start, n, has_prev, B, h_re.shape[1], int(crossfade), *split,
+        stream), "partitioned_conv")
     launches["partitioned_conv"] += 1
     return out
 
