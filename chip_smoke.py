@@ -17,12 +17,20 @@ Phases, each of which fails the run on any error (nothing is caught):
   3c. the block-step kernels (`block_spectra`, `spectra_inverse`, the
      per-source `overlap_add`) against their plain versions at S = 64,
      nb = 128 and at S = 32, nb = 1 (B = 1024, 128 taps), SNR ≥ 100 dB;
+  3d. the scene mixdown's `block_spectra_mix` (crossfade on and off, and one
+     filter per source) with the summing `spectra_inverse` at S = 64,
+     nb = 128, and the natural-order `assembly_mac` at 8192 rows (64 sources
+     × 128 blocks, `first` at each source's block 0; 2048 taps, B = 1024,
+     n_fft = 4096), against their plain versions, SNR ≥ 100 dB;
   4. the renders through the public entry points — (a) a 2^23-sample
      trajectory, (b) a 64-source moving scene and (c) a 64-source static
-     scene of 2^17 samples each — with every kernel's launch count read
+     scene of 2^17 samples each on the mixdown route, their cores timed on
+     B1's route too, and (m) a 16-source moving scene of 2^20 samples
+     (1024 blocks, B1's route) — with every kernel's launch count read
      around them, each output held against the port's own plain path in
-     float64 on the card (SNR ≥ 60 dB), and the kernel and plain float32
-     routes timed with CUDA events;
+     float64 on the card (SNR ≥ 60 dB for (a), ≥ 100 dB for the others;
+     the mixdown route's output equal in bits over two calls), and the
+     kernel and plain float32 routes timed with CUDA events;
   4b. the same for the streaming and partitioned renders — (d) serving,
      `BatchedStream.push_many` of 1024 streams × 32 blocks; (e) BRIR
      serving, 64 streams × 8 blocks at 2048 taps, update rate 1 and 4;
@@ -31,9 +39,11 @@ Phases, each of which fails the run on any error (nothing is caught):
      ``torch.cuda.set_sync_debug_mode("error")``, so a host sync fails;
   4c. (h) static `render` of 2^22 samples at (123.4°, 5.6°) and one short
      call on the direct route; (i) `render_batch` of 64 requests × 2^17
-     samples on moving tracks; (j) the sizes above
-     shared memory: `render_streamed` at 44,100 taps (L = 65536, P = 87)
-     and a trajectory at 16,384 taps (n_fft = 32768) — each against the
+     samples on moving tracks; (k) the same at 2048 taps (n_fft 4096, the
+     natural-order route); (l) a 2^23-sample trajectory at block 2048
+     (n_fft 4096, natural order); (j) the sizes above shared memory:
+     `render_streamed` at 44,100 taps (L = 65536, P = 87) and a trajectory
+     at 16,384 taps (n_fft = 32768, natural order) — each against the
      float64 plain path (SNR ≥ 100 dB) with its exact launch counts;
   5. one torch.profiler window per block render, after every timing: device
      busy time, idle share and the largest kernels.
@@ -56,16 +66,18 @@ SR = 44100
 B = 1024
 KERNEL_SNR_DB = 100.0
 RENDER_SNR_DB = 60.0
-NEW_RENDER_SNR_DB = 100.0  # renders (h)–(j)
+NEW_RENDER_SNR_DB = 100.0  # renders (b), (c), (h)–(m)
 SOURCE = "tinaural_torch/csrc/block_render.cu"
 PART_SOURCE = "tinaural_torch/csrc/partitioned.cu"
 STEP_SOURCE = "tinaural_torch/csrc/block_step.cu"
+MAC_SOURCE = "tinaural_torch/csrc/assembly_mac.cu"
 PALLAS = "tinaural/ops/pallas_kernels.py"
 # each partitioned kernel → the TPU kernels it replaces (def lines)
 PART_REPLACES = {"assemble_partitions": (2215, 1710),
                  "stream_conv": (2215, 2338),
                  "partitioned_conv": (1413, 1710)}
 FUSED_BLOCK_RENDER, FUSED_BLOCK_STEP, FUSED_EPILOGUE = 1089, 814, 2587
+FUSED_BLOCK_STEP_MIX, FUSED_ASSEMBLY_MAC = 910, 354
 # the card's peaks (NVIDIA H100 SXM data sheet, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
@@ -93,11 +105,17 @@ def table_bytes(table) -> int:
 def assembly_work(table, rows: int, n_fft: int) -> dict:
     """assemble_filters: gather and lerp of 4 rows, rfft_L, ramp·gain,
     irfft_L, rfft_nfft per row."""
-    L = 1 << math.ceil(math.log2(table.taps + 64))
     F = n_fft // 2 + 1
     return bound(rows * 32 + table_bytes(table) + rows * 2 * F * 8,
-                 rows * (16 * table.taps + 2 * fft_flops(L) + 16 * (L // 2 + 1)
-                         + fft_flops(n_fft)))
+                 rows * assembly_flops(table, n_fft))
+
+
+def assembly_flops(table, n_fft: int) -> float:
+    """Operations of one row's assembly: gather and lerp, rfft_L,
+    ramp·gain, irfft_L, rfft_nfft."""
+    L = 1 << math.ceil(math.log2(table.taps + 64))
+    return (16 * table.taps + 2 * fft_flops(L) + 16 * (L // 2 + 1)
+            + fft_flops(n_fft))
 
 
 def ola_work(S: int, nb: int, B: int, n_fft: int) -> dict:
@@ -252,15 +270,23 @@ B1_COUNTS = {"assemble_filters": 1, "block_spectra_mix_inverse": 1,
              "overlap_add": 1}
 STEP_COUNTS = {"assemble_filters": 1, "block_spectra": 1,
                "spectra_inverse": 1, "overlap_add": 1}
+MIX_COUNTS = {"assemble_filters": 1, "block_spectra_mix": 1,
+              "spectra_inverse": 1, "overlap_add": 1}
+MAC_COUNTS = {"assembly_mac": 1, "spectra_inverse": 1, "overlap_add": 1}
 
 
 def check_render(name: str, public_call, core_call, audio_sec: float,
                  expect: dict, launches_total: dict, reps: int,
-                 min_snr: float = RENDER_SNR_DB, no_sync: bool = False) -> dict:
+                 min_snr: float = RENDER_SNR_DB, no_sync: bool = False,
+                 other_routes: dict | None = None,
+                 same_bits: bool = False) -> dict:
     """One render through the public entry point with every launch count
     at 0 before it and exactly ``expect`` after, then the float64 plain
     check and the kernel / plain fp32 timings, both on the render core
-    with the inputs already on the card. core_call(plain, dtype)."""
+    with the inputs already on the card. core_call(plain, dtype).
+    ``other_routes``: name → core call on another route, each held against
+    the same float64 output and timed; ``same_bits``: two core calls must
+    give equal bits."""
     import torch
 
     y, counts = _counts_after(public_call, expect, name, launches_total,
@@ -271,6 +297,9 @@ def check_render(name: str, public_call, core_call, audio_sec: float,
     y64 = core_call(True, torch.float64)
     require(torch.equal(y, y_core[..., : y.shape[-1]]),
             f"render {name}: public call and core differ")
+    if same_bits:
+        require(torch.equal(y_core, core_call(False, torch.float32)),
+                f"render {name}: two calls differ")
     s = snr_db(y64, y_core)
     require(s >= min_snr, f"render {name}: SNR {s:.2f} < {min_snr}")
     ms = cuda_ms(lambda: core_call(False, torch.float32), reps)
@@ -283,7 +312,18 @@ def check_render(name: str, public_call, core_call, audio_sec: float,
           f"fp64, launches {counts}, kernel {ms:.3f} ms = "
           f"{res['kernel_audio_sec_per_sec']:.1f} audio-s/s, plain fp32 "
           f"{plain_ms:.3f} ms = {res['plain_fp32_audio_sec_per_sec']:.1f} "
-          f"audio-s/s", flush=True)
+          f"audio-s/s" + (", same bits over two calls" if same_bits else ""),
+          flush=True)
+    for route, call in (other_routes or {}).items():
+        s_r = snr_db(y64, call())
+        require(s_r >= min_snr, f"render {name} on {route}: SNR {s_r:.2f}")
+        ms_r = cuda_ms(call, reps)
+        res[f"{route}_route"] = {"snr_db_vs_plain_fp64": s_r, "kernel_ms": ms_r,
+                                 "kernel_audio_sec_per_sec":
+                                     audio_sec / (ms_r / 1e3)}
+        print(f"[render {name}] on {route}'s route: SNR {s_r:.2f} dB vs plain"
+              f" fp64, kernel {ms_r:.3f} ms = {audio_sec / (ms_r / 1e3):.1f} "
+              f"audio-s/s", flush=True)
     TO_PROFILE.append((name, res, lambda: core_call(False, torch.float32)))
     return res
 
@@ -533,6 +573,98 @@ def check_step_kernels(table, S: int, nb: int, label: str, reps: int) -> dict:
     return res
 
 
+def check_mix_kernels(table, S: int, nb: int, label: str, reps: int) -> dict:
+    """block_spectra_mix with crossfade, without it, and with one filter
+    per source, then the summing spectra_inverse, against their plain fp32
+    versions at the scene renders' shape and source chunk."""
+    import numpy as np
+    import torch
+
+    from tinaural_torch.ops import block_render as br
+    from tinaural_torch.ops import block_step as bs
+    from tinaural_torch.ops._layout import sm_count
+
+    n_fft = 2048
+    F = n_fft // 2 + 1
+    idx, w = _rows(table, (S, nb), seed=S + nb + 1)
+    xbs = torch.tensor(np.random.default_rng(nb + 1).standard_normal(
+        (S, nb, B)), dtype=torch.float32, device=table.device)
+    chunk = bs.mix_chunk(S, nb, sm_count(table.device))
+    C = -(-S // chunk)
+    print(f"[{label}] {C} chunks of {chunk} sources: {C * nb} CUDA blocks",
+          flush=True)
+    res = {}
+    for name, cf, one in (("block_spectra_mix", True, False),
+                          ("block_spectra_mix_no_crossfade", False, False),
+                          ("block_spectra_mix_one_filter", False, True)):
+        i, ww = (idx[:, :1].contiguous(), w[:, :1].contiguous()) if one \
+            else (idx, w)
+        H = br.assemble_filters_cuda(i, ww, table, n_fft, **PART_FLAGS)
+        kern = lambda H=H, cf=cf: bs.block_spectra_mix_cuda(
+            xbs, H, n_fft, crossfade=cf, chunk=chunk)
+        plain = lambda H=H, cf=cf: bs.block_spectra_mix_reference(
+            xbs, H, n_fft, crossfade=cf, chunk=chunk)
+        _report(res, name, kern(), plain(), kern, plain, label, reps, bound(
+            S * nb * B * 4 + H.numel() * 8 + C * nb * 2 * F * 8,
+            S * nb * (fft_flops(n_fft) + 2 * F * (16 if cf else 8))))
+    H = br.assemble_filters_cuda(idx, w, table, n_fft, **PART_FLAGS)
+    P = bs.block_spectra_mix_cuda(xbs, H, n_fft, crossfade=True, chunk=chunk)
+    _report(res, "spectra_inverse_summed",
+            bs.spectra_inverse_cuda(P, n_fft, summed=True),
+            bs.spectra_inverse_reference(P.sum(0), n_fft),
+            lambda: bs.spectra_inverse_cuda(P, n_fft, summed=True),
+            lambda: bs.spectra_inverse_reference(P.sum(0), n_fft), label,
+            reps, bound(P.numel() * 8 + nb * 2 * n_fft * 4,
+                        nb * (fft_flops(n_fft) + 2 * F * 2 * (C - 1))))
+    return res
+
+
+def check_assembly_mac(table, S: int, nb: int, label: str,
+                       reps: int) -> dict:
+    """assembly_mac against its plain fp32 version on S sources of nb
+    blocks flattened to rows, `first` at each source's block 0, on the
+    input spectra of the natural-order route."""
+    import numpy as np
+    import torch
+
+    from tinaural_torch.models.renderer import _n_fft
+    from tinaural_torch.ops import assembly_mac as am
+    from tinaural_torch.ops._layout import sm_count
+
+    n_fft = _n_fft(table, B)
+    F = n_fft // 2 + 1
+    rows = S * nb
+    idx, w = _rows(table, (rows,), seed=rows + 2)
+    xbs = torch.tensor(np.random.default_rng(rows).standard_normal(
+        (S, nb, B)), dtype=torch.float32, device=table.device)
+    Xu, Xd = am._input_spectra(xbs, n_fft, True)
+    first = am._first_rows(S, nb, table.device)
+    run = am.run_length(rows, sm_count(table.device))
+    print(f"[{label}] n_fft {n_fft}, {rows} rows in runs of {run}: "
+          f"{1 + 1 / run:.3f} assemblies per row", flush=True)
+    res = {}
+    for name, cf in (("assembly_mac", True),
+                     ("assembly_mac_no_crossfade", False)):
+        kern = lambda cf=cf: am.assembly_mac_cuda(
+            idx, w, table, Xu, Xd, first, n_fft, crossfade=cf, **PART_FLAGS)
+        plain = lambda cf=cf: am.assembly_mac_reference(
+            idx, w, table, Xu, Xd, first, n_fft, crossfade=cf, **PART_FLAGS)
+        _report(res, name, kern(), plain(), kern, plain, label, reps, bound(
+            rows * (32 + 4) + table_bytes(table)
+            + rows * F * 8 * (2 if cf else 1) + rows * 2 * F * 8,
+            rows * (assembly_flops(table, n_fft) + 2 * F * (14 if cf else 6))))
+    Y = am.assembly_mac_cuda(idx, w, table, Xu, Xd, first, n_fft,
+                             crossfade=True, **PART_FLAGS)
+    Y64 = am.assembly_mac_reference(idx, w.double(), table,
+                                    Xu.to(torch.complex128),
+                                    Xd.to(torch.complex128), first, n_fft,
+                                    crossfade=True, **PART_FLAGS)
+    print(f"[{label}] assembly_mac: SNR {snr_db(Y64, Y):.2f} dB vs plain fp64",
+          flush=True)
+    res["assembly_mac"]["run"] = run
+    return res
+
+
 def check_stream_chain(table, S: int, B: int, n: int, label: str) -> None:
     """n chained pushes at update rate 2 through the kernels and through
     the plain float32 versions, each route carrying its own state: the
@@ -569,20 +701,20 @@ def _counts_after(fn, expect: dict, name: str, launches_total: dict,
     """Run fn with every launch count at 0 and check the counts after."""
     import torch
 
+    from tinaural_torch.ops import assembly_mac as am
     from tinaural_torch.ops import block_render as br
     from tinaural_torch.ops import block_step as bs
     from tinaural_torch.ops import partitioned_conv as pc
 
-    br.reset_launches()
-    bs.reset_launches()
-    pc.reset_launches()
+    for m in (br, bs, pc, am):
+        m.reset_launches()
     torch.cuda.synchronize()
     if no_sync:
         torch.cuda.set_sync_debug_mode("error")
     out = fn()
     torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    counts = {**br.launches, **bs.launches, **pc.launches}
+    counts = {**br.launches, **bs.launches, **pc.launches, **am.launches}
     want = {k: expect.get(k, 0) for k in counts}
     require(counts == want, f"render {name}: launches {counts}, want {want}")
     for k, v in counts.items():
@@ -788,16 +920,18 @@ def check_static(table, N: int, launches_total: dict, reps: int) -> dict:
     return res
 
 
-def check_batch(table, S: int, N: int, launches_total: dict,
-                reps: int) -> dict:
-    """(i) `render_batch` of S requests of N samples, each on its own
-    moving track drawn as render (b)'s directions."""
+def check_batch(name: str, table, S: int, N: int, kern, plain_fn,
+                expect: dict, launches_total: dict, reps: int,
+                other=None) -> dict:
+    """(i), (k) `render_batch` of S requests of N samples, each on its own
+    moving track drawn as render (b)'s directions; ``kern`` the route the
+    shapes pick, ``plain_fn`` its plain version, ``other`` another route
+    timed beside it."""
     import numpy as np
     import torch
 
     import tinaural_torch as tt
     from tinaural_torch.models.renderer import _batch_core
-    from tinaural_torch.ops import block_step as bs
 
     cfg = tt.RenderConfig(block_size=B)
     r = tt.BinauralRenderer(table, cfg)
@@ -809,12 +943,12 @@ def check_batch(table, S: int, N: int, launches_total: dict,
     xbs = torch.tensor(xs.reshape(S, nb, B), device=table.device)
     dirs_t = torch.tensor(dirs, device=table.device)
     return check_render(
-        f"i batch {S} moving", lambda: r.render_batch(xs, dirs),
-        lambda plain, dt: _batch_core(
-            table, xbs.to(dt), dirs_t, cfg,
-            render=bs.block_step_render_reference if plain
-            else bs.block_step_render),
-        S * N / SR, STEP_COUNTS, launches_total, reps, NEW_RENDER_SNR_DB)
+        name, lambda: r.render_batch(xs, dirs),
+        lambda plain, dt: _batch_core(table, xbs.to(dt), dirs_t, cfg,
+                                      render=plain_fn if plain else kern),
+        S * N / SR, expect, launches_total, reps, NEW_RENDER_SNR_DB,
+        other_routes=other and {other.__name__: lambda: _batch_core(
+            table, xbs, dirs_t, cfg, render=other)})
 
 
 def check_long(long_streamed, long_traj, N: int, launches_total: dict,
@@ -825,6 +959,7 @@ def check_long(long_streamed, long_traj, N: int, launches_total: dict,
     samples each."""
     from tinaural_torch.models.renderer import (_partitioned_core,
                                                 _trajectory_core)
+    from tinaural_torch.ops import assembly_mac as am
     from tinaural_torch.ops import block_render as br
     from tinaural_torch.ops import partitioned_conv as pc
 
@@ -836,14 +971,16 @@ def check_long(long_streamed, long_traj, N: int, launches_total: dict,
                 launches_total, reps),
             "trajectory_16384_taps": long_render(
                 "j trajectory 16384 taps", long_traj, 1024, N, False,
-                _trajectory_core, br.block_render, br.block_render_reference,
-                B1_COUNTS, launches_total, reps)}
+                _trajectory_core, am.assembly_mac_render,
+                am.assembly_mac_render_reference, MAC_COUNTS,
+                launches_total, reps, other=br.block_render)}
 
 
 def long_render(name: str, table, Bj: int, N: int, streamed: bool, core,
                 kern, plain_fn, expect: dict, launches_total: dict,
-                reps: int) -> dict:
-    """One render of (j) on bench.py's BRIR direction track."""
+                reps: int, other=None) -> dict:
+    """One render of (j) or (l) on bench.py's BRIR direction track;
+    ``other`` another route timed beside it."""
     import numpy as np
     import torch
 
@@ -863,7 +1000,9 @@ def long_render(name: str, table, Bj: int, N: int, streamed: bool, core,
         name, lambda: public(x, dirs),
         lambda plain, dt: core(table, xb.to(dt), dirs_t, cfg,
                                render=plain_fn if plain else kern),
-        N / SR, expect, launches_total, reps, NEW_RENDER_SNR_DB)
+        N / SR, expect, launches_total, reps, NEW_RENDER_SNR_DB,
+        other_routes=other and {other.__name__: lambda: core(
+            table, xb, dirs_t, cfg, render=other)})
 
 
 def kernel_entry(name: str, source: str, replaces: int, launches: int,
@@ -890,6 +1029,7 @@ def main() -> int:
                                                 _scene_static_core,
                                                 _trajectory_core)
     from tinaural_torch.ops import _build
+    from tinaural_torch.ops import assembly_mac as am
     from tinaural_torch.ops import block_render as br
     from tinaural_torch.ops import block_step as bs
     from tinaural_torch.ops import partitioned_conv as pc
@@ -919,16 +1059,21 @@ def main() -> int:
 
     table = tt.TorchTable.from_hrir_table(tt.load_hrir_set("synthetic"), dev)
     cfg = tt.RenderConfig(block_size=B)
+    t0 = time.perf_counter()
+    brir, long_streamed, long_traj = (
+        tt.TorchTable.from_hrir_table(tt.load_hrir_set("synthetic", taps=n),
+                                      dev) for n in (2048, 44100, 16384))
+    print(f"long tables: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 3. kernels against their plain versions
     check_kernels(table, 1, 256, True, "check", reps=5)
     k_traj = check_kernels(table, 1, 8192, True, "trajectory", reps=5)
     k_scene = check_kernels(table, 64, 128, True, "scene", reps=5)
     check_kernels(table, 64, 128, False, "static scene", reps=5)
+    # B1's split mode, at the 16,384-tap table's n_fft 32768
+    check_kernels(long_traj, 1, 32, True, "split n_fft 32768", reps=2)
 
     # 3b. the partitioned-convolution kernels against their plain versions
-    brir = tt.TorchTable.from_hrir_table(
-        tt.load_hrir_set("synthetic", taps=2048), dev)
     k_serve = check_stream_kernels(table, 1024, 256, "stream 128 taps P=1",
                                    reps=10)
     k_brir = check_stream_kernels(brir, 64, 256, "stream 2048 taps P=9",
@@ -943,9 +1088,15 @@ def main() -> int:
                                 reps=5)
     check_step_kernels(table, 32, 1, "block step S=32 nb=1", reps=5)
 
+    # 3d. the scene mixdown's and the natural-order route's kernels
+    k_mix = check_mix_kernels(table, 64, 128, "mix S=64 nb=128", reps=5)
+    k_mac = check_assembly_mac(brir, 64, 128,
+                               "assembly_mac 8192 rows n_fft 4096", reps=5)
+
     # 4. the renders
     r = tt.BinauralRenderer(table, cfg)
-    launches = dict.fromkeys([*br.KERNELS, *bs.KERNELS, *pc.KERNELS], 0)
+    launches = dict.fromkeys(
+        [*br.KERNELS, *bs.KERNELS, *pc.KERNELS, *am.KERNELS], 0)
     renders = {}
 
     rng = np.random.default_rng(0)
@@ -955,6 +1106,8 @@ def main() -> int:
     xb = torch.tensor(x.reshape(-1, B), device=dev)
     dirs_t = torch.tensor(dirs, device=dev)
     block_op = lambda plain: br.block_render_reference if plain else br.block_render
+    mix_op = (lambda plain: bs.scene_step_render_reference if plain
+              else bs.scene_step_render)
     renders["a_trajectory"] = check_render(
         "a trajectory 2^23", lambda: r.render_trajectory(x, dirs),
         lambda plain, dt: _trajectory_core(table, xb.to(dt), dirs_t, cfg,
@@ -971,8 +1124,11 @@ def main() -> int:
     renders["b_scene_moving"] = check_render(
         "b scene 64 moving", lambda: r.render_scene(xs, dmov),
         lambda plain, dt: _scene_core(table, xbs.to(dt), dmov_t, cfg,
-                                      render=block_op(plain)),
-        S * N / SR, B1_COUNTS, launches, reps=3)
+                                      render=mix_op(plain)),
+        S * N / SR, MIX_COUNTS, launches, reps=3,
+        min_snr=NEW_RENDER_SNR_DB, same_bits=True,
+        other_routes={"block_render": lambda: _scene_core(
+            table, xbs, dmov_t, cfg, render=br.block_render)})
 
     dstat = np.stack([rng.uniform(0, 360, S), rng.uniform(-40, 90, S)],
                      -1).astype(np.float32)
@@ -980,8 +1136,25 @@ def main() -> int:
     renders["c_scene_static"] = check_render(
         "c scene 64 static", lambda: r.render_scene(xs, dstat),
         lambda plain, dt: _scene_static_core(table, xbs.to(dt), dstat_t,
-                                             cfg, render=block_op(plain)),
-        S * N / SR, B1_COUNTS, launches, reps=3)
+                                             cfg, render=mix_op(plain)),
+        S * N / SR, MIX_COUNTS, launches, reps=3,
+        min_snr=NEW_RENDER_SNR_DB, same_bits=True,
+        other_routes={"block_render": lambda: _scene_static_core(
+            table, xbs, dstat_t, cfg, render=br.block_render)})
+
+    S, N = 16, 1 << 20
+    xs_m = rng.standard_normal((S, N)).astype(np.float32)
+    dm = np.stack([rng.uniform(0, 360, (S, N // B)),
+                   rng.uniform(-40, 90, (S, N // B))], -1).astype(np.float32)
+    xbs_m = torch.tensor(xs_m.reshape(S, -1, B), device=dev)
+    dm_t = torch.tensor(dm, device=dev)
+    renders["m_scene_moving_long"] = check_render(
+        "m scene 16 moving 2^20", lambda: r.render_scene(xs_m, dm),
+        lambda plain, dt: _scene_core(table, xbs_m.to(dt), dm_t, cfg,
+                                      render=block_op(plain)),
+        S * N / SR, B1_COUNTS, launches, reps=3, min_snr=NEW_RENDER_SNR_DB,
+        other_routes={"scene_step_render": lambda: _scene_core(
+            table, xbs_m, dm_t, cfg, render=bs.scene_step_render)})
 
     # 4b. the streaming and partitioned renders
     renders["d_serving"] = check_serving("d serving", table, 1024, 32, 1,
@@ -993,28 +1166,37 @@ def main() -> int:
     renders["f_latency"] = check_latency(table, 64, launches)
     renders["g_streamed"] = check_streamed(brir, 1 << 20, launches, reps=3)
 
-    # 4c. static render, render_batch, and the sizes above shared memory
+    # 4c. static render, render_batch on both routes, the natural-order
+    # trajectory, and the sizes above shared memory
     renders["h_static"] = check_static(table, 1 << 22, launches, reps=3)
-    renders["i_batch"] = check_batch(table, 64, 1 << 17, launches, reps=3)
-    t0 = time.perf_counter()
-    long_streamed = tt.TorchTable.from_hrir_table(
-        tt.load_hrir_set("synthetic", taps=44100), dev)
-    long_traj = tt.TorchTable.from_hrir_table(
-        tt.load_hrir_set("synthetic", taps=16384), dev)
-    print(f"long tables: {time.perf_counter() - t0:.1f} s", flush=True)
+    renders["i_batch"] = check_batch(
+        "i batch 64 moving", table, 64, 1 << 17, bs.block_step_render,
+        bs.block_step_render_reference, STEP_COUNTS, launches, reps=3)
+    renders["k_batch_2048_taps"] = check_batch(
+        "k batch 64 moving 2048 taps", brir, 64, 1 << 17,
+        am.assembly_mac_render, am.assembly_mac_render_reference, MAC_COUNTS,
+        launches, reps=3, other=bs.block_step_render)
+    renders["l_trajectory_block_2048"] = long_render(
+        "l trajectory 2^23 block 2048", table, 2048, 1 << 23, False,
+        _trajectory_core, am.assembly_mac_render,
+        am.assembly_mac_render_reference, MAC_COUNTS, launches, reps=3,
+        other=br.block_render)
     renders["j_long"] = check_long(long_streamed, long_traj, 1 << 17,
                                    launches, reps=2)
     profile_renders()
 
-    # overlap_add ends the B1 renders and is the OLA half of B2 in (h), (i)
-    ola_b2 = sum(renders[k]["launches"].get("overlap_add", 0)
-                 for k in ("h_static", "i_batch"))
+    # overlap_add ends the B1 renders and is the OLA half of B2 in every
+    # render that launched spectra_inverse
+    ola_b2 = sum(res["launches"].get("overlap_add", 0)
+                 for _, res, _ in TO_PROFILE
+                 if "spectra_inverse" in res["launches"])
     kernels = [kernel_entry(
         name, SOURCE, FUSED_BLOCK_RENDER,
         launches[name] - (ola_b2 if name == "overlap_add" else 0),
         k_traj[name], scene_ms=k_scene[name]["ms"],
         scene_plain_ms=k_scene[name]["plain_ms"],
-        **({"also_replaces": [f"{PALLAS}:{FUSED_BLOCK_STEP}"]}
+        **({"also_replaces": [f"{PALLAS}:{FUSED_BLOCK_STEP}",
+                              f"{PALLAS}:{FUSED_BLOCK_STEP_MIX}"]}
            if name == "assemble_filters" else {}))
         for name in br.KERNELS]
     # main shapes: the serving step (128 taps, S = 1024) and the offline
@@ -1042,9 +1224,20 @@ def main() -> int:
         kernel_entry("block_spectra", STEP_SOURCE, FUSED_BLOCK_STEP,
                      launches["block_spectra"], k_step["block_spectra"]),
         kernel_entry("spectra_inverse", STEP_SOURCE, FUSED_EPILOGUE,
-                     launches["spectra_inverse"], k_step["spectra_inverse"]),
+                     launches["spectra_inverse"], k_step["spectra_inverse"],
+                     summed_ms=k_mix["spectra_inverse_summed"]["ms"],
+                     summed_plain_ms=k_mix["spectra_inverse_summed"]["plain_ms"],
+                     also_replaces=[f"{PALLAS}:{FUSED_BLOCK_STEP_MIX}"]),
         kernel_entry("overlap_add", SOURCE, FUSED_EPILOGUE, ola_b2,
-                     k_step["overlap_add"], sources=64)]
+                     k_step["overlap_add"], sources=64),
+        kernel_entry("block_spectra_mix", STEP_SOURCE, FUSED_BLOCK_STEP_MIX,
+                     launches["block_spectra_mix"], k_mix["block_spectra_mix"],
+                     **{f"{k}_ms": k_mix[f"block_spectra_mix_{k}"]["ms"]
+                        for k in ("no_crossfade", "one_filter")}),
+        kernel_entry("assembly_mac", MAC_SOURCE, FUSED_ASSEMBLY_MAC,
+                     launches["assembly_mac"], k_mac["assembly_mac"],
+                     run=k_mac["assembly_mac"]["run"],
+                     no_crossfade_ms=k_mac["assembly_mac_no_crossfade"]["ms"])]
     for k in kernels:
         require(k["launches"] > 0, f"kernel {k['name']} was not launched")
     print(json.dumps({"renders": renders}), flush=True)

@@ -2,10 +2,11 @@
 render's three, the partitioned convolution's three (the streaming step
 with its hold step at P = 1, 5 and 9, S = 1 and block 128, a batched
 stream's offline render, and the partitioned offline render, chunked and
-whole), and the block step's two with the per-source overlap-add; each
-family again in the split buffer mode, forced at small shapes, and at the
-sizes that need it (a 44,100-tap `render_streamed`, a 16,384-tap
-trajectory).
+whole), the block step's two with the per-source overlap-add, the scene
+mixdown's `block_spectra_mix` with the summing `spectra_inverse`, and the
+natural-order `assembly_mac`; each family again in the split buffer mode,
+forced at small shapes, and at the sizes that need it (a 44,100-tap
+`render_streamed`, a 16,384-tap trajectory).
 
 This file imports neither the JAX package nor the shared conftest (which
 does), so it also runs where `tinaural` cannot be imported, as on a
@@ -27,6 +28,7 @@ from tinaural_torch.models.streaming import (StreamState, _batch_scan_core,
                                              init_state)
 from tinaural_torch.models.renderer import _partitioned_core, _trajectory_core
 from tinaural_torch.ops import _layout
+from tinaural_torch.ops import assembly_mac as am
 from tinaural_torch.ops import block_render as br
 from tinaural_torch.ops import block_step as bs
 from tinaural_torch.ops import partitioned_conv as pc
@@ -279,7 +281,9 @@ def test_block_step_kernels_match_plain(table, S, nb, crossfade, one_filter):
     torch.cuda.synchronize()
     assert br.launches["assemble_filters"] == before[0]["assemble_filters"] + 1
     assert br.launches["overlap_add"] == before[0]["overlap_add"] + 1
-    assert all(bs.launches[k] == before[1][k] + 1 for k in bs.KERNELS)
+    assert all(bs.launches[k] == before[1][k] + 1
+               for k in ("block_spectra", "spectra_inverse"))
+    assert bs.launches["block_spectra_mix"] == before[1]["block_spectra_mix"]
     y64 = bs.block_step_render_reference(xbs.double(), idx, w, table, n_fft,
                                          crossfade=crossfade, **FLAGS)
     assert _snr_db(y64, y) >= 100
@@ -315,6 +319,161 @@ def test_split_mode_matches_plain(table, long_tables, monkeypatch, work):
                                    *(a.double() for a in args), **kw)
     for g, r in zip(got, ref):
         assert _snr_db(r, g) >= 100
+
+
+# ------------------------------------------------ scene mixdown, natural order
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,nb,crossfade,one_filter,chunk", [
+    (5, 40, True, False, 2), (5, 40, False, True, 5), (3, 1, True, False, 1),
+    (7, 9, True, True, 3)])
+def test_block_spectra_mix_matches_plain(table, S, nb, crossfade, one_filter,
+                                         chunk):
+    """block_spectra_mix's partials against the plain float64 version, the
+    summing spectra_inverse against the irfft of their sum, and the whole
+    scene route against its plain version."""
+    xbs, idx, w = _inputs(table, S, nb, seed=S * 10 + nb + chunk)
+    if one_filter:
+        idx, w = idx[:, :1].contiguous(), w[:, :1].contiguous()
+    n_fft = _n_fft(table, B)
+    H = br.assemble_filters_cuda(idx, w, table, n_fft, **FLAGS)
+    P = bs.block_spectra_mix_cuda(xbs, H, n_fft, crossfade=crossfade,
+                                  chunk=chunk)
+    P64 = bs.block_spectra_mix_reference(xbs.double(), H.to(torch.complex128),
+                                         n_fft, crossfade=crossfade,
+                                         chunk=chunk)
+    assert P.shape == P64.shape == (-(-S // chunk), nb, 2, n_fft // 2 + 1)
+    assert _snr_db(P64, P) >= 100
+    frames = bs.spectra_inverse_cuda(P, n_fft, summed=True)
+    f64 = bs.spectra_inverse_reference(P.to(torch.complex128).sum(0), n_fft)
+    assert frames.shape == (nb, 2, n_fft) and _snr_db(f64, frames) >= 100
+    kw = dict(crossfade=crossfade, **FLAGS)
+    y = bs.scene_step_render(xbs, idx, w, table, n_fft, **kw)
+    y64 = bs.scene_step_render_reference(xbs.double(), idx, w, table, n_fft,
+                                         **kw)
+    assert y.shape == y64.shape == (2, (nb - 1) * B + n_fft)
+    assert _snr_db(y64, y) >= 100
+
+
+@pytest.mark.gpu
+def test_scene_mix_route_is_deterministic(table):
+    """Two calls of the mixdown route give equal bits: the partials are
+    summed in a fixed order, with no atomics."""
+    xbs, idx, w = _inputs(table, 64, 16, seed=11)
+    kw = dict(crossfade=True, **FLAGS)
+    n_fft = _n_fft(table, B)
+    before = dict(bs.launches)
+    first = bs.scene_step_render(xbs, idx, w, table, n_fft, **kw)
+    assert bs.launches["block_spectra_mix"] == before["block_spectra_mix"] + 1
+    assert torch.equal(first, bs.scene_step_render(xbs, idx, w, table, n_fft,
+                                                   **kw))
+
+
+def _mac_inputs(t, rows, n_fft, seed):
+    idx, w = _rows(t, (rows,), seed)
+    rng = np.random.default_rng(seed)
+    F = n_fft // 2 + 1
+    X = torch.from_numpy((rng.standard_normal((2, rows, F))
+                          + 1j * rng.standard_normal((2, rows, F))).astype(
+                              np.complex64)).to(t.device)
+    return idx, w, X[0], X[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("taps,rows,firsts,crossfade", [
+    (128, 70, (0, 37), True), (128, 70, (37,), False),
+    (2048, 9, (4, 5), True), (128, 3001, (0, 1, 999, 1500, 3000), True)])
+def test_assembly_mac_matches_plain(long_tables, taps, rows, firsts,
+                                    crossfade):
+    """Against the plain float64 version, with `first` at run boundaries
+    and inside runs, row 0 passed as 0 where firsts omit it, and rows that
+    are no multiple of the run (3001 rows run 5 at a time on 132 SMs)."""
+    t = long_tables[taps]
+    n_fft = 4096
+    idx, w, Xu, Xd = _mac_inputs(t, rows, n_fft, seed=rows + taps)
+    first = torch.zeros(rows, device=t.device)
+    first[list(firsts)] = 1.0
+    kw = dict(crossfade=crossfade, **FLAGS)
+    Y = am.assembly_mac_cuda(idx, w, t, Xu, Xd, first, n_fft, **kw)
+    Y64 = am.assembly_mac_reference(idx, w.double(), t,
+                                    Xu.to(torch.complex128),
+                                    Xd.to(torch.complex128), first, n_fft,
+                                    **kw)
+    assert Y.shape == (rows, 2, n_fft // 2 + 1)
+    assert _snr_db(Y64, Y) >= 100
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("taps,Bn", [(128, 2048), (2048, 256)])
+def test_assembly_mac_render_matches_plain(long_tables, taps, Bn):
+    t = long_tables[taps]
+    rng = np.random.default_rng(taps)
+    S, nb = 3, 11
+    xbs = torch.from_numpy(rng.standard_normal((S, nb, Bn)).astype(
+        np.float32)).to(t.device)
+    idx, w = _rows(t, (S, nb), seed=Bn)
+    n_fft = _n_fft(t, Bn)
+    assert n_fft == 4096
+    kw = dict(crossfade=True, **FLAGS)
+    before = dict(am.launches)
+    y = am.assembly_mac_render(xbs, idx, w, t, n_fft, **kw)
+    assert am.launches["assembly_mac"] == before["assembly_mac"] + 1
+    y64 = am.assembly_mac_render_reference(xbs.double(), idx, w, t, n_fft,
+                                           **kw)
+    assert y.shape == y64.shape == (S, 2, (nb - 1) * Bn + n_fft)
+    assert _snr_db(y64, y) >= 100
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("work", [64, 256])
+def test_split_mode_mix_and_assembly_mac(table, monkeypatch, work):
+    """block_spectra_mix, the summing spectra_inverse and assembly_mac with
+    their buffers in the device scratch, forced at small shapes."""
+    monkeypatch.setattr(_layout, "force_work", work)
+    xbs, idx, w = _inputs(table, 5, 6, seed=work + 1)
+    n_fft = _n_fft(table, B)
+    kw = dict(crossfade=True, **FLAGS)
+    y = bs.scene_step_render(xbs, idx, w, table, n_fft, **kw)
+    assert _snr_db(bs.scene_step_render_reference(xbs.double(), idx, w, table,
+                                                  n_fft, **kw), y) >= 100
+    idx, w, Xu, Xd = _mac_inputs(table, 23, 4096, seed=work)
+    first = torch.zeros(23, device=table.device)
+    first[[7, 8]] = 1.0
+    Y = am.assembly_mac_cuda(idx, w, table, Xu, Xd, first, 4096, **kw)
+    Y64 = am.assembly_mac_reference(idx, w.double(), table,
+                                    Xu.to(torch.complex128),
+                                    Xd.to(torch.complex128), first, 4096, **kw)
+    assert _snr_db(Y64, Y) >= 100
+
+
+@pytest.mark.gpu
+def test_mix_and_natural_order_routes_reject_bad_inputs(table):
+    xbs, idx, w = _inputs(table, 2, 4, seed=8)
+    n_fft = _n_fft(table, B)
+    kw = dict(crossfade=True, **FLAGS)
+    with pytest.raises(TypeError):
+        bs.scene_step_render(xbs.double(), idx, w, table, n_fft, **kw)
+    with pytest.raises(ValueError):
+        bs.scene_step_render(xbs.cpu(), idx, w, table, n_fft, **kw)
+    H = br.assemble_filters_cuda(idx, w, table, n_fft, **FLAGS)
+    with pytest.raises(ValueError):
+        bs.block_spectra_mix_cuda(xbs, H[:1], n_fft, crossfade=True, chunk=1)
+    with pytest.raises(ValueError):
+        bs.block_spectra_mix_cuda(xbs, H, n_fft, crossfade=True, chunk=0)
+    with pytest.raises(TypeError):
+        am.assembly_mac_render(xbs.double(), idx, w, table, n_fft, **kw)
+    flat_idx, flat_w, Xu, Xd = _mac_inputs(table, 8, n_fft, seed=1)
+    first = torch.zeros(8, device=table.device)
+    with pytest.raises(ValueError):
+        am.assembly_mac_cuda(flat_idx, flat_w, table, Xu, Xd[:4], first,
+                             n_fft, **kw)
+    with pytest.raises(TypeError):
+        am.assembly_mac_cuda(flat_idx, flat_w, table, Xu, Xd, first.double(),
+                             n_fft, **kw)
+    with pytest.raises(ValueError):
+        am.assembly_mac_cuda(flat_idx, flat_w, table, Xu, Xd, first.cpu(),
+                             n_fft, **kw)
 
 
 @pytest.mark.gpu

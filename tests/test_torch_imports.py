@@ -15,6 +15,7 @@ import torch
 torch.set_num_threads(1)
 import tinaural_torch
 from tinaural_torch.models.renderer import _neighbours
+from tinaural_torch.ops import assembly_mac as am
 from tinaural_torch.ops import block_render as br
 from tinaural_torch.ops import block_step as step
 from tinaural_torch.ops import partitioned_conv as pc
@@ -38,9 +39,16 @@ for n in (500, 2048):  # the direct route, then the block route
                                  r.config).shape == (2, n + 191)
 assert r.render_batch(np.ones((2, 600), np.float32),
                       np.zeros((2, 2), np.float32)).shape == (2, 2, 600 + 191)
+xs = np.ones((2, 600), np.float32)  # the mixdown route, static and moving
+assert r.render_scene(xs, np.zeros((2, 2), np.float32)).shape == (2, 791)
+assert r.render_scene(xs, np.zeros((2, 3, 2), np.float32)).shape == (2, 791)
+r4 = tinaural_torch.BinauralRenderer(t, tinaural_torch.RenderConfig(
+    block_size=2048))  # n_fft 4096: the natural-order route
+assert r4.render_trajectory(np.ones(5000, np.float32),
+                            np.zeros((3, 2), np.float32)).shape == (2, 5191)
 assert "tinaural_torch.ops._build" not in sys.modules, "CPU route reached the build"
 assert all(v == 0 for v in (*br.launches.values(), *step.launches.values(),
-                            *pc.launches.values()))
+                            *pc.launches.values(), *am.launches.values()))
 assert "jax" not in sys.modules and "flax" not in sys.modules
 print("ok")
 """

@@ -1,5 +1,6 @@
 // Hand-written Hopper kernels of the two-launch block render: block
-// spectra per (source, block) row, then their inverse, with no mixdown.
+// spectra per (source, block) row, or mixed over sources per output block,
+// then their inverse.
 //
 // Replaces, in tinaural/ops/pallas_kernels.py:
 //   fused_block_step  (_assembly_mac_s_kernel: forward four-step FFT of the
@@ -7,6 +8,11 @@
 //                      assembly stays in assemble_filters (block_render.cu),
 //                      as B1's port split it, and `block_spectra` below
 //                      does the rest;
+//   fused_block_step_mix  (the same step for every (source, block),
+//                      accumulated over sources in the kernel: its grid
+//                      revisits each output tile across a sequential source
+//                      axis) — `block_spectra_mix` below, then the summing
+//                      `spectra_inverse`;
 //   fused_epilogue    (_epilogue_kernel → _inverse_ola_core: inverse
 //                      four-step FFT of both ears, OLA under the `first`
 //                      masks) — `spectra_inverse` below, then the
@@ -23,13 +29,24 @@
 //                    FFT), Y = Xu·H[s,b] + Xd·H[s,b−1]; without crossfade
 //                    Y = X·H[s,b]. A filter count per source of 1 lets one
 //                    filter serve every block (the static render).
+//   block_spectra_mix  one block per (source chunk c, output block b): the
+//                    forward FFT and MAC of block_spectra for each source of
+//                    the chunk in turn, accumulated in shared memory → one
+//                    partial spectrum P[c, b]. CUDA blocks run in no order,
+//                    so the TPU's sequential source axis becomes a loop
+//                    inside the block plus a second pass over the C
+//                    partials; no atomics, so two calls give equal bits.
+//                    The host picks the chunk so that the grid (C·nb)
+//                    covers the card several times over (ops/block_step.py
+//                    `mix_chunk`); B1's mix kernel has nb blocks only.
 //   spectra_inverse  one block per row: one packed inverse FFT of both
-//                    ears → frames (rows, 2, n_fft).
+//                    ears → frames (rows, 2, n_fft); with a count of terms
+//                    it first sums that many partials per row, in order.
 //
 // Each row reads B samples and two filters (2·2·F complex64, 32 KB at
 // n_fft = 2048) and writes 2·F complex64 or 2·n_fft floats; the FFT stages
-// and their __syncthreads() bound both kernels on the H100 before the
-// bytes do. Both run in either buffer mode of common.cuh.
+// and their __syncthreads() bound the three kernels on the H100 before the
+// bytes do. All run in either buffer mode of common.cuh.
 
 #include "common.cuh"
 
@@ -98,11 +115,95 @@ __global__ void block_spectra_kernel(const float* __restrict__ x,
   }
 }
 
-// Y: (rows, 2, F) complex64 → frames: (rows, 2, n_fft) f32.
+// x: (S, nb, B) f32; H: (S·fnb, 2, F) complex64 with fnb ∈ {1, nb};
+// P: (C, nb, 2, F) complex64, C = ⌈S/chunk⌉, P[c, b] = Σ of Y[s, b] over the
+// sources c·chunk ≤ s < (c+1)·chunk, added in order of s.
 template <bool kSplit>
+__global__ void block_spectra_mix_kernel(const float* __restrict__ x,
+                                         const float2* __restrict__ H,
+                                         float2* __restrict__ P, int S,
+                                         int nb, int B, int n_fft, int fnb,
+                                         int chunk, int crossfade,
+                                         float2* scratch, int work) {
+  extern __shared__ float2 smem[];
+  const int n = n_fft;
+  const int F = n / 2 + 1;
+  const int tw_n = kSplit ? work : n;
+  float2* tw = smem;             // tw_n / 2
+  float2* wbuf = tw + tw_n / 2;  // split: work
+  float2* buf = kSplit ? scratch + static_cast<size_t>(blockIdx.x) * (n + 2 * F)
+                       : wbuf;   // n
+  float2* acc0 = buf + n;        // F
+  float2* acc1 = acc0 + F;       // F
+
+  const FftPlan f = fft_plan(n, kSplit ? work : 0);
+  make_twiddles(tw, tw_n);
+  const float inv_B = 1.0f / B;
+  const int rows = (S + chunk - 1) / chunk * nb;
+  for (int r = blockIdx.x; r < rows; r = next_row<kSplit>(r, rows)) {
+    const int c = r / nb;
+    const int b = r - c * nb;
+    __syncthreads();  // the previous row is done with buf and acc
+    for (int k = threadIdx.x; k < F; k += blockDim.x) {
+      acc0[k] = make_float2(0.f, 0.f);
+      acc1[k] = make_float2(0.f, 0.f);
+    }
+    const int bc = fnb == 1 ? 0 : b;
+    const int s_end = min(S, (c + 1) * chunk);
+    for (int s = c * chunk; s < s_end; ++s) {
+      const float* xb = x + (static_cast<size_t>(s) * nb + b) * B;
+      // crossfade: one FFT of x·u + i·x·(1−u), u = (i + 0.5)/B
+      for (int t = threadIdx.x; t < n; t += blockDim.x) {
+        float2 z = make_float2(0.f, 0.f);
+        if (t < B) {
+          const float v = xb[t];
+          if (crossfade) {
+            const float xu = v * ((t + 0.5f) * inv_B);
+            z = make_float2(xu, v - xu);
+          } else {
+            z.x = v;
+          }
+        }
+        buf[fft_pos<kSplit>(f, t)] = z;
+      }
+      fft_run<kSplit>(f, buf, tw, tw_n, wbuf, false);
+
+      const float2* Hc = H + (static_cast<size_t>(s) * fnb + bc) * 2 * F;
+      // block 0 of every source takes its own filter as "previous"
+      const float2* Hp =
+          H + (static_cast<size_t>(s) * fnb + (bc > 0 ? bc - 1 : 0)) * 2 * F;
+      for (int k = threadIdx.x; k < F; k += blockDim.x) {
+        if (crossfade) {
+          float2 Xu, Xd;
+          unpack_pair(buf[k], buf[(n - k) & (n - 1)], &Xu, &Xd);
+          acc0[k] = cadd(acc0[k], cadd(cmul(Xu, Hc[k]), cmul(Xd, Hp[k])));
+          acc1[k] =
+              cadd(acc1[k], cadd(cmul(Xu, Hc[F + k]), cmul(Xd, Hp[F + k])));
+        } else {
+          const float2 X = buf[k];
+          acc0[k] = cadd(acc0[k], cmul(X, Hc[k]));
+          acc1[k] = cadd(acc1[k], cmul(X, Hc[F + k]));
+        }
+      }
+      __syncthreads();  // buf is rewritten by the next source
+    }
+    // each thread wrote the bins it reads back: no barrier needed
+    float2* P0 = P + static_cast<size_t>(r) * 2 * F;
+    for (int k = threadIdx.x; k < F; k += blockDim.x) {
+      P0[k] = acc0[k];
+      P0[F + k] = acc1[k];
+    }
+  }
+}
+
+// Y: (terms, rows, 2, F) complex64 → frames: (rows, 2, n_fft) f32, the
+// irfft of each ear of Σ_t Y[t] (t in order). kSum = false compiles the
+// single-term kernel without the sum loop (24 registers, not 42).
+template <bool kSplit, bool kSum>
 __global__ void spectra_inverse_kernel(const float2* __restrict__ Y,
                                        float* __restrict__ frames, int rows,
-                                       int n_fft, float2* scratch, int work) {
+                                       int n_fft, int terms, float2* scratch,
+                                       int work) {
   extern __shared__ float2 smem[];
   const int n = n_fft;
   const int F = n / 2 + 1;
@@ -114,11 +215,13 @@ __global__ void spectra_inverse_kernel(const float2* __restrict__ Y,
 
   const FftPlan f = fft_plan(n, kSplit ? work : 0);
   make_twiddles(tw, tw_n);
+  const size_t stride = static_cast<size_t>(rows) * 2 * F;
   for (int r = blockIdx.x; r < rows; r = next_row<kSplit>(r, rows)) {
     __syncthreads();  // the previous row is done with buf
     const float2* Yr = Y + static_cast<size_t>(r) * 2 * F;
     float* fr = frames + static_cast<size_t>(r) * 2 * n;
-    inverse_pair<kSplit>(Yr, Yr + F, buf, f, tw, tw_n, wbuf, fr, fr + n);
+    inverse_pair<kSplit>(Yr, Yr + F, buf, f, tw, tw_n, wbuf, fr, fr + n,
+                         kSum ? terms : 1, stride);
   }
 }
 
@@ -145,19 +248,43 @@ int tt_block_spectra(const void* x, const void* H, void* Y, int S, int nb,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Y: (rows, 2, F) complex64 → frames: (rows, 2, n_fft) f32. slices > 0:
-// split mode, scratch holds slices · n_fft complex64.
+// x: (S, nb, B) f32; H: (S·fnb, 2, F) complex64; P: (⌈S/chunk⌉, nb, 2, F)
+// complex64. slices > 0: split mode, scratch holds slices · (n_fft + 2F)
+// complex64.
+int tt_block_spectra_mix(const void* x, const void* H, void* P, int S,
+                         int nb, int B, int n_fft, int fnb, int chunk,
+                         int crossfade, void* scratch, int slices, int work,
+                         void* stream) {
+  const int F = n_fft / 2 + 1;
+  auto kernel = slices > 0 ? block_spectra_mix_kernel<true>
+                           : block_spectra_mix_kernel<false>;
+  Launch l;
+  const int err = launch_shape(kernel, (S + chunk - 1) / chunk * nb, slices,
+                               work, n_fft / 2 + n_fft + 2 * F, &l);
+  if (err) return err;
+  kernel<<<l.grid, 256, l.smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float2*>(H),
+      static_cast<float2*>(P), S, nb, B, n_fft, fnb, chunk, crossfade,
+      static_cast<float2*>(scratch), work);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Y: (terms, rows, 2, F) complex64 → frames: (rows, 2, n_fft) f32.
+// slices > 0: split mode, scratch holds slices · n_fft complex64.
 int tt_spectra_inverse(const void* Y, void* frames, int rows, int n_fft,
-                       void* scratch, int slices, int work, void* stream) {
-  auto kernel = slices > 0 ? spectra_inverse_kernel<true>
-                           : spectra_inverse_kernel<false>;
+                       int terms, void* scratch, int slices, int work,
+                       void* stream) {
+  auto kernel = slices > 0 ? (terms > 1 ? spectra_inverse_kernel<true, true>
+                                         : spectra_inverse_kernel<true, false>)
+                           : (terms > 1 ? spectra_inverse_kernel<false, true>
+                                        : spectra_inverse_kernel<false, false>);
   Launch l;
   const int err =
       launch_shape(kernel, rows, slices, work, n_fft / 2 + n_fft, &l);
   if (err) return err;
   kernel<<<l.grid, 256, l.smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float2*>(Y), static_cast<float*>(frames), rows,
-      n_fft, static_cast<float2*>(scratch), work);
+      n_fft, terms, static_cast<float2*>(scratch), work);
   return static_cast<int>(cudaGetLastError());
 }
 

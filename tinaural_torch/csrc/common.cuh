@@ -209,14 +209,22 @@ __device__ void fft_run(const FftPlan& f, float2* x, const float2* tw,
 
 // The packed inverse of two ears' half spectra A, B (n/2 + 1 bins each,
 // shared or device memory): one complex FFT through buf, then the frames
-// f0 = irfft(A), f1 = irfft(B), n samples each. A and B must be complete
-// (a barrier after their last write); buf is rewritten.
+// f0 = irfft(A), f1 = irfft(B), n samples each. With terms > 1, A and B are
+// the sums of `terms` spectra `stride` float2 apart, added in order. A and
+// B must be complete (a barrier after their last write); buf is rewritten.
 template <bool kSplit>
 __device__ void inverse_pair(const float2* A, const float2* B, float2* buf,
                              const FftPlan& f, const float2* tw, int tw_n,
-                             float2* work, float* f0, float* f1) {
-  for (int k = threadIdx.x; k <= f.n / 2; k += blockDim.x)
-    pack_pair<kSplit>(buf, f, k, A[k], B[k]);
+                             float2* work, float* f0, float* f1,
+                             int terms = 1, size_t stride = 0) {
+  for (int k = threadIdx.x; k <= f.n / 2; k += blockDim.x) {
+    float2 a = A[k], b = B[k];
+    for (int t = 1; t < terms; ++t) {
+      a = cadd(a, A[t * stride + k]);
+      b = cadd(b, B[t * stride + k]);
+    }
+    pack_pair<kSplit>(buf, f, k, a, b);
+  }
   fft_run<kSplit>(f, buf, tw, tw_n, work, true);
   const float inv_n = 1.0f / f.n;
   for (int t = threadIdx.x; t < f.n; t += blockDim.x) {

@@ -1,12 +1,19 @@
 """Static, moving-source, batch and scene renderers.
 
-Counterpart of `tinaural.models.renderer`'s default route: every moving
-source, moving scene and static scene ends in one `block_render` call,
-`render_batch` and a long static `render` in one `block_step_render` call,
-and `render_streamed` in one `partitioned_render` call — the hand-written
-CUDA kernels for tensors on the card, the plain torch versions for tensors
-on the CPU. A short static `render` is one direct FFT convolution in
-`torch.fft` on either device. Numerical semantics are those of
+Counterpart of `tinaural.models.renderer`'s default route. Each render
+ends in one call of a route — the hand-written CUDA kernels for tensors on
+the card, the plain torch versions for tensors on the CPU — picked from the
+shapes and the device:
+- a moving source and `render_batch`: `block_render` and
+  `block_step_render` below an FFT of 4096 points, `assembly_mac_render`
+  (the natural-order route) from there (`_natural_order`);
+- a static scene, and a moving scene of fewer blocks than the card has SMs:
+  `scene_step_render`; a larger moving scene `block_render`
+  (`_scene_mixes`);
+- a long static `render`: `block_step_render`; `render_streamed`:
+  `partitioned_render`.
+A short static `render` is one direct FFT convolution in `torch.fft` on
+either device. Numerical semantics are those of
 `tinaural.reference.golden` (≥60 dB SNR; f32 against f64 in practice
 ~90 dB).
 """
@@ -18,11 +25,18 @@ import torch
 
 from ..config import DEFAULT_CONFIG, RenderConfig
 from ..data.table import DELAY_PAD, TorchTable
+from ..ops._layout import sm_count
+from ..ops.assembly_mac import assembly_mac_render
 from ..ops.block_render import block_render
-from ..ops.block_step import block_step_render
+from ..ops.block_step import block_step_render, scene_step_render
 from ..ops.filters import effective_filter, next_pow2
 from ..ops.interp import direction_weights, gather_rows
 from ..ops.partitioned_conv import partitioned_render
+
+# From this FFT size on, moving sources and render_batch take the
+# natural-order route: the shapes where the JAX package refuses its
+# four-step layout (n_fft/128 ≥ 32) and runs `fused_assembly_mac`.
+NATURAL_ORDER_MIN_FFT = 4096
 
 
 def _n_fft(table: TorchTable, B: int) -> int:
@@ -57,12 +71,28 @@ def _flags(table: TorchTable, config: RenderConfig) -> dict:
                 apply_ild=bool(table.decomposed and config.apply_ild))
 
 
+def _natural_order(n_fft: int) -> bool:
+    """Whether moving sources and render_batch take the natural-order
+    route (`assembly_mac_render`) at this FFT size."""
+    return n_fft >= NATURAL_ORDER_MIN_FFT
+
+
+def _scene_mixes(S: int, nb: int, static: bool, sms: int) -> bool:
+    """Whether a scene takes the mixdown route (`scene_step_render`)
+    rather than `block_render`: always for static sources, which then
+    assemble one filter each instead of one per block; for moving sources
+    when there are several and fewer blocks than SMs (``sms``, 0 off the
+    card), where `block_render`'s grid of nb CUDA blocks underfills the
+    card and the mix kernel's (source chunk, block) grid does not."""
+    return static or (S > 1 and nb < sms)
+
+
 def _block_render(table: TorchTable, xbs: torch.Tensor, dirs: torch.Tensor,
                   config: RenderConfig, crossfade: bool,
-                  render=block_render) -> torch.Tensor:
-    """Neighbour rows/weights per (source, block), then one render call.
-    xbs: (S, nb, B); dirs: (S, nb, 2) → (2, (nb−1)·B + n_fft), mixed.
-    ``render`` is `block_render` or, for checks, a plain version of it."""
+                  render) -> torch.Tensor:
+    """Neighbour rows/weights per (source, block) — or per source, with
+    dirs (S, 1, 2) — then one render call. xbs: (S, nb, B); ``render`` is
+    a route or, for checks, its plain version."""
     idx, w = _neighbours(table, dirs, config)
     return render(xbs, idx, w, table, _n_fft(table, xbs.shape[-1]),
                   crossfade=crossfade, **_flags(table, config))
@@ -93,42 +123,60 @@ def _static_block_core(table: TorchTable, xb: torch.Tensor,
 
 
 def _batch_core(table: TorchTable, xbs: torch.Tensor, dirs: torch.Tensor,
-                config: RenderConfig, render=block_step_render) -> torch.Tensor:
+                config: RenderConfig, render=None) -> torch.Tensor:
     """Independent renders, no mixdown: xbs (S, nb, B); dirs (S, nb, 2) →
     (S, 2, (nb−1)·B + n_fft). Crossfades per ``config.crossfade`` even
-    where a source's track is constant, as the JAX package does."""
+    where a source's track is constant, as the JAX package does.
+    ``render`` (a route, or its plain version for checks) defaults to
+    the one the shapes pick."""
+    if render is None:
+        render = (assembly_mac_render
+                  if _natural_order(_n_fft(table, xbs.shape[-1]))
+                  else block_step_render)
     dirs = _snap_dirs(dirs, config.dir_rate)
-    idx, w = _neighbours(table, dirs, config)
-    return render(xbs, idx, w, table, _n_fft(table, xbs.shape[-1]),
-                  crossfade=config.crossfade, **_flags(table, config))
+    return _block_render(table, xbs, dirs, config, config.crossfade, render)
 
 
 def _trajectory_core(table: TorchTable, xb: torch.Tensor, dirs: torch.Tensor,
-                     config: RenderConfig, render=block_render) -> torch.Tensor:
+                     config: RenderConfig, render=None) -> torch.Tensor:
     """Crossfaded OLA block convolution. xb: (nb, B); dirs: (nb, 2) →
-    (2, (nb−1)·B + n_fft)."""
+    (2, (nb−1)·B + n_fft). ``render`` as in `_batch_core`."""
+    if render is None:
+        render = (assembly_mac_render
+                  if _natural_order(_n_fft(table, xb.shape[-1]))
+                  else block_render)
     dirs = _snap_dirs(dirs, config.dir_rate)
+    # one source: (2, out) mixed or (1, 2, out) per source, as the route has it
     return _block_render(table, xb[None], dirs[None], config,
-                         config.crossfade, render)
+                         config.crossfade, render).reshape(2, -1)
 
 
 def _scene_core(table: TorchTable, xbs: torch.Tensor, dirs: torch.Tensor,
-                config: RenderConfig, render=block_render) -> torch.Tensor:
+                config: RenderConfig, render=None) -> torch.Tensor:
     """Moving scene + stereo mixdown. xbs: (S, nb, B); dirs: (S, nb, 2) →
-    (2, out)."""
+    (2, out). ``render`` as in `_batch_core`."""
+    S, nb, _ = xbs.shape
+    if render is None:
+        render = (scene_step_render
+                  if _scene_mixes(S, nb, False, sm_count(xbs.device))
+                  else block_render)
     dirs = _snap_dirs(dirs, config.dir_rate)
     return _block_render(table, xbs, dirs, config, config.crossfade, render)
 
 
 def _scene_static_core(table: TorchTable, xbs: torch.Tensor,
                        dirs: torch.Tensor, config: RenderConfig,
-                       render=block_render) -> torch.Tensor:
+                       render=None) -> torch.Tensor:
     """Static-direction scene: xbs (S, nb, B); dirs (S, 2) → (2, out).
-    Each source's direction is broadcast to its blocks; constant per-block
-    filters make the crossfade the identity, so it is skipped."""
+    One filter per source serves all its blocks; between equal filters the
+    crossfade is the identity, so it is skipped. ``render`` as in
+    `_batch_core`."""
     S, nb, _ = xbs.shape
-    dirs_b = dirs[:, None, :].expand(S, nb, 2)
-    return _block_render(table, xbs, dirs_b, config, False, render)
+    if render is None:
+        render = (scene_step_render
+                  if _scene_mixes(S, nb, True, sm_count(xbs.device))
+                  else block_render)
+    return _block_render(table, xbs, dirs[:, None, :], config, False, render)
 
 
 def _partitioned_core(table: TorchTable, xb: torch.Tensor,

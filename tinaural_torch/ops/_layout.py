@@ -40,6 +40,20 @@ def max_shared_bytes(index: int) -> int:
     return v
 
 
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of a CUDA device; 0 for any other
+    device, whose route rules then take the plain shape-only choices."""
+    if device.type != "cuda":
+        return 0
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())
+
+
 def split_work(shared_f2: int, largest_fft: int, limit: int) -> int:
     """0 when ``shared_f2`` complex64 values of shared memory fit ``limit``
     bytes, else the split passes' work size. Raises for an FFT beyond what

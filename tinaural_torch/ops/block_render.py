@@ -65,9 +65,9 @@ def block_render(xbs: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
                  table: TorchTable, n_fft: int, *, crossfade: bool,
                  apply_itd: bool, apply_ild: bool) -> torch.Tensor:
     """xbs (S, nb, B) f32; idx (S, nb, 4) int32 flat table rows
-    (e·A_max + a); w (S, nb, 4) f32 → (2, (nb−1)·B + n_fft) f32, sources
-    mixed down."""
-    _check_inputs(xbs, idx, w, table, n_fft)
+    (e·A_max + a), or (S, 1, 4): one direction per source; w of idx's
+    shape, f32 → (2, (nb−1)·B + n_fft) f32, sources mixed down."""
+    _check_inputs(xbs, idx, w, table, n_fft, one_filter_ok=True)
     kw = dict(crossfade=crossfade, apply_itd=apply_itd, apply_ild=apply_ild)
     if xbs.device.type == "cpu":
         return block_render_reference(xbs, idx, w, table, n_fft, **kw)
@@ -81,8 +81,10 @@ def _block_render_cuda(xbs, idx, w, table: TorchTable, n_fft: int, *,
                        apply_ild: bool) -> torch.Tensor:
     if xbs.dtype != torch.float32:  # before the first launch
         raise TypeError(f"the CUDA route takes float32 blocks, got {xbs.dtype}")
-    H = assemble_filters_cuda(idx, w, table, n_fft, apply_itd=apply_itd,
-                              apply_ild=apply_ild)
+    shape = (*xbs.shape[:2], 4)  # the mix kernel reads a filter per block
+    H = assemble_filters_cuda(idx.expand(shape).contiguous(),
+                              w.expand(shape).contiguous(), table, n_fft,
+                              apply_itd=apply_itd, apply_ild=apply_ild)
     frames = block_spectra_mix_inverse_cuda(xbs, H, n_fft,
                                             crossfade=crossfade)
     return overlap_add_cuda(frames[None], xbs.shape[-1])[0]
@@ -211,7 +213,8 @@ def block_render_reference(xbs: torch.Tensor, idx: torch.Tensor,
                            apply_ild: bool) -> torch.Tensor:
     """`block_render` in plain torch, in xbs' precision (float32 or
     float64): gather → effective filter → rfft MAC → source sum → irfft
-    → overlap_add."""
+    → overlap_add. One filter per source (idx (S, 1, 4)) serves all its
+    blocks."""
     H = assemble_filters_reference(idx, w.to(xbs.dtype), table, n_fft,
                                    apply_itd=apply_itd, apply_ild=apply_ild)
     frames = block_spectra_mix_inverse_reference(xbs, H, n_fft,
