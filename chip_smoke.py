@@ -16,7 +16,10 @@ Phases, each of which fails the run on any error (nothing is caught):
      the delay line and the previous filter;
   3c. the block-step kernels (`block_spectra`, `spectra_inverse`, the
      per-source `overlap_add`) against their plain versions at S = 64,
-     nb = 128 and at S = 32, nb = 1 (B = 1024, 128 taps), SNR ≥ 100 dB;
+     nb = 128 and at S = 32, nb = 1 (B = 1024, 128 taps), SNR ≥ 100 dB
+     (≥ 130 dB for `spectra_inverse`); then `spectra_inverse` alone, timed
+     beside `torch.fft.irfft`, at 8192 rows × n_fft 4096, 2048 × 16384
+     (the largest shared-mode FFT) and 128 × 32768 (split mode);
   3d. the scene mixdown's `block_spectra_mix` (crossfade on and off, and one
      filter per source) with the summing `spectra_inverse` at S = 64,
      nb = 128, and the natural-order `assembly_mac` at 8192 rows (64 sources
@@ -65,11 +68,13 @@ import time
 SR = 44100
 B = 1024
 KERNEL_SNR_DB = 100.0
+INVERSE_SNR_DB = 130.0  # spectra_inverse against plain fp32
 RENDER_SNR_DB = 60.0
 NEW_RENDER_SNR_DB = 100.0  # renders (b), (c), (h)–(m)
 SOURCE = "tinaural_torch/csrc/block_render.cu"
 PART_SOURCE = "tinaural_torch/csrc/partitioned.cu"
 STEP_SOURCE = "tinaural_torch/csrc/block_step.cu"
+INVERSE_SOURCE = "tinaural_torch/csrc/spectra_inverse.cu"
 MAC_SOURCE = "tinaural_torch/csrc/assembly_mac.cu"
 PALLAS = "tinaural/ops/pallas_kernels.py"
 # each partitioned kernel → the TPU kernels it replaces (def lines)
@@ -385,9 +390,11 @@ PART_FLAGS = dict(apply_itd=True, apply_ild=True)
 
 
 def _report(res: dict, name: str, got, ref, kern, plain, label: str,
-            reps: int, work: dict | None = None, library=None) -> None:
-    """Hold one kernel output against its plain version, time both (and
-    the library call, where there is one); ``work`` is its bound."""
+            reps: int, work: dict | None = None, library=None,
+            min_snr: float = KERNEL_SNR_DB) -> None:
+    """Hold one kernel output against its plain version (SNR ≥
+    ``min_snr``), time both (and the library call, where there is one);
+    ``work`` is its bound."""
     import torch
 
     require(bool(torch.isfinite(torch.view_as_real(got) if got.is_complex()
@@ -405,8 +412,7 @@ def _report(res: dict, name: str, got, ref, kern, plain, label: str,
              if work else "")
           + (f", library {r['library_ms']:.4f} ms" if library else ""),
           flush=True)
-    require(s >= KERNEL_SNR_DB, f"{label} {name}: SNR {s:.2f} < "
-                                f"{KERNEL_SNR_DB} dB")
+    require(s >= min_snr, f"{label} {name}: SNR {s:.2f} < {min_snr} dB")
 
 
 def _rows(table, shape, seed: int):
@@ -561,7 +567,8 @@ def check_step_kernels(table, S: int, nb: int, label: str, reps: int) -> dict:
             lambda: bs.spectra_inverse_reference(Y, n_fft), label, reps,
             bound(S * nb * (2 * F * 8 + 2 * n_fft * 4),
                   S * nb * fft_flops(n_fft)),
-            library=lambda: torch.fft.irfft(Y, n=n_fft))
+            library=lambda: torch.fft.irfft(Y, n=n_fft),
+            min_snr=INVERSE_SNR_DB)
     _report(res, "overlap_add", br.overlap_add_cuda(frames, B),
             br.overlap_add(frames.transpose(1, 2), B),
             lambda: br.overlap_add_cuda(frames, B),
@@ -570,6 +577,38 @@ def check_step_kernels(table, S: int, nb: int, label: str, reps: int) -> dict:
     res["overlap_add"]["library_ms"] = fold_ms(frames, B, reps)
     print(f"[{label}] overlap_add library (fold) "
           f"{res['overlap_add']['library_ms']:.4f} ms", flush=True)
+    return res
+
+
+# rows × n_fft of the further spectra_inverse checks: (k)'s shape, the
+# largest shared-mode FFT, and (j) trajectory's split-mode shape
+INVERSE_SHAPES = ((8192, 4096), (2048, 16384), (128, 32768))
+
+
+def check_inverse_shapes(dev, reps: int) -> dict:
+    """spectra_inverse against its plain fp32 version and torch.fft.irfft
+    at INVERSE_SHAPES, on the spectra of seeded random frames; SNR
+    ≥ INVERSE_SNR_DB."""
+    import torch
+
+    from tinaural_torch.ops import block_step as bs
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    res = {}
+    for rows, n_fft in INVERSE_SHAPES:
+        F = n_fft // 2 + 1
+        Y = torch.fft.rfft(torch.randn((rows, 2, n_fft), generator=g,
+                                       device=dev))
+        label = f"spectra_inverse {rows} rows n_fft {n_fft}"
+        _report(res, f"{rows}x{n_fft}", bs.spectra_inverse_cuda(Y, n_fft),
+                bs.spectra_inverse_reference(Y, n_fft),
+                lambda: bs.spectra_inverse_cuda(Y, n_fft),
+                lambda: bs.spectra_inverse_reference(Y, n_fft), label, reps,
+                bound(rows * (2 * F * 8 + 2 * n_fft * 4),
+                      rows * fft_flops(n_fft)),
+                library=lambda: torch.fft.irfft(Y, n=n_fft),
+                min_snr=INVERSE_SNR_DB)
     return res
 
 
@@ -615,7 +654,8 @@ def check_mix_kernels(table, S: int, nb: int, label: str, reps: int) -> dict:
             lambda: bs.spectra_inverse_cuda(P, n_fft, summed=True),
             lambda: bs.spectra_inverse_reference(P.sum(0), n_fft), label,
             reps, bound(P.numel() * 8 + nb * 2 * n_fft * 4,
-                        nb * (fft_flops(n_fft) + 2 * F * 2 * (C - 1))))
+                        nb * (fft_flops(n_fft) + 2 * F * 2 * (C - 1))),
+            min_snr=INVERSE_SNR_DB)
     return res
 
 
@@ -1087,6 +1127,7 @@ def main() -> int:
     k_step = check_step_kernels(table, 64, 128, "block step S=64 nb=128",
                                 reps=5)
     check_step_kernels(table, 32, 1, "block step S=32 nb=1", reps=5)
+    k_inverse = check_inverse_shapes(dev, reps=5)
 
     # 3d. the scene mixdown's and the natural-order route's kernels
     k_mix = check_mix_kernels(table, 64, 128, "mix S=64 nb=128", reps=5)
@@ -1223,10 +1264,14 @@ def main() -> int:
     kernels += [
         kernel_entry("block_spectra", STEP_SOURCE, FUSED_BLOCK_STEP,
                      launches["block_spectra"], k_step["block_spectra"]),
-        kernel_entry("spectra_inverse", STEP_SOURCE, FUSED_EPILOGUE,
+        kernel_entry("spectra_inverse", INVERSE_SOURCE, FUSED_EPILOGUE,
                      launches["spectra_inverse"], k_step["spectra_inverse"],
                      summed_ms=k_mix["spectra_inverse_summed"]["ms"],
                      summed_plain_ms=k_mix["spectra_inverse_summed"]["plain_ms"],
+                     shapes={k: {f: m[f] for f in ("ms", "plain_ms",
+                                                   "library_ms", "bound_ms",
+                                                   "snr_db")}
+                             for k, m in k_inverse.items()},
                      also_replaces=[f"{PALLAS}:{FUSED_BLOCK_STEP_MIX}"]),
         kernel_entry("overlap_add", SOURCE, FUSED_EPILOGUE, ola_b2,
                      k_step["overlap_add"], sources=64),

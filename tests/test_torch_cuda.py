@@ -3,10 +3,11 @@ render's three, the partitioned convolution's three (the streaming step
 with its hold step at P = 1, 5 and 9, S = 1 and block 128, a batched
 stream's offline render, and the partitioned offline render, chunked and
 whole), the block step's two with the per-source overlap-add, the scene
-mixdown's `block_spectra_mix` with the summing `spectra_inverse`, and the
-natural-order `assembly_mac`; each family again in the split buffer mode,
-forced at small shapes, and at the sizes that need it (a 44,100-tap
-`render_streamed`, a 16,384-tap trajectory).
+mixdown's `block_spectra_mix` with the summing `spectra_inverse`, the
+natural-order `assembly_mac`, and `spectra_inverse` alone at every FFT
+size; each family again in the split buffer mode, forced at small shapes,
+and at the sizes that need it (a 44,100-tap `render_streamed`, a
+16,384-tap trajectory).
 
 This file imports neither the JAX package nor the shared conftest (which
 does), so it also runs where `tinaural` cannot be imported, as on a
@@ -501,3 +502,60 @@ def test_long_filters_render_on_the_card():
         y64 = core(t, xb.double(), dirs, cfg, render=render)
         assert bool(torch.isfinite(y).all())
         assert _snr_db(y64, y) >= 100, taps
+
+
+# ----------------------------------------------------------- spectra_inverse
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _spectra(shape, n_fft, seed, dev):
+    """Half spectra of seeded random frames: (*shape, 2, F) complex64."""
+    x = np.random.default_rng(seed).standard_normal((*shape, 2, n_fft))
+    return torch.fft.rfft(torch.from_numpy(x)).to(torch.complex64).to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("log2n", range(1, 16))
+def test_spectra_inverse_every_size(cuda, log2n):
+    """spectra_inverse against the float64 plain version at every power of
+    two 2 … 16384 (the register kernel) and 32768 (the split mode): 1, 7
+    and, up to n_fft 2048, 8193 rows, so the last CUDA block holds idle
+    rows; summed over 2 and 8 terms; equal bits over two calls."""
+    n = 1 << log2n
+    for rows in (1, 7) + ((8193,) if n <= 2048 else ()):
+        Y = _spectra((rows,), n, log2n * 10 + rows, cuda)
+        got = bs.spectra_inverse_cuda(Y, n)
+        assert got.shape == (rows, 2, n)
+        f64 = bs.spectra_inverse_reference(Y.to(torch.complex128), n)
+        assert _snr_db(f64, got) >= 120, (n, rows)
+        assert torch.equal(got, bs.spectra_inverse_cuda(Y, n))
+    for terms in (2, 8):
+        P = _spectra((terms, 5), n, log2n * 10 + terms, cuda)
+        got = bs.spectra_inverse_cuda(P, n, summed=True)
+        assert got.shape == (5, 2, n)
+        f64 = bs.spectra_inverse_reference(P.to(torch.complex128).sum(0), n)
+        assert _snr_db(f64, got) >= 120, (n, terms)
+        assert torch.equal(got, bs.spectra_inverse_cuda(P, n, summed=True))
+
+
+@pytest.mark.gpu
+def test_spectra_inverse_rejects_bad_inputs(cuda):
+    Y = _spectra((3,), 64, 1, cuda)
+    with pytest.raises(TypeError):
+        bs.spectra_inverse_cuda(Y.to(torch.complex128), 64)
+    with pytest.raises(ValueError):
+        bs.spectra_inverse_cuda(Y, 128)  # F does not match n_fft
+    with pytest.raises(ValueError):
+        bs.spectra_inverse_cuda(Y[..., :-1].contiguous(), 62)  # not 2^k
+    with pytest.raises(ValueError):
+        bs.spectra_inverse_cuda(Y[0], 64, summed=True)  # no row axis
+    with pytest.raises(ValueError):
+        bs.spectra_inverse_cuda(Y.cpu(), 64)
+    with pytest.raises(ValueError):
+        bs.spectra_inverse_cuda(Y[:, :, ::2], 32)  # not contiguous

@@ -1,6 +1,6 @@
 // Hand-written Hopper kernels of the two-launch block render: block
-// spectra per (source, block) row, or mixed over sources per output block,
-// then their inverse.
+// spectra per (source, block) row, or mixed over sources per output block.
+// Their inverse, `spectra_inverse`, is in spectra_inverse.cu.
 //
 // Replaces, in tinaural/ops/pallas_kernels.py:
 //   fused_block_step  (_assembly_mac_s_kernel: forward four-step FFT of the
@@ -12,12 +12,11 @@
 //                      accumulated over sources in the kernel: its grid
 //                      revisits each output tile across a sequential source
 //                      axis) — `block_spectra_mix` below, then the summing
-//                      `spectra_inverse`;
-//   fused_epilogue    (_epilogue_kernel → _inverse_ola_core: inverse
-//                      four-step FFT of both ears, OLA under the `first`
-//                      masks) — `spectra_inverse` below, then the
-//                      overlap_add kernel of block_render.cu over a leading
-//                      source axis, which is what the masks express.
+//                      `spectra_inverse`.
+// fused_epilogue, the inverse FFT and OLA that follow both, is
+// `spectra_inverse` (spectra_inverse.cu) and then the overlap_add kernel
+// of block_render.cu over a leading source axis, which is what its
+// `first` masks express.
 // The TPU kernels work in the scrambled four-step layout and carry the
 // previous filter and the OLA tails across their ordered grid. Here every
 // row is independent: spectra are in natural order, H[s,b−1] is read from
@@ -39,14 +38,11 @@
 //                    The host picks the chunk so that the grid (C·nb)
 //                    covers the card several times over (ops/block_step.py
 //                    `mix_chunk`); B1's mix kernel has nb blocks only.
-//   spectra_inverse  one block per row: one packed inverse FFT of both
-//                    ears → frames (rows, 2, n_fft); with a count of terms
-//                    it first sums that many partials per row, in order.
 //
 // Each row reads B samples and two filters (2·2·F complex64, 32 KB at
-// n_fft = 2048) and writes 2·F complex64 or 2·n_fft floats; the FFT stages
-// and their __syncthreads() bound the three kernels on the H100 before the
-// bytes do. All run in either buffer mode of common.cuh.
+// n_fft = 2048) and writes 2·F complex64; the FFT stages and their
+// __syncthreads() bound both kernels on the H100 before the bytes do.
+// Both run in either buffer mode of common.cuh.
 
 #include "common.cuh"
 
@@ -196,35 +192,6 @@ __global__ void block_spectra_mix_kernel(const float* __restrict__ x,
   }
 }
 
-// Y: (terms, rows, 2, F) complex64 → frames: (rows, 2, n_fft) f32, the
-// irfft of each ear of Σ_t Y[t] (t in order). kSum = false compiles the
-// single-term kernel without the sum loop (24 registers, not 42).
-template <bool kSplit, bool kSum>
-__global__ void spectra_inverse_kernel(const float2* __restrict__ Y,
-                                       float* __restrict__ frames, int rows,
-                                       int n_fft, int terms, float2* scratch,
-                                       int work) {
-  extern __shared__ float2 smem[];
-  const int n = n_fft;
-  const int F = n / 2 + 1;
-  const int tw_n = kSplit ? work : n;
-  float2* tw = smem;             // tw_n / 2
-  float2* wbuf = tw + tw_n / 2;  // split: work
-  float2* buf =
-      kSplit ? scratch + static_cast<size_t>(blockIdx.x) * n : wbuf;  // n
-
-  const FftPlan f = fft_plan(n, kSplit ? work : 0);
-  make_twiddles(tw, tw_n);
-  const size_t stride = static_cast<size_t>(rows) * 2 * F;
-  for (int r = blockIdx.x; r < rows; r = next_row<kSplit>(r, rows)) {
-    __syncthreads();  // the previous row is done with buf
-    const float2* Yr = Y + static_cast<size_t>(r) * 2 * F;
-    float* fr = frames + static_cast<size_t>(r) * 2 * n;
-    inverse_pair<kSplit>(Yr, Yr + F, buf, f, tw, tw_n, wbuf, fr, fr + n,
-                         kSum ? terms : 1, stride);
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -266,25 +233,6 @@ int tt_block_spectra_mix(const void* x, const void* H, void* P, int S,
       static_cast<const float*>(x), static_cast<const float2*>(H),
       static_cast<float2*>(P), S, nb, B, n_fft, fnb, chunk, crossfade,
       static_cast<float2*>(scratch), work);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Y: (terms, rows, 2, F) complex64 → frames: (rows, 2, n_fft) f32.
-// slices > 0: split mode, scratch holds slices · n_fft complex64.
-int tt_spectra_inverse(const void* Y, void* frames, int rows, int n_fft,
-                       int terms, void* scratch, int slices, int work,
-                       void* stream) {
-  auto kernel = slices > 0 ? (terms > 1 ? spectra_inverse_kernel<true, true>
-                                         : spectra_inverse_kernel<true, false>)
-                           : (terms > 1 ? spectra_inverse_kernel<false, true>
-                                        : spectra_inverse_kernel<false, false>);
-  Launch l;
-  const int err =
-      launch_shape(kernel, rows, slices, work, n_fft / 2 + n_fft, &l);
-  if (err) return err;
-  kernel<<<l.grid, 256, l.smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(Y), static_cast<float*>(frames), rows,
-      n_fft, terms, static_cast<float2*>(scratch), work);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -25,10 +25,10 @@ before its inverse; step 4 then has one source. It is the port of
 `_scene_spectra_fused` + `_fused_ola_from_planes` (S = 1).
 
 `block_step_render` and `scene_step_render` launch the hand-written CUDA
-kernels of ``csrc/block_step.cu`` and ``csrc/block_render.cu`` on CUDA
-tensors and run the plain versions on CPU tensors; any other device
-raises. The kernels take every FFT size (``ops/_layout.py``). ``launches``
-counts the three kernels of this module.
+kernels of ``csrc/block_step.cu``, ``csrc/spectra_inverse.cu`` and
+``csrc/block_render.cu`` on CUDA tensors and run the plain versions on CPU
+tensors; any other device raises. The kernels take every FFT size
+(``ops/_layout.py``). ``launches`` counts the three kernels of this module.
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ from .block_render import (_check_inputs, _cuda_inputs,
                            assemble_filters_cuda, assemble_filters_reference,
                            block_render_reference, overlap_add_cuda)
 from .ola import overlap_add
+from .spectra_inverse import inverse_plan, twiddles
 
 KERNELS = ("block_spectra", "spectra_inverse", "block_spectra_mix")
 # `block_spectra_mix` takes as many source chunks as give its grid this
@@ -186,7 +187,8 @@ def block_spectra_mix_cuda(xbs: torch.Tensor, H: torch.Tensor, n_fft: int,
 
 def spectra_inverse_cuda(Y: torch.Tensor, n_fft: int, *,
                          summed: bool = False) -> torch.Tensor:
-    """Kernel `spectra_inverse`: Y (..., 2, F) complex64 → frames (..., 2,
+    """Kernel `spectra_inverse` (``csrc/spectra_inverse.cu``, its plan in
+    ``ops/spectra_inverse.py``): Y (..., 2, F) complex64 → frames (..., 2,
     n_fft) f32, the irfft of each ear. ``summed``: Y is (terms, ..., 2, F)
     and the frames are the irfft of Σ_t Y[t], added in order of t."""
     from . import _build
@@ -205,10 +207,12 @@ def spectra_inverse_cuda(Y: torch.Tensor, n_fft: int, *,
     rows = Y.numel() // (2 * F * terms)
     frames = torch.empty((*Y.shape[lead:-1], n_fft), dtype=torch.float32,
                          device=Y.device)
-    *split, _keep = layout(Y.device, n_fft // 2 + n_fft, n_fft, rows, n_fft)
+    plan = inverse_plan(n_fft)
+    *split, _keep = layout(Y.device, plan.shared_f2, n_fft, rows, n_fft)
+    tw = 0 if split[1] else twiddles(n_fft, Y.device).data_ptr()
     _build.check(_build.library().tt_spectra_inverse(
-        Y.data_ptr(), frames.data_ptr(), rows, n_fft, terms, *split, stream),
-        "spectra_inverse")
+        Y.data_ptr(), frames.data_ptr(), tw, rows, n_fft, terms,
+        plan.rows_per_block, plan.points, *split, stream), "spectra_inverse")
     launches["spectra_inverse"] += 1
     return frames
 
