@@ -24,7 +24,9 @@ Phases, each of which fails the run on any error (nothing is caught):
      filter per source) with the summing `spectra_inverse` at S = 64,
      nb = 128, and the natural-order `assembly_mac` at 8192 rows (64 sources
      × 128 blocks, `first` at each source's block 0; 2048 taps, B = 1024,
-     n_fft = 4096), against their plain versions, SNR ≥ 100 dB;
+     n_fft = 4096) and at render (l)'s 4096 rows (one source, 128 taps,
+     B = 2048, n_fft = 4096), against their plain versions, SNR ≥ 100 dB
+     (≥ 110 dB against plain fp64 for `assembly_mac`);
   4. the renders through the public entry points — (a) a 2^23-sample
      trajectory, (b) a 64-source moving scene and (c) a 64-source static
      scene of 2^17 samples each on the mixdown route, their cores timed on
@@ -69,6 +71,7 @@ SR = 44100
 B = 1024
 KERNEL_SNR_DB = 100.0
 INVERSE_SNR_DB = 130.0  # spectra_inverse against plain fp32
+MAC_FP64_SNR_DB = 110.0  # assembly_mac against plain fp64
 RENDER_SNR_DB = 60.0
 NEW_RENDER_SNR_DB = 100.0  # renders (b), (c), (h)–(m)
 SOURCE = "tinaural_torch/csrc/block_render.cu"
@@ -659,28 +662,31 @@ def check_mix_kernels(table, S: int, nb: int, label: str, reps: int) -> dict:
     return res
 
 
-def check_assembly_mac(table, S: int, nb: int, label: str,
-                       reps: int) -> dict:
+def check_assembly_mac(table, S: int, nb: int, label: str, reps: int,
+                       block: int = B) -> dict:
     """assembly_mac against its plain fp32 version on S sources of nb
-    blocks flattened to rows, `first` at each source's block 0, on the
-    input spectra of the natural-order route."""
+    blocks of ``block`` samples flattened to rows, `first` at each
+    source's block 0, on the input spectra of the natural-order route."""
     import numpy as np
     import torch
 
     from tinaural_torch.models.renderer import _n_fft
     from tinaural_torch.ops import assembly_mac as am
     from tinaural_torch.ops._layout import sm_count
+    from tinaural_torch.ops.mac_plan import mac_plan
 
-    n_fft = _n_fft(table, B)
+    n_fft = _n_fft(table, block)
     F = n_fft // 2 + 1
     rows = S * nb
     idx, w = _rows(table, (rows,), seed=rows + 2)
     xbs = torch.tensor(np.random.default_rng(rows).standard_normal(
-        (S, nb, B)), dtype=torch.float32, device=table.device)
+        (S, nb, block)), dtype=torch.float32, device=table.device)
     Xu, Xd = am._input_spectra(xbs, n_fft, True)
     first = am._first_rows(S, nb, table.device)
-    run = am.run_length(rows, sm_count(table.device))
-    print(f"[{label}] n_fft {n_fft}, {rows} rows in runs of {run}: "
+    plan = mac_plan(table.taps, n_fft)
+    run = am.run_length(rows, sm_count(table.device) * plan.blocks_per_sm)
+    print(f"[{label}] n_fft {n_fft}, L {plan.L}, {plan.threads} threads × "
+          f"{plan.blocks_per_sm} blocks per SM, {rows} rows in runs of {run}: "
           f"{1 + 1 / run:.3f} assemblies per row", flush=True)
     res = {}
     for name, cf in (("assembly_mac", True),
@@ -699,9 +705,12 @@ def check_assembly_mac(table, S: int, nb: int, label: str,
                                     Xu.to(torch.complex128),
                                     Xd.to(torch.complex128), first, n_fft,
                                     crossfade=True, **PART_FLAGS)
-    print(f"[{label}] assembly_mac: SNR {snr_db(Y64, Y):.2f} dB vs plain fp64",
+    s64 = snr_db(Y64, Y)
+    print(f"[{label}] assembly_mac: SNR {s64:.2f} dB vs plain fp64",
           flush=True)
-    res["assembly_mac"]["run"] = run
+    require(s64 >= MAC_FP64_SNR_DB,
+            f"{label} assembly_mac: SNR {s64:.2f} < {MAC_FP64_SNR_DB} dB vs fp64")
+    res["assembly_mac"].update(run=run, snr_fp64_db=s64)
     return res
 
 
@@ -1045,6 +1054,31 @@ def long_render(name: str, table, Bj: int, N: int, streamed: bool, core,
             table, xb, dirs_t, cfg, render=other)})
 
 
+def ptxas_summary(log: str) -> list[str]:
+    """One line per compiled kernel instance from nvcc's -Xptxas -v
+    report: its name and template arguments, registers and spills."""
+    import re
+
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            sym = m.group(1)
+            base = re.search(r"\d+([a-z_]+_kernel)", sym)
+            args = re.findall(r"L(b[01]|i\d+)E", sym)
+            name = (base.group(1) if base else sym) + (
+                "<" + ",".join(a[1:] for a in args) + ">" if args else "")
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            spills = f"{m.group(1)} B spill stores, {m.group(2)} B loads"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} registers, {spills}")
+            name = None
+    return out
+
+
 def kernel_entry(name: str, source: str, replaces: int, launches: int,
                  m: dict, **extra) -> dict:
     """One kernel's record in the kernels line, from its check ``m``."""
@@ -1093,9 +1127,8 @@ def main() -> int:
     _build.library()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {lib_path.name}",
           flush=True)
-    for line in lib_path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print(f"  ptxas: {line.strip()}", flush=True)
+    for line in ptxas_summary(lib_path.with_suffix(".log").read_text()):
+        print(f"  ptxas: {line}", flush=True)
 
     table = tt.TorchTable.from_hrir_table(tt.load_hrir_set("synthetic"), dev)
     cfg = tt.RenderConfig(block_size=B)
@@ -1133,6 +1166,10 @@ def main() -> int:
     k_mix = check_mix_kernels(table, 64, 128, "mix S=64 nb=128", reps=5)
     k_mac = check_assembly_mac(brir, 64, 128,
                                "assembly_mac 8192 rows n_fft 4096", reps=5)
+    # (l)'s shape: one 4096-block trajectory at block 2048, 128 taps
+    k_mac_l = check_assembly_mac(table, 1, 4096,
+                                 "assembly_mac 4096 rows n_fft 4096 128 taps",
+                                 reps=5, block=2048)
 
     # 4. the renders
     r = tt.BinauralRenderer(table, cfg)
@@ -1282,7 +1319,11 @@ def main() -> int:
         kernel_entry("assembly_mac", MAC_SOURCE, FUSED_ASSEMBLY_MAC,
                      launches["assembly_mac"], k_mac["assembly_mac"],
                      run=k_mac["assembly_mac"]["run"],
-                     no_crossfade_ms=k_mac["assembly_mac_no_crossfade"]["ms"])]
+                     snr_fp64_db=k_mac["assembly_mac"]["snr_fp64_db"],
+                     no_crossfade_ms=k_mac["assembly_mac_no_crossfade"]["ms"],
+                     l_shape={f: k_mac_l["assembly_mac"][f] for f in (
+                         "ms", "plain_ms", "bound_ms", "bound_by",
+                         "max_abs_err", "snr_db", "snr_fp64_db", "run")})]
     for k in kernels:
         require(k["launches"] > 0, f"kernel {k['name']} was not launched")
     print(json.dumps({"renders": renders}), flush=True)

@@ -23,6 +23,7 @@ from tinaural_torch.ops import _layout
 from tinaural_torch.ops import assembly_mac as am
 from tinaural_torch.ops import block_render as br
 from tinaural_torch.ops import block_step as bs
+from tinaural_torch.ops.mac_plan import mac_plan
 
 torch.set_num_threads(1)
 
@@ -187,31 +188,30 @@ def test_natural_order_rule():
 
 
 def test_run_length_rule():
-    """One row per CUDA block while the rows are few (2 assemblies per
-    row), longer runs once RUN_WAVES of them fill every SM."""
+    """Runs as short as leave one run per block the card holds at once:
+    132 SMs × 3 blocks of the register plan at n_fft 4096, × 1 block of
+    the split mode at 32768; 1 + 1/run assemblies per row."""
+    slots = 132 * mac_plan(2048, 4096).blocks_per_sm
+    assert slots == 396 and 132 * mac_plan(16384, 32768).blocks_per_sm == 132
     assert am.run_length(128, 132) == 1       # (j): 16,384-tap trajectory
-    assert am.run_length(527, 132) == 1
-    assert am.run_length(4096, 132) == 7      # (l): 1 + 1/7 per row
-    assert am.run_length(8192, 132) == 15     # (k): 1 + 1/15 per row
-    assert am.run_length(3001, 132) == 5
-    assert am.run_length(100, 0) == 25        # no SM count: a count of 1
+    assert am.run_length(527, slots) == 2
+    assert am.run_length(4096, slots) == 11   # (l): 1 + 1/11 per row
+    assert am.run_length(8192, slots) == 21   # (k): 1 + 1/21 per row
+    assert am.run_length(3001, slots) == 8
+    assert am.run_length(100, 0) == 100       # no SM count: one slot
 
 
 def test_assembly_mac_buffer_mode():
-    """Shared memory holds the twiddles, the n_fft buffer, two L buffers
-    and H, H_prev (4F) up to 227 KB: n_fft 4096 with 2048 or 128 taps fits,
-    n_fft 8192 at 4096 taps and the 16,384-tap table's 32768 split."""
+    """The register plan's exchange buffer and carried H_prev fit 227 KB
+    up to n_fft 16384 at any filter length; n_fft 32768 (the 16,384-tap
+    table) takes the split mode."""
     limit = 232448
-
-    def shared(n_fft, L):
-        return n_fft // 2 + n_fft + 2 * L + 4 * (n_fft // 2 + 1)
-
-    assert _layout.split_work(shared(4096, 4096), 4096, limit) == 0
-    assert _layout.split_work(shared(4096, 256), 4096, limit) == 0
-    assert _layout.split_work(shared(8192, 8192), 8192,
-                              limit) == _layout.SPLIT_WORK
-    assert _layout.split_work(shared(32768, 32768), 32768,
-                              limit) == _layout.SPLIT_WORK
+    for taps, n_fft in ((2048, 4096), (128, 4096), (4096, 8192),
+                        (8192, 16384), (128, 16384)):
+        p = mac_plan(taps, n_fft)
+        assert _layout.split_work(p.shared_f2, n_fft, limit) == 0
+    p = mac_plan(16384, 32768)
+    assert _layout.split_work(p.shared_f2, 32768, limit) == _layout.SPLIT_WORK
 
 
 def test_assembly_mac_render_rejects_bad_inputs(tables):

@@ -18,6 +18,8 @@ machine without flax:
 Without a CUDA device every test skips.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -33,6 +35,10 @@ from tinaural_torch.ops import assembly_mac as am
 from tinaural_torch.ops import block_render as br
 from tinaural_torch.ops import block_step as bs
 from tinaural_torch.ops import partitioned_conv as pc
+from tinaural_torch.ops.mac_plan import mac_plan
+
+from test_torch_mac_plan import _inputs as _random_inputs
+from test_torch_mac_plan import _table as _random_table
 
 torch.set_num_threads(1)
 
@@ -382,18 +388,31 @@ def _mac_inputs(t, rows, n_fft, seed):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("taps,rows,firsts,crossfade", [
-    (128, 70, (0, 37), True), (128, 70, (37,), False),
-    (2048, 9, (4, 5), True), (128, 3001, (0, 1, 999, 1500, 3000), True)])
-def test_assembly_mac_matches_plain(long_tables, taps, rows, firsts,
+@pytest.mark.parametrize("taps,n_fft,rows,firsts,crossfade", [
+    (128, 4096, 70, (0, 37), True), (128, 4096, 70, (37,), False),
+    (2048, 4096, 9, (4, 5), True),
+    (128, 4096, 3001, (0, 1, 999, 1500, 3000), True),
+    (2048, 4096, 1001, (399, 401), True),
+    (2048, 8192, 300, (150,), True), (6000, 8192, 301, (99, 100), True),
+    (6000, 8192, 64, (), False), (128, 16384, 100, (50,), True),
+    (12000, 16384, 101, (33, 34), True)])
+def test_assembly_mac_matches_plain(long_tables, taps, n_fft, rows, firsts,
                                     crossfade):
-    """Against the plain float64 version, with `first` at run boundaries
-    and inside runs, row 0 passed as 0 where firsts omit it, and rows that
-    are no multiple of the run (3001 rows run 5 at a time on 132 SMs)."""
-    t = long_tables[taps]
-    n_fft = 4096
-    idx, w, Xu, Xd = _mac_inputs(t, rows, n_fft, seed=rows + taps)
-    first = torch.zeros(rows, device=t.device)
+    """Against the plain float64 version at every register plan shape the
+    routes reach (n_fft 4096, 8192, 16384; L < n and L == n; crossfade on
+    and off), with `first` at run boundaries and inside runs, row 0 passed
+    as 0 where firsts omit it, and rows that are no multiple of the run
+    (3001 rows run 8 at a time on 132 SMs × 3 blocks; 1001 rows 3 at a
+    time, so 399 starts a run and 401 falls inside one)."""
+    dev = long_tables[128].device
+    if taps in long_tables:
+        t = long_tables[taps]
+        idx, w, Xu, Xd = _mac_inputs(t, rows, n_fft, seed=rows + taps)
+    else:  # L == n at 8192 and 16384
+        t = _random_table(taps, seed=taps, device=dev)
+        idx, w, Xu, Xd = (x.to(dev) for x in _random_inputs(t, rows, n_fft,
+                                                            seed=rows))
+    first = torch.zeros(rows, device=dev)
     first[list(firsts)] = 1.0
     kw = dict(crossfade=crossfade, **FLAGS)
     Y = am.assembly_mac_cuda(idx, w, t, Xu, Xd, first, n_fft, **kw)
@@ -403,6 +422,46 @@ def test_assembly_mac_matches_plain(long_tables, taps, rows, firsts,
                                     **kw)
     assert Y.shape == (rows, 2, n_fft // 2 + 1)
     assert _snr_db(Y64, Y) >= 100
+    assert torch.equal(Y, am.assembly_mac_cuda(idx, w, t, Xu, Xd, first,
+                                               n_fft, **kw))
+
+
+@pytest.mark.gpu
+def test_assembly_mac_at_the_mode_boundary(long_tables):
+    """n_fft 16384, the largest register plan, and 32768, the split mode,
+    on the same table and rows, each against the float64 plain version."""
+    t = long_tables[128]
+    for n_fft in (16384, 32768):
+        assert mac_plan(t.taps, n_fft).register == (n_fft == 16384)
+        idx, w, Xu, Xd = _mac_inputs(t, 40, n_fft, seed=9)
+        first = torch.zeros(40, device=t.device)
+        first[[0, 17]] = 1.0
+        kw = dict(crossfade=True, **FLAGS)
+        Y = am.assembly_mac_cuda(idx, w, t, Xu, Xd, first, n_fft, **kw)
+        Y64 = am.assembly_mac_reference(idx, w.double(), t,
+                                        Xu.to(torch.complex128),
+                                        Xd.to(torch.complex128), first,
+                                        n_fft, **kw)
+        assert _snr_db(Y64, Y) >= 100, n_fft
+
+
+@pytest.mark.gpu
+def test_assembly_mac_refuses_another_plan(long_tables, monkeypatch):
+    """The entry point takes only the plan it was compiled for: another
+    thread count or blocks per SM raises, and nothing is launched."""
+    t = long_tables[128]
+    idx, w, Xu, Xd = _mac_inputs(t, 8, 4096, seed=3)
+    first = torch.zeros(8, device=t.device)
+    plan = mac_plan(t.taps, 4096)
+    for wrong in (dict(threads=2 * plan.threads),
+                  dict(blocks_per_sm=plan.blocks_per_sm + 1)):
+        monkeypatch.setattr(am, "mac_plan", lambda taps, n, wrong=wrong:
+                            dataclasses.replace(plan, **wrong))
+        before = am.launches["assembly_mac"]
+        with pytest.raises(RuntimeError):
+            am.assembly_mac_cuda(idx, w, t, Xu, Xd, first, 4096,
+                                 crossfade=True, **FLAGS)
+        assert am.launches["assembly_mac"] == before
 
 
 @pytest.mark.gpu

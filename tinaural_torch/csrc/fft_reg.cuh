@@ -167,4 +167,47 @@ __device__ __forceinline__ void reg_passes(
   }
 }
 
+// reg_passes for a block wider than the transform: threads with `live`
+// false touch neither buf nor v but keep to every barrier, so a block of
+// n'/16 threads can run an n-point transform (n ≤ n') on its first n/16.
+template <int kLog2N, int kPass>
+__device__ __forceinline__ void reg_passes_live(
+    float2 (&v)[RegPlan<kLog2N>::points], float2* buf, int lane,
+    const float2* __restrict__ tw, bool live) {
+  using P = RegPlan<kLog2N>;
+  if constexpr (kPass < P::passes) {
+    constexpr int n = P::n, T = P::threads, PT = P::points;
+    constexpr int Rq = P::radix(kPass - 1), Nq = P::stride(kPass - 1);
+    constexpr int R = P::radix(kPass), Ns = P::stride(kPass);
+    if constexpr (kPass > 1) __syncthreads();  // the last pass read buf
+    if (live) {
+#pragma unroll
+      for (int s = 0; s < PT / Rq; ++s) {
+        const int j = lane + s * T;
+        const int base = (j / Nq) * Nq * Rq + j % Nq;
+#pragma unroll
+        for (int r = 0; r < Rq; ++r) buf[pad16(base + r * Nq)] = v[s * Rq + r];
+      }
+    }
+    __syncthreads();
+    if (live) {
+#pragma unroll
+      for (int s = 0; s < PT / R; ++s) {
+        const int j = lane + s * T;
+        const int k = j % Ns;
+        float2 x[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          x[r] = buf[pad16(j + r * (n / R))];
+          if (r > 0) x[r] = cmul(x[r], __ldg(tw + r * k * (n / (Ns * R))));
+        }
+        dft<R>(x);
+#pragma unroll
+        for (int r = 0; r < R; ++r) v[s * R + r] = x[r];
+      }
+    }
+    reg_passes_live<kLog2N, kPass + 1>(v, buf, lane, tw, live);
+  }
+}
+
 }  // namespace

@@ -39,7 +39,7 @@ _SIGNATURES = {
     "tt_block_spectra": [_P] * 3 + [_I] * 6 + _SPLIT,
     "tt_block_spectra_mix": [_P] * 3 + [_I] * 7 + _SPLIT,
     "tt_spectra_inverse": [_P] * 3 + [_I] * 5 + _SPLIT,
-    "tt_assembly_mac": [_P] * 9 + [_I] * 8 + [_F] * 4 + _SPLIT,
+    "tt_assembly_mac": [_P] * 12 + [_I] * 10 + [_F] * 4 + _SPLIT,
 }
 
 

@@ -13,8 +13,10 @@ flattened (source, block) axis, with ``F = n_fft/2 + 1``:
 2. kernel `assembly_mac`: H[r] = rfft_nfft(effective_filter(gather(idx,
    w))) and Y[r] = Xu·H[r] + Xd·H_prev[r], H_prev = H[r−1], or H[r] where
    `first` marks row r (each source's block 0; row 0 always); without
-   crossfade Y = Xu·H[r]. Where the kernel's buffers fit shared memory
-   (n_fft 4096 at up to 2048 taps), H never reaches device memory;
+   crossfade Y = Xu·H[r]. Up to n_fft 16384 the kernel keeps each row's
+   transforms in registers and H never reaches device memory (its launch
+   plan is ``ops/mac_plan.py``); above, its buffers live in a device
+   scratch;
 3. kernel `spectra_inverse` and the per-source `overlap_add`
    (``ops/block_step.py``, ``ops/block_render.py``) → (S, 2, out).
 
@@ -33,14 +35,16 @@ from ._layout import layout, sm_count
 from .block_render import (_check_inputs, _cuda_inputs,
                            assemble_filters_reference, overlap_add_cuda)
 from .block_step import spectra_inverse_cuda, spectra_inverse_reference
-from .filters import next_pow2
+from .mac_plan import mac_plan, ramp_taper
 from .ola import overlap_add
+from .spectra_inverse import twiddles
 
 KERNELS = ("assembly_mac",)
 launches = dict.fromkeys(KERNELS, 0)
-# A run of c rows assembles c + 1 filters (its predecessor too), so runs
-# grow with the rows: as long as RUN_WAVES runs per SM remain.
-RUN_WAVES = 4
+# A run of c rows assembles c + 1 filters (its predecessor too), and every
+# run takes the same time, so the runs are as long as leave RUN_WAVES runs
+# for each block the card holds at once.
+RUN_WAVES = 1
 
 
 def reset_launches() -> None:
@@ -48,11 +52,12 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def run_length(rows: int, sms: int) -> int:
-    """Rows per CUDA block of `assembly_mac`: 1 while the rows are fewer
-    than RUN_WAVES per SM (2 assemblies per row), else rows // (RUN_WAVES ·
-    SMs), so that 1 + 1/run assemblies per row remain."""
-    return max(1, rows // (RUN_WAVES * max(sms, 1)))
+def run_length(rows: int, slots: int) -> int:
+    """Rows per CUDA block of `assembly_mac` when ``slots`` blocks run at
+    once (the SMs times the plan's blocks per SM): the shortest run that
+    needs no more than RUN_WAVES · slots runs, so 1 + 1/run assemblies per
+    row remain."""
+    return -(-rows // (RUN_WAVES * max(slots, 1)))
 
 
 def assembly_mac_render(xbs: torch.Tensor, idx: torch.Tensor,
@@ -143,17 +148,21 @@ def assembly_mac_cuda(idx: torch.Tensor, w: torch.Tensor, table: TorchTable,
         raise ValueError(f"assembly_mac needs rows and n_fft={n_fft} a power "
                          f"of two of at least taps + {DELAY_PAD}")
     Y = torch.empty((rows, 2, F), dtype=torch.complex64, device=idx.device)
-    L = next_pow2(table.taps + DELAY_PAD)
-    run = run_length(rows, sm_count(idx.device))
-    *split, _keep = layout(idx.device, n_fft // 2 + n_fft + 2 * L + 4 * F,
-                           n_fft + 2 * L + 4 * F, -(-rows // run), n_fft)
+    plan = mac_plan(table.taps, n_fft)
+    run = run_length(rows, sm_count(idx.device) * plan.blocks_per_sm)
+    *split, _keep = layout(idx.device, plan.shared_f2, plan.scratch_f2,
+                           -(-rows // run), n_fft)
+    tables = (0, 0, 0) if split[1] else (
+        twiddles(plan.L, idx.device).data_ptr(),
+        twiddles(n_fft, idx.device).data_ptr(),
+        ramp_taper(plan.L, idx.device).data_ptr())
     _build.check(_build.library().tt_assembly_mac(
         idx.data_ptr(), w.data_ptr(), table.h.data_ptr(),
         table.delays.data_ptr(), table.gains.data_ptr(), Xu.data_ptr(),
-        Xd.data_ptr(), first.data_ptr(), Y.data_ptr(), rows, run, table.taps,
-        table.taps + DELAY_PAD, n_fft, int(crossfade), int(apply_itd),
-        int(apply_ild), ALIGN_GUARD, MAX_RENDER_SHIFT, TAPER_LO, TAPER_HI,
-        *split, stream), "assembly_mac")
+        Xd.data_ptr(), first.data_ptr(), Y.data_ptr(), *tables, rows, run,
+        table.taps, plan.t_pad, n_fft, int(crossfade), int(apply_itd),
+        int(apply_ild), plan.threads, plan.blocks_per_sm, ALIGN_GUARD,
+        MAX_RENDER_SHIFT, TAPER_LO, TAPER_HI, *split, stream), "assembly_mac")
     launches["assembly_mac"] += 1
     return Y
 
