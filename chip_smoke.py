@@ -12,14 +12,18 @@ Phases, each of which fails the run on any error (nothing is caught):
   3b. each partitioned-convolution kernel against its plain version, SNR
      ≥ 100 dB: the streaming step at 128 taps (S = 1024, B = 256, P = 1)
      and 2048 taps (S = 64, B = 256, P = 9), the offline render at 2048
-     taps (nb = 2048, B = 512, P = 5), and a chain of pushes that carries
-     the delay line and the previous filter;
+     taps (nb = 2048, B = 512, P = 5), `assemble_partitions` alone at
+     render (j)'s 256 rows × 44,100 taps × B 512 (L = 65536, P = 87: the
+     cluster mode, 4 blocks per row; also ≥ 100 dB against plain fp64),
+     and a chain of pushes that carries the delay line and the previous
+     filter;
   3c. the block-step kernels (`block_spectra`, `spectra_inverse`, the
      per-source `overlap_add`) against their plain versions at S = 64,
      nb = 128 and at S = 32, nb = 1 (B = 1024, 128 taps), SNR ≥ 100 dB
      (≥ 130 dB for `spectra_inverse`); then `spectra_inverse` alone, timed
      beside `torch.fft.irfft`, at 8192 rows × n_fft 4096, 2048 × 16384
-     (the largest shared-mode FFT) and 128 × 32768 (split mode);
+     (the largest shared-mode FFT), 128 × 32768 and 64 × 65536 (cluster
+     mode, 2 and 4 blocks per row);
   3d. the scene mixdown's `block_spectra_mix` (crossfade on and off, and one
      filter per source) with the summing `spectra_inverse` at S = 64,
      nb = 128, and the natural-order `assembly_mac` at 8192 rows (64 sources
@@ -50,8 +54,9 @@ Phases, each of which fails the run on any error (nothing is caught):
      `render_streamed` at 44,100 taps (L = 65536, P = 87) and a trajectory
      at 16,384 taps (n_fft = 32768, natural order) — each against the
      float64 plain path (SNR ≥ 100 dB) with its exact launch counts;
-  5. one torch.profiler window per block render, after every timing: device
-     busy time, idle share and the largest kernels.
+  5. one torch.profiler window per block render, and one per burst of (d)
+     and of (e) at update rate 1, after every timing: device busy time,
+     idle share and the largest kernels.
 Every render reads every kernel's launch count, all set to 0 just before
 it. The line before the last is the kernels' JSON record (with each
 kernel's bound: the larger of its bytes over 3.35 TB/s and its FLOPs,
@@ -336,6 +341,7 @@ def check_render(name: str, public_call, core_call, audio_sec: float,
     return res
 
 
+
 # (name, result, core call) of each block render, profiled once all renders
 # are timed, so that no trace runs between two timings
 TO_PROFILE = []
@@ -346,8 +352,10 @@ def profile_renders() -> None:
     time, idle share against its CUDA-event time, and the device time of
     its largest kernels, added to its result. A trace can come back
     missing device events, so one counts only when it holds every kernel
-    the render launched; after three that do not, "not measured"."""
+    the render launched; after three that do not, "not measured". A
+    serving burst's CUDA-event time is its time per block × K."""
     for name, res, fn in TO_PROFILE:
+        event_ms = res.get("kernel_ms") or res["kernel_ms_per_block"] * res["K"]
         want = {f"{k}_kernel" for k in res["launches"]}
         for _ in range(3):
             busy, by_kernel = device_breakdown(fn)
@@ -359,10 +367,11 @@ def profile_renders() -> None:
                   flush=True)
             continue
         top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6])
+        top.update({k: by_kernel[k] for k in want})  # the port's, always
         res.update(device_busy_ms=busy, device_ms_by_kernel=top,
-                   idle_share=max(0.0, 1.0 - busy / res["kernel_ms"]))
+                   idle_share=max(0.0, 1.0 - busy / event_ms))
         print(f"[profile {name}] device busy {busy:.3f} ms of "
-              f"{res['kernel_ms']:.3f} (idle {100 * res['idle_share']:.0f}%): "
+              f"{event_ms:.3f} (idle {100 * res['idle_share']:.0f}%): "
               + ", ".join(f"{k} {v:.3f}" for k, v in top.items()),
               flush=True)
 
@@ -503,6 +512,37 @@ def partitions_work(table, rows: int, B: int) -> dict:
                          + P * fft_flops(2 * B)))
 
 
+def check_partition_assembly(table, rows: int, B: int, label: str,
+                             reps: int) -> dict:
+    """assemble_partitions alone against its plain fp32 and fp64 versions
+    at render (j)'s shape."""
+    import torch
+
+    from tinaural_torch.ops import partitioned_conv as pc
+    from tinaural_torch.ops.partitions_plan import partitions_plan
+
+    plan = partitions_plan(table.taps, B)
+    print(f"[{label}] L {plan.L}, P {plan.parts}, "
+          + (f"cluster mode, {plan.ranks} blocks per row" if plan.cluster
+             else "not the cluster mode"), flush=True)
+    idx, w = _rows(table, (rows,), seed=5)
+    kern = lambda: pc.assemble_partitions_cuda(idx, w, table, B, **PART_FLAGS)
+    plain = lambda: pc.assemble_partitions_reference(idx, w, table, B,
+                                                     **PART_FLAGS)
+    res = {}
+    H = torch.complex(*kern())
+    _report(res, "assemble_partitions", H, torch.complex(*plain()), kern,
+            plain, label, reps, partitions_work(table, rows, B))
+    H64 = torch.complex(*pc.assemble_partitions_reference(
+        idx, w.double(), table, B, **PART_FLAGS))
+    s64 = snr_db(H64, H)
+    print(f"[{label}] assemble_partitions: SNR {s64:.2f} dB vs plain fp64",
+          flush=True)
+    require(s64 >= KERNEL_SNR_DB, f"{label}: SNR {s64:.2f} vs plain fp64")
+    res["assemble_partitions"].update(snr_fp64_db=s64, ranks=plan.ranks)
+    return res
+
+
 def check_partitioned_kernels(table, nb: int, B: int, label: str,
                               reps: int) -> dict:
     """assemble_partitions per block and partitioned_conv against their
@@ -584,8 +624,9 @@ def check_step_kernels(table, S: int, nb: int, label: str, reps: int) -> dict:
 
 
 # rows × n_fft of the further spectra_inverse checks: (k)'s shape, the
-# largest shared-mode FFT, and (j) trajectory's split-mode shape
-INVERSE_SHAPES = ((8192, 4096), (2048, 16384), (128, 32768))
+# largest shared-mode FFT, (j) trajectory's shape and 65536, both in the
+# cluster mode
+INVERSE_SHAPES = ((8192, 4096), (2048, 16384), (128, 32768), (64, 65536))
 
 
 def check_inverse_shapes(dev, reps: int) -> dict:
@@ -825,6 +866,8 @@ def check_serving(name: str, table, S: int, K: int, k: int,
           f"{res['kernel_realtime_listeners']:.0f} real-time listeners, "
           f"plain fp32 {plain_ms:.4f} ms/block = "
           f"{res['plain_fp32_realtime_listeners']:.0f}", flush=True)
+    if k == 1:  # the burst's device time by kernel, in phase 5
+        TO_PROFILE.append((f"{name} k={k}", res, lambda: core(blocks, st0)))
     return res
 
 
@@ -1090,6 +1133,21 @@ def kernel_entry(name: str, source: str, replaces: int, launches: int,
             **extra}
 
 
+def serving_device_ms(renders: dict, kernel: str) -> dict:
+    """Device ms per launch of a streaming kernel in the profiled bursts
+    of (d) and (e) at update rate 1 (the wrapper times above are bound by
+    the host's time per call)."""
+    out = {}
+    for key in ("d_serving", "e_brir_serving_k1"):
+        res = renders[key]
+        by = res.get("device_ms_by_kernel", {})
+        n = res["launches"].get(kernel, 0)
+        out[f"{key}_device_ms"] = (by[f"{kernel}_kernel"] / n
+                                   if f"{kernel}_kernel" in by and n
+                                   else "not measured")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1153,6 +1211,9 @@ def main() -> int:
                                   reps=10)
     k_part = check_partitioned_kernels(brir, 2048, 512,
                                        "partitioned 2048 taps P=5", reps=5)
+    k_part_j = check_partition_assembly(long_streamed, 256, 512,
+                                        "assemble_partitions 256 rows 44100 "
+                                        "taps B=512", reps=5)
     check_stream_chain(brir, 64, 256, 12, "stream 2048 taps P=9")
     check_stream_chain(table, 1024, 256, 4, "stream 128 taps P=1")
 
@@ -1284,14 +1345,19 @@ def main() -> int:
     extra = {"assemble_partitions": {
                  "brir_stream_ms": k_brir["assemble_partitions"]["ms"],
                  "brir_stream_plain_ms":
-                     k_brir["assemble_partitions"]["plain_ms"]},
+                     k_brir["assemble_partitions"]["plain_ms"],
+                 "j_shape": {f: k_part_j["assemble_partitions"][f] for f in (
+                     "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                     "max_abs_err", "snr_db", "snr_fp64_db", "ranks")},
+                 **serving_device_ms(renders, "assemble_partitions")},
              "stream_conv": {
                  "hold_ms": k_serve["stream_conv_hold"]["ms"],
                  "hold_plain_ms": k_serve["stream_conv_hold"]["plain_ms"],
                  "brir_stream_ms": k_brir["stream_conv"]["ms"],
                  "brir_stream_plain_ms": k_brir["stream_conv"]["plain_ms"],
                  "brir_hold_ms": k_brir["stream_conv_hold"]["ms"],
-                 "brir_hold_plain_ms": k_brir["stream_conv_hold"]["plain_ms"]}}
+                 "brir_hold_plain_ms": k_brir["stream_conv_hold"]["plain_ms"],
+                 **serving_device_ms(renders, "stream_conv")}}
     for name in pc.KERNELS:
         first, *also = PART_REPLACES[name]
         kernels.append(kernel_entry(

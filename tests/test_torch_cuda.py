@@ -7,7 +7,9 @@ mixdown's `block_spectra_mix` with the summing `spectra_inverse`, the
 natural-order `assembly_mac`, and `spectra_inverse` alone at every FFT
 size; each family again in the split buffer mode, forced at small shapes,
 and at the sizes that need it (a 44,100-tap `render_streamed`, a
-16,384-tap trajectory).
+16,384-tap trajectory); and the cluster mode of `spectra_inverse` and
+`assemble_partitions` at its edges, under a refused plan, and forced back
+to the split mode.
 
 This file imports neither the JAX package nor the shared conftest (which
 does), so it also runs where `tinaural` cannot be imported, as on a
@@ -36,6 +38,8 @@ from tinaural_torch.ops import block_render as br
 from tinaural_torch.ops import block_step as bs
 from tinaural_torch.ops import partitioned_conv as pc
 from tinaural_torch.ops.mac_plan import mac_plan
+from tinaural_torch.ops.partitions_plan import partitions_plan
+from tinaural_torch.ops.spectra_inverse import inverse_plan
 
 from test_torch_mac_plan import _inputs as _random_inputs
 from test_torch_mac_plan import _table as _random_table
@@ -119,14 +123,25 @@ def test_cuda_route_rejects_bad_inputs(table):
 # ---------------------------------------------------------------- partitioned
 
 
+class _Tables(dict):
+    """Synthetic tables on the card by length, each built at first use."""
+
+    def __missing__(self, taps):
+        self[taps] = TorchTable.from_hrir_table(
+            tinaural_torch.load_hrir_set("synthetic", taps=taps),
+            torch.device("cuda"))
+        return self[taps]
+
+
 @pytest.fixture(scope="module")
 def long_tables():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    return {taps: TorchTable.from_hrir_table(
-        tinaural_torch.load_hrir_set("synthetic", taps=taps),
-        torch.device("cuda")) for taps in (128, 2048)}
+    tables = _Tables()
+    for taps in (128, 2048):
+        tables[taps]
+    return tables
 
 
 def _rows(t, shape, seed):
@@ -142,9 +157,13 @@ FLAGS = dict(apply_itd=True, apply_ild=True)
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("taps,B", [(128, 256), (2048, 512), (2048, 256),
-                                    (128, 128)])
+                                    (128, 128), (16384, 512), (44100, 512)])
 def test_assemble_partitions_matches_plain(long_tables, taps, B):
+    """Against the float64 plain version: the shared mode up to 2048 taps,
+    the cluster mode at 16,384 taps (L 32768, 2 blocks per row) and
+    44,100 (L 65536, 4 blocks)."""
     t = long_tables[taps]
+    assert partitions_plan(taps, B).cluster == (taps > 8128)
     idx, w = _rows(t, (6,), seed=B)
     hr, hi = pc.assemble_partitions_cuda(idx, w, t, B, **FLAGS)
     r64, i64 = pc.assemble_partitions_reference(idx, w.double(), t, B, **FLAGS)
@@ -580,12 +599,13 @@ def _spectra(shape, n_fft, seed, dev):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("log2n", range(1, 16))
+@pytest.mark.parametrize("log2n", range(1, 18))
 def test_spectra_inverse_every_size(cuda, log2n):
     """spectra_inverse against the float64 plain version at every power of
-    two 2 … 16384 (the register kernel) and 32768 (the split mode): 1, 7
-    and, up to n_fft 2048, 8193 rows, so the last CUDA block holds idle
-    rows; summed over 2 and 8 terms; equal bits over two calls."""
+    two 2 … 16384 (the register kernel) and 32768 … 131072 (the cluster
+    mode): 1, 7 and, up to n_fft 2048, 8193 rows, so the last CUDA block
+    holds idle rows; summed over 2 and 8 terms; equal bits over two
+    calls."""
     n = 1 << log2n
     for rows in (1, 7) + ((8193,) if n <= 2048 else ()):
         Y = _spectra((rows,), n, log2n * 10 + rows, cuda)
@@ -618,3 +638,73 @@ def test_spectra_inverse_rejects_bad_inputs(cuda):
         bs.spectra_inverse_cuda(Y.cpu(), 64)
     with pytest.raises(ValueError):
         bs.spectra_inverse_cuda(Y[:, :, ::2], 32)  # not contiguous
+
+
+# ------------------------------------------------------------ cluster mode
+
+
+@pytest.mark.gpu
+def test_cluster_mode_boundaries(long_tables):
+    """Each side of the cluster mode's lower edge against the float64
+    plain version: spectra_inverse at 16384 (one block per row) and 32768
+    (a cluster of 2); assemble_partitions at L 8192 (the shared mode) and
+    16384 (a cluster of 1)."""
+    dev = long_tables[128].device
+    for n in (16384, 32768):
+        assert inverse_plan(n).ranks == n // 16384
+        Y = _spectra((3,), n, n, dev)
+        f64 = bs.spectra_inverse_reference(Y.to(torch.complex128), n)
+        assert _snr_db(f64, bs.spectra_inverse_cuda(Y, n)) >= 120, n
+    for taps, L in ((8000, 8192), (9000, 16384)):
+        plan = partitions_plan(taps, 512)
+        assert plan.L == L and plan.cluster == (L == 16384)
+        t = long_tables[taps]
+        idx, w = _rows(t, (5,), seed=taps)
+        hr, hi = pc.assemble_partitions_cuda(idx, w, t, 512, **FLAGS)
+        r64, i64 = pc.assemble_partitions_reference(idx, w.double(), t, 512,
+                                                    **FLAGS)
+        assert _snr_db(torch.complex(r64, i64), torch.complex(hr, hi)) >= 100
+
+
+@pytest.mark.gpu
+def test_cluster_mode_refuses_another_plan(long_tables, monkeypatch):
+    """The entry points take only the cluster plan they were compiled for:
+    another cluster size raises, and nothing is launched."""
+    dev = long_tables[128].device
+    Y = _spectra((2,), 32768, 3, dev)
+    right = inverse_plan(32768)
+    monkeypatch.setattr(bs, "inverse_plan", lambda n: dataclasses.replace(
+        right, ranks=4))
+    before = bs.launches["spectra_inverse"]
+    with pytest.raises(RuntimeError):
+        bs.spectra_inverse_cuda(Y, 32768)
+    assert bs.launches["spectra_inverse"] == before
+    t = long_tables[9000]
+    idx, w = _rows(t, (2,), seed=1)
+    plan = partitions_plan(9000, 512)
+    monkeypatch.setattr(pc, "partitions_plan", lambda taps, B:
+                        dataclasses.replace(plan, ranks=2))
+    before = pc.launches["assemble_partitions"]
+    with pytest.raises(RuntimeError):
+        pc.assemble_partitions_cuda(idx, w, t, 512, **FLAGS)
+    assert pc.launches["assemble_partitions"] == before
+
+
+@pytest.mark.gpu
+def test_forced_split_mode_at_cluster_sizes(long_tables, monkeypatch):
+    """force_work still takes the split mode where the cluster mode would
+    run: spectra_inverse at 32768 and 65536, assemble_partitions at
+    16,384 and 44,100 taps, each against the float64 plain version."""
+    monkeypatch.setattr(_layout, "force_work", _layout.SPLIT_WORK)
+    dev = long_tables[128].device
+    for n in (32768, 65536):
+        Y = _spectra((3,), n, n + 1, dev)
+        f64 = bs.spectra_inverse_reference(Y.to(torch.complex128), n)
+        assert _snr_db(f64, bs.spectra_inverse_cuda(Y, n)) >= 120, n
+    for taps in (16384, 44100):
+        t = long_tables[taps]
+        idx, w = _rows(t, (3,), seed=taps + 1)
+        hr, hi = pc.assemble_partitions_cuda(idx, w, t, 512, **FLAGS)
+        r64, i64 = pc.assemble_partitions_reference(idx, w.double(), t, 512,
+                                                    **FLAGS)
+        assert _snr_db(torch.complex(r64, i64), torch.complex(hr, hi)) >= 100

@@ -19,8 +19,8 @@ import pytest
 import torch
 
 from tinaural_torch.ops import _layout
-from tinaural_torch.ops.spectra_inverse import (BLOCK_THREADS, MAX_RADIX,
-                                                MAX_REGISTER_N,
+from tinaural_torch.ops.spectra_inverse import (BLOCK_THREADS, MAX_CLUSTER_N,
+                                                MAX_RADIX, MAX_REGISTER_N,
                                                 inverse_plan, twiddles)
 
 torch.set_num_threads(1)
@@ -38,18 +38,26 @@ def _snr_db(ref: np.ndarray, test: np.ndarray) -> float:
 @pytest.mark.parametrize("log2n", range(1, 25))
 def test_inverse_plan(log2n):
     """The radices multiply to n, the block holds at most 1024 threads,
-    and the shared buffers fit the H100 exactly when n ≤ 16384; above,
-    the layout takes the split mode."""
+    and one block's shared buffers fit the H100 exactly when n ≤ 131072:
+    up to 16384 a row's whole exchange buffer, above it (the cluster mode)
+    that of one 16384-point share on each of C = n/16384 blocks of 1024
+    threads. From 2^18 on the layout takes the split mode."""
     n = 1 << log2n
     p = inverse_plan(n)
     assert p.n == n and math.prod(p.radices) == n
-    assert p.points * p.threads == n
+    assert p.points * p.threads * p.ranks == n
     assert p.rows_per_block * p.threads <= 1024
     register = n <= MAX_REGISTER_N
+    cluster = MAX_REGISTER_N < n <= MAX_CLUSTER_N
     fits = p.shared_f2 * 8 + _layout._STATIC_SMEM <= H100_SHARED_BYTES
-    assert fits == register
+    assert fits == (register or cluster)
     work = _layout.split_work(p.shared_f2, n, H100_SHARED_BYTES)
-    assert work == (0 if register else _layout.SPLIT_WORK)
+    assert work == (0 if fits else _layout.SPLIT_WORK)
+    assert p.ranks == (n // MAX_REGISTER_N if cluster else 1)
+    if cluster:  # a radix-C step, then each block's 16384-point plan
+        assert (p.points, p.threads, p.rows_per_block) == (16, 1024, 1)
+        assert p.radices == (p.ranks, *inverse_plan(MAX_REGISTER_N).radices)
+        assert p.shared_f2 * 8 == 139_264
     if register:
         assert all(r == MAX_RADIX for r in p.radices[:-1])
         assert 2 <= p.radices[-1] <= MAX_RADIX

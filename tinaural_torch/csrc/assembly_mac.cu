@@ -107,35 +107,6 @@ struct MacArgs {
   int rows, run, crossfade;
 };
 
-// The delay ramp of common.cuh delay_ramp_bin at bin q < L/2 + 1 for the
-// clipped shift d, with the bin's constants from tables: the exact integer
-// phase exp(−2πi·((q·⌊d⌋) mod L)/L) and sin θ, cos θ (θ = −2πq/L) from
-// twL, the taper w from `taper`. ψ only counts where w < 1. The rest of
-// the phase is taken in units of π (θ/π = −2q/L exactly), so sincospif
-// needs no range reduction and no local memory.
-__device__ __forceinline__ float2 ramp_bin(int q, int L, float d,
-                                           const float2* __restrict__ twL,
-                                           const float* __restrict__ taper) {
-  const float di = floorf(d);
-  const float frac = d - di;
-  const float2 e = __ldg(twL + ((q * static_cast<int>(di)) & (L - 1)));
-  const float wt = __ldg(taper + q);
-  const float theta_pi = -2.0f * (static_cast<float>(q) / L);
-  float ph = wt * theta_pi * frac;
-  if (wt < 1.0f) {
-    const float2 c = __ldg(twL + q);  // cos θ = c.x, sin θ = −c.y
-    const float psi = atan2f(-frac * c.y, (1.0f - frac) + frac * c.x);
-    ph += (1.0f - wt) * (psi * (1.0f / CUDART_PI_F));
-  }
-  float sp, cp;
-  sincospif(ph, &sp, &cp);
-  return cmul(make_float2(e.x, -e.y), make_float2(cp, sp));
-}
-
-__device__ __forceinline__ float2 conj(float2 a) {
-  return make_float2(a.x, -a.y);
-}
-
 // The shared buffer mode: one block of T = n/16 threads per run of rows;
 // see the header comment. buf is one row's exchange buffer (n + n/16
 // complex64), reused by every exchange.

@@ -37,9 +37,20 @@
 // past `rows` load nothing and store nothing but keep to the barriers.
 // __launch_bounds__ caps registers at 64, 4 blocks of 256 per SM.
 //
-// The split buffer mode (n_fft above what a block's shared memory holds,
-// 32768 and up on the H100) keeps the radix-2 kernel of common.cuh:
-// inverse_pair over a device scratch, the blocks walking the rows.
+// The cluster buffer mode (n_fft 32768 … 131072, above what one block's
+// shared memory holds): one thread-block cluster of C = n/16384 blocks of
+// 1024 threads per row (fft_reg.cuh ClusterPlan). The same load and pack
+// take bins M·k1 + k2 of a rank's k2-range, the radix-C step crosses the
+// cluster once through distributed shared memory, and each block then runs
+// the 16384-point register transform of the shared mode on its share; rank
+// t1 stores samples t1 + C·t2. At 128 rows × 32768 that is 256 blocks, two
+// waves on 132 SMs. A first design that ran all four radix-16 passes
+// across the cluster, one DSMEM exchange each, took 0.187 ms there against
+// irfft's 0.102 (scripts/torch_cluster_sweep.py, H100).
+//
+// The split buffer mode (above 131072, or forced) keeps the radix-2
+// kernel of common.cuh: inverse_pair over a device scratch, the blocks
+// walking the rows.
 
 #include "fft_reg.cuh"
 
@@ -109,6 +120,61 @@ __global__ void __launch_bounds__(RegPlan<kLog2N>::block,
   }
 }
 
+// The cluster mode: one cluster of Plan::ranks blocks per row (fft_reg.cuh
+// cluster_spread, cluster_local_fft). It shares the register kernel's
+// name, so a profile names both alike.
+template <class Plan, bool kSum>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+    spectra_inverse_kernel(const float2* __restrict__ Y,
+                           float* __restrict__ frames,
+                           const float2* __restrict__ twN,
+                           const float2* __restrict__ twM, int rows,
+                           int terms) {
+  constexpr int n = Plan::n, F = n / 2 + 1, C = Plan::ranks, M = Plan::M;
+  extern __shared__ float2 xbuf[];
+  const int rank = static_cast<int>(blockIdx.x) % C;
+  const int row = static_cast<int>(blockIdx.x) / C;
+  const int tid = threadIdx.x;
+  const float2* A = Y + static_cast<size_t>(row) * 2 * F;
+  const size_t stride = static_cast<size_t>(rows) * 2 * F;
+  cluster_arrive<C>();  // this block runs: the others may store into it
+
+  // Z[k], k = M·k1 + k2, k2 = rank·span + tid + s·1024, into v[s·C + k1]
+  float2 v[16];
+#pragma unroll
+  for (int m = 0; m < 16; ++m) {
+    const int k = M * (m % C) + rank * Plan::span + tid +
+                  (m / C) * kClusterThreads;
+    const bool mirror = k > n / 2;
+    const int q = mirror ? n - k : k;
+    float2 a = __ldg(A + q), b = __ldg(A + F + q);
+    if (kSum) {
+      for (int t = 1; t < terms; ++t) {
+        a = cadd(a, __ldg(A + t * stride + q));
+        b = cadd(b, __ldg(A + t * stride + F + q));
+      }
+    }
+    if (q == 0 || q == n / 2) {
+      a.y = 0.f;
+      b.y = 0.f;
+    }
+    v[m] = mirror ? make_float2(a.x + b.y, b.x - a.y)
+                  : make_float2(a.x - b.y, a.y + b.x);
+  }
+  cluster_spread<Plan>(v, xbuf, rank, tid, twN);
+  cluster_local_fft(v, xbuf, tid, twM);
+
+  // v[m] holds sample rank + C·t2, t2 = tid + 1024·local_out(m)
+  const float inv_n = 1.0f / n;
+  float* f0 = frames + static_cast<size_t>(row) * 2 * n;
+#pragma unroll
+  for (int m = 0; m < 16; ++m) {
+    const int i = rank + C * (tid + kClusterThreads * local_out(m));
+    f0[i] = v[m].x * inv_n;
+    f0[n + i] = v[m].y * inv_n;
+  }
+}
+
 // The split buffer mode: the blocks walk the rows, each row's packed
 // inverse through the block's scratch slice (common.cuh inverse_pair).
 // kSum = false compiles the single-term kernel without the sum loop. It
@@ -169,25 +235,62 @@ int launch_register(int log2n, const float2* Y, float* frames,
   }
 }
 
+// The cluster kernel for n = 2^log2n, checked against the caller's plan.
+template <int kLog2N>
+int launch_cluster_inverse(int log2n, const float2* Y, float* frames,
+                           const float2* tw, const float2* twM, int rows,
+                           int terms, int rows_per_block, int points,
+                           int ranks, cudaStream_t stream) {
+  if constexpr (kLog2N > kClusterMaxLog2N) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (log2n != kLog2N)
+      return launch_cluster_inverse<kLog2N + 1>(log2n, Y, frames, tw, twM,
+                                                rows, terms, rows_per_block,
+                                                points, ranks, stream);
+    using P = ClusterPlan<kLog2N>;
+    if (rows_per_block != 1 || points != 16 || ranks != P::ranks ||
+        tw == nullptr || twM == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    using ClusterKernel = void (*)(const float2*, float*, const float2*,
+                                   const float2*, int, int);
+    const ClusterKernel kernel =
+        terms > 1
+            ? static_cast<ClusterKernel>(spectra_inverse_kernel<P, true>)
+            : static_cast<ClusterKernel>(spectra_inverse_kernel<P, false>);
+    return launch_cluster(kernel, rows, P::ranks,
+                          P::share_f2 * static_cast<int>(sizeof(float2)),
+                          stream, Y, frames, tw, twM, rows, terms);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // Y: (terms, rows, 2, F) complex64 → frames: (rows, 2, n_fft) f32.
-// slices > 0: split mode, scratch holds slices · n_fft complex64, tw is
-// unused. Otherwise the register kernel: tw is the table of exp(+2πi·m/n)
-// for m < n_fft, and rows_per_block and points must be the plan's
+// slices > 0: split mode, scratch holds slices · n_fft complex64, tw and
+// twM are unused. Otherwise the register kernel (n_fft ≤ 16384, ranks 1) or
+// the cluster kernel (32768 … 131072): tw is the table of exp(+2πi·m/n)
+// for m < n_fft, twM (cluster kernel only) that of exp(+2πi·m/16384), and
+// rows_per_block, points and ranks must be the plan's
 // (ops/spectra_inverse.py `inverse_plan`).
-int tt_spectra_inverse(const void* Y, void* frames, const void* tw, int rows,
-                       int n_fft, int terms, int rows_per_block, int points,
+int tt_spectra_inverse(const void* Y, void* frames, const void* tw,
+                       const void* twM, int rows, int n_fft, int terms,
+                       int rows_per_block, int points, int ranks,
                        void* scratch, int slices, int work, void* stream) {
   const auto Yc = static_cast<const float2*>(Y);
   const auto out = static_cast<float*>(frames);
   const auto s = static_cast<cudaStream_t>(stream);
+  const auto twc = static_cast<const float2*>(tw);
+  if (slices == 0 && n_fft > (1 << kRegMaxLog2N))
+    return launch_cluster_inverse<kRegMaxLog2N + 1>(
+        ilog2(n_fft), Yc, out, twc, static_cast<const float2*>(twM), rows,
+        terms, rows_per_block, points, ranks, s);
   if (slices == 0)
-    return launch_register<1>(ilog2(n_fft), Yc, out,
-                              static_cast<const float2*>(tw), rows, terms,
-                              rows_per_block, points, s);
+    return ranks == 1 ? launch_register<1>(ilog2(n_fft), Yc, out, twc, rows,
+                                           terms, rows_per_block, points, s)
+                      : static_cast<int>(cudaErrorInvalidValue);
   const SplitKernel kernel =
       terms > 1 ? static_cast<SplitKernel>(spectra_inverse_kernel<true>)
                 : static_cast<SplitKernel>(spectra_inverse_kernel<false>);

@@ -33,12 +33,12 @@ _SIGNATURES = {
     "tt_assemble_filters": [_P] * 6 + [_I] * 6 + [_F] * 4 + _SPLIT,
     "tt_block_spectra_mix_inverse": [_P] * 3 + [_I] * 5 + _SPLIT,
     "tt_overlap_add": [_P] * 2 + [_I] * 4 + [_P],
-    "tt_assemble_partitions": [_P] * 7 + [_I] * 7 + [_F] * 4 + _SPLIT,
+    "tt_assemble_partitions": [_P] * 11 + [_I] * 8 + [_F] * 4 + _SPLIT,
     "tt_stream_conv": [_P] * 13 + [_I] * 4 + _SPLIT,
     "tt_partitioned_conv": [_P] * 4 + [_I] * 7 + _SPLIT,
     "tt_block_spectra": [_P] * 3 + [_I] * 6 + _SPLIT,
     "tt_block_spectra_mix": [_P] * 3 + [_I] * 7 + _SPLIT,
-    "tt_spectra_inverse": [_P] * 3 + [_I] * 5 + _SPLIT,
+    "tt_spectra_inverse": [_P] * 4 + [_I] * 6 + _SPLIT,
     "tt_assembly_mac": [_P] * 12 + [_I] * 10 + [_F] * 4 + _SPLIT,
 }
 

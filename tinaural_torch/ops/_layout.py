@@ -1,13 +1,20 @@
-"""Where a kernel keeps its FFT buffers: shared memory or a device scratch.
+"""Where a kernel keeps its FFT buffers: shared memory, a thread-block
+cluster's shared memory, or a device scratch.
 
 Every kernel of ``csrc/`` holds its twiddles and FFT buffers in shared
 memory when they fit the card's limit for one block (227 KB on the H100).
-Above it the same kernel runs with those buffers in a device-memory
-scratch, one slice per CUDA block, the blocks walking the rows in a
-grid-stride loop and each n-point FFT split into two passes of at most
-`SPLIT_WORK` points in shared memory (``csrc/common.cuh``, `fft_run`). The
-mode is chosen here from the shapes, before the launch; a launch that fails
-raises in either mode.
+Two kernels have a cluster mode above that: `spectra_inverse` at n_fft
+32768 … 131072 and `assemble_partitions` at L 16384 … 131072 spread each
+row over a thread-block cluster whose blocks hold a share of its buffers
+each (``csrc/fft_reg.cuh`` `ClusterPlan`). Their plans give one block's
+share as the shared figure, so the shared-mode test below takes them too,
+and the kernel's entry point picks the cluster kernel from the sizes.
+Above it the kernels run with their buffers in a device-memory scratch,
+one slice per CUDA block, the blocks walking the rows in a grid-stride loop
+and each n-point FFT split into two passes of at most `SPLIT_WORK` points
+in shared memory (``csrc/common.cuh``, `fft_run`): the split mode. The mode
+is chosen here from the shapes, before the launch; a launch that fails
+raises in every mode, and none gives way to another.
 """
 
 from __future__ import annotations
@@ -25,7 +32,8 @@ SCRATCH_BYTES = 1 << 28
 _STATIC_SMEM = 1024
 
 # Tests set this to a small power of two to force the split mode with that
-# work size at any shape; 0 picks the mode from the shapes.
+# work size at any shape, the cluster mode's included; 0 picks the mode
+# from the shapes.
 force_work = 0
 
 

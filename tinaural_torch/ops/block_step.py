@@ -40,7 +40,7 @@ from .block_render import (_check_inputs, _cuda_inputs,
                            assemble_filters_cuda, assemble_filters_reference,
                            block_render_reference, overlap_add_cuda)
 from .ola import overlap_add
-from .spectra_inverse import inverse_plan, twiddles
+from .spectra_inverse import MAX_REGISTER_N, inverse_plan, twiddles
 
 KERNELS = ("block_spectra", "spectra_inverse", "block_spectra_mix")
 # `block_spectra_mix` takes as many source chunks as give its grid this
@@ -210,9 +210,13 @@ def spectra_inverse_cuda(Y: torch.Tensor, n_fft: int, *,
     plan = inverse_plan(n_fft)
     *split, _keep = layout(Y.device, plan.shared_f2, n_fft, rows, n_fft)
     tw = 0 if split[1] else twiddles(n_fft, Y.device).data_ptr()
+    # the cluster mode's local transforms take the 16384-point table
+    twM = (twiddles(MAX_REGISTER_N, Y.device).data_ptr()
+           if plan.ranks > 1 and not split[1] else 0)
     _build.check(_build.library().tt_spectra_inverse(
-        Y.data_ptr(), frames.data_ptr(), tw, rows, n_fft, terms,
-        plan.rows_per_block, plan.points, *split, stream), "spectra_inverse")
+        Y.data_ptr(), frames.data_ptr(), tw, twM, rows, n_fft, terms,
+        plan.rows_per_block, plan.points, plan.ranks, *split, stream),
+        "spectra_inverse")
     launches["spectra_inverse"] += 1
     return frames
 

@@ -26,7 +26,9 @@ The device of the tensors picks the route: CUDA tensors launch the
 hand-written kernels of ``csrc/partitioned.cu`` (and raise on failure), CPU
 tensors run the plain versions ``*_reference`` in the tensors' precision.
 The kernels take every filter length and block: above shared memory they
-run with their buffers in a device scratch (``ops/_layout.py``).
+run with their buffers in a device scratch (``ops/_layout.py``), except
+`assemble_partitions` at L = 16384 … 131072, which spreads each row over a
+thread-block cluster (``ops/partitions_plan.py``).
 ``launches`` counts each kernel's launches.
 """
 
@@ -34,15 +36,18 @@ from __future__ import annotations
 
 import torch
 
-from ..data.table import (ALIGN_GUARD, DELAY_PAD, MAX_RENDER_SHIFT,
-                          TAPER_HI, TAPER_LO, TorchTable)
+from ..data.table import (ALIGN_GUARD, MAX_RENDER_SHIFT, TAPER_HI,
+                          TAPER_LO, TorchTable)
 from ._layout import layout
 from .block_render import _cuda_inputs
 from .filters import (effective_filter, filter_partitions, n_parts,
-                      next_pow2, partition_spectra)
+                      partition_spectra)
 from .interp import gather_rows
+from .mac_plan import ramp_taper
 from .partitioned import (crossfade_tails, delayed, frame_spectra,
                           partitioned_mac, shifted_stack)
+from .partitions_plan import RANK_SAMPLES, partitions_plan
+from .spectra_inverse import twiddles
 
 KERNELS = ("assemble_partitions", "stream_conv", "partitioned_conv")
 launches = dict.fromkeys(KERNELS, 0)
@@ -194,22 +199,27 @@ def assemble_partitions_cuda(idx: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"idx and w must be (..., 4) with rows, got "
                          f"{tuple(idx.shape)} and {tuple(w.shape)}")
     _check_block(block)
-    t_pad = table.taps + DELAY_PAD
-    L = next_pow2(t_pad)
-    P = n_parts(table.taps, block)
+    plan = partitions_plan(table.taps, block)
+    L, P = plan.L, plan.parts
     shape = (*idx.shape[:-1], P, 2, block + 1)
     h_re = torch.empty(shape, dtype=torch.float32, device=idx.device)
     h_im = torch.empty_like(h_re)
     rows = idx.numel() // 4
-    *split, _keep = layout(idx.device, max(L, 2 * block) // 2 + 2 * L
-                           + 2 * block, 2 * L + 2 * block, rows,
+    *split, _keep = layout(idx.device, plan.shared_f2, plan.scratch_f2, rows,
                            max(L, 2 * block))
+    tables = (0, 0, 0, 0)
+    cluster = plan.cluster and not split[1]
+    if cluster:
+        tables = tuple(t.data_ptr() for t in (
+            twiddles(L, idx.device), twiddles(RANK_SAMPLES, idx.device),
+            twiddles(2 * block, idx.device), ramp_taper(L, idx.device)))
     _build.check(_build.library().tt_assemble_partitions(
         idx.data_ptr(), w.data_ptr(), table.h.data_ptr(),
         table.delays.data_ptr(), table.gains.data_ptr(), h_re.data_ptr(),
-        h_im.data_ptr(), rows, table.taps, t_pad, block, P,
-        int(apply_itd), int(apply_ild), ALIGN_GUARD, MAX_RENDER_SHIFT,
-        TAPER_LO, TAPER_HI, *split, stream), "assemble_partitions")
+        h_im.data_ptr(), *tables, rows, table.taps, plan.t_pad, block, P,
+        int(apply_itd), int(apply_ild), plan.ranks if cluster else 0,
+        ALIGN_GUARD, MAX_RENDER_SHIFT, TAPER_LO, TAPER_HI, *split, stream),
+        "assemble_partitions")
     launches["assemble_partitions"] += 1
     return h_re, h_im
 

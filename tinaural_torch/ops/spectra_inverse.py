@@ -18,11 +18,21 @@ any plan other than the one it was compiled for. The wrapper passes the
 plan's shared-memory figure to ``ops/_layout.py``, which picks the buffer
 mode.
 
-Above `MAX_REGISTER_N` a row's exchange buffer outgrows shared memory. The
-kernel then runs the split buffer mode of ``csrc/common.cuh``: 256 threads
-per row, radix-2 passes over a device scratch. The plan describes that
-launch, and its shared figure is the full radix-2 layout, which no card's
-shared memory holds, so the layout always picks the split mode there.
+Above `MAX_REGISTER_N` a row's exchange buffer outgrows one block's shared
+memory. Up to `MAX_CLUSTER_N` the row then spreads over a thread-block
+cluster of ``ranks = n / MAX_REGISTER_N`` blocks of `CLUSTER_THREADS`
+threads, 16 points each (the cluster mode; ``csrc/fft_reg.cuh``
+`ClusterPlan`): a first pass of radix ``ranks`` runs in registers and
+crosses the cluster once through its distributed shared memory, and each
+block then runs the 16384-point register transform on its share, so the
+plan's radices are ``(ranks,)`` and the 16384-point plan's. Each block
+holds the padded exchange buffer of one 16384-point row, so the plan's
+shared figure is one block's and the layout takes this mode wherever the
+split mode is not forced. Above `MAX_CLUSTER_N` the kernel runs the split
+buffer mode of ``csrc/common.cuh``: 256 threads per row, radix-2 passes
+over a device scratch. The plan describes that launch, and its shared
+figure is the full radix-2 layout, which no card's shared memory holds, so
+the layout always picks the split mode there.
 """
 
 from __future__ import annotations
@@ -37,6 +47,10 @@ MAX_RADIX = 16
 # the largest n whose exchange buffer (n + n/16 complex64 per row) fits one
 # block's shared memory on the H100 (227 KB): 139,264 bytes at 2^14
 MAX_REGISTER_N = 1 << 14
+# the largest n of the cluster mode: 8 blocks, the portable cluster size
+MAX_CLUSTER_N = 1 << 17
+# threads per block of the cluster mode
+CLUSTER_THREADS = 1024
 # threads per CUDA block that small transforms fill with rows
 BLOCK_THREADS = 256
 # threads per row of the split mode's radix-2 kernel
@@ -50,9 +64,10 @@ class InversePlan:
     n: int
     radices: tuple[int, ...]  # one per pass, first to last; product n
     points: int  # values per thread
-    threads: int  # per row: n / points
+    threads: int  # per row and block: n / (points · ranks)
     rows_per_block: int
     shared_f2: int  # complex64 of shared memory per block, shared mode
+    ranks: int = 1  # blocks per row: a thread-block cluster where > 1
 
 
 @functools.cache
@@ -61,11 +76,17 @@ def inverse_plan(n_fft: int) -> InversePlan:
     if n_fft < 2 or n_fft & (n_fft - 1):
         raise ValueError(f"n_fft={n_fft} must be a power of two of at least 2")
     log2n = n_fft.bit_length() - 1
-    if n_fft > MAX_REGISTER_N:
+    if n_fft > MAX_CLUSTER_N:
         return InversePlan(n_fft, (2,) * log2n, n_fft // SPLIT_THREADS,
                            SPLIT_THREADS, 1, n_fft // 2 + n_fft)
     passes = -(-log2n // 4)
     radices = (MAX_RADIX,) * (passes - 1) + (n_fft >> 4 * (passes - 1),)
+    if n_fft > MAX_REGISTER_N:
+        # the radix-C step, then each block's 16384-point transform
+        local = inverse_plan(MAX_REGISTER_N)
+        ranks = n_fft // MAX_REGISTER_N
+        return InversePlan(n_fft, (ranks, *local.radices), MAX_RADIX,
+                           CLUSTER_THREADS, 1, local.shared_f2, ranks)
     points = min(n_fft, MAX_RADIX)
     threads = n_fft // points
     rows = max(1, BLOCK_THREADS // threads)
