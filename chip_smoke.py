@@ -7,8 +7,11 @@ Phases, each of which fails the run on any error (nothing is caught):
   1. device: require CUDA, print the card, its power limit and the toolchain;
   2. build the kernels of tinaural_torch/csrc/ (timed);
   3. each block-render kernel against its plain torch version at the main
-     path's shapes (128-tap synthetic table, B = 1024, n_fft = 2048): SNR
-     ≥ 100 dB;
+     path's shapes (128-tap synthetic table, B = 1024, n_fft = 2048: one
+     8192-block trajectory, 64 sources × 128 blocks with and without
+     crossfade, render (m)'s 16 sources × 1024 blocks) and in the split
+     mode at n_fft 32768: SNR ≥ 100 dB, each FFT kernel's SNR against
+     plain fp64 printed;
   3b. each partitioned-convolution kernel against its plain version, SNR
      ≥ 100 dB: the streaming step at 128 taps (S = 1024, B = 256, P = 1)
      and 2048 taps (S = 64, B = 256, P = 9), the offline render at 2048
@@ -80,6 +83,11 @@ MAC_FP64_SNR_DB = 110.0  # assembly_mac against plain fp64
 RENDER_SNR_DB = 60.0
 NEW_RENDER_SNR_DB = 100.0  # renders (b), (c), (h)–(m)
 SOURCE = "tinaural_torch/csrc/block_render.cu"
+# the block render's kernels → their sources
+B1_SOURCES = {"assemble_filters": "tinaural_torch/csrc/assemble_filters.cu",
+              "block_spectra_mix_inverse":
+                  "tinaural_torch/csrc/block_mix_inverse.cu",
+              "overlap_add": SOURCE}
 PART_SOURCE = "tinaural_torch/csrc/partitioned.cu"
 STEP_SOURCE = "tinaural_torch/csrc/block_step.cu"
 INVERSE_SOURCE = "tinaural_torch/csrc/spectra_inverse.cu"
@@ -243,8 +251,15 @@ def check_kernels(table, S: int, nb: int, crossfade: bool, label: str,
               f"{res[name]['max_abs_err']:.3e}, kernel {res[name]['ms']:.4f} ms,"
               f" plain {res[name]['plain_ms']:.4f} ms", flush=True)
         require(s >= KERNEL_SNR_DB, f"{name} SNR {s:.2f} < {KERNEL_SNR_DB} dB")
-    print(f"[{label}] assemble_filters: SNR {snr_db(H_64, H):.2f} dB vs plain "
-          f"fp64 (plain fp32: {snr_db(H_64, H_ref):.2f} dB)", flush=True)
+    frames_64 = br.block_spectra_mix_inverse_reference(
+        xbs.double(), H.to(torch.complex128), n_fft, crossfade=crossfade)
+    for name, ref64, got, plain in (
+            ("assemble_filters", H_64, H, H_ref),
+            ("block_spectra_mix_inverse", frames_64, frames, frames_ref)):
+        res[name]["snr_fp64_db"] = snr_db(ref64, got)
+        print(f"[{label}] {name}: SNR {res[name]['snr_fp64_db']:.2f} dB vs "
+              f"plain fp64 (plain fp32: {snr_db(ref64, plain):.2f} dB)",
+              flush=True)
     F = n_fft // 2 + 1
     mac = 16 if crossfade else 8
     res["assemble_filters"].update(assembly_work(table, S * nb, n_fft))
@@ -1201,6 +1216,8 @@ def main() -> int:
     k_traj = check_kernels(table, 1, 8192, True, "trajectory", reps=5)
     k_scene = check_kernels(table, 64, 128, True, "scene", reps=5)
     check_kernels(table, 64, 128, False, "static scene", reps=5)
+    # render (m)'s shape: 16 sources × 1024 blocks
+    k_m = check_kernels(table, 16, 1024, True, "m scene", reps=5)
     # B1's split mode, at the 16,384-tap table's n_fft 32768
     check_kernels(long_traj, 1, 32, True, "split n_fft 32768", reps=2)
 
@@ -1330,10 +1347,13 @@ def main() -> int:
                  for _, res, _ in TO_PROFILE
                  if "spectra_inverse" in res["launches"])
     kernels = [kernel_entry(
-        name, SOURCE, FUSED_BLOCK_RENDER,
+        name, B1_SOURCES[name], FUSED_BLOCK_RENDER,
         launches[name] - (ola_b2 if name == "overlap_add" else 0),
         k_traj[name], scene_ms=k_scene[name]["ms"],
         scene_plain_ms=k_scene[name]["plain_ms"],
+        m_shape={f: k_m[name][f] for f in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "snr_db")
+            + (("snr_fp64_db",) if "snr_fp64_db" in k_m[name] else ())},
         **({"also_replaces": [f"{PALLAS}:{FUSED_BLOCK_STEP}",
                               f"{PALLAS}:{FUSED_BLOCK_STEP_MIX}"]}
            if name == "assemble_filters" else {}))

@@ -39,6 +39,7 @@ from tinaural_torch.ops import block_step as bs
 from tinaural_torch.ops import partitioned_conv as pc
 from tinaural_torch.ops.mac_plan import mac_plan
 from tinaural_torch.ops.partitions_plan import partitions_plan
+from tinaural_torch.ops.render_plan import filters_plan, mix_plan
 from tinaural_torch.ops.spectra_inverse import inverse_plan
 
 from test_torch_mac_plan import _inputs as _random_inputs
@@ -118,6 +119,117 @@ def test_cuda_route_rejects_bad_inputs(table):
         br.block_render(xbs, idx + 5000, w, table, n_fft, **flags)
     with pytest.raises(ValueError):
         br.block_render(xbs.cpu(), idx, w, table, n_fft, **flags)
+
+
+# ------------------------------------------- the block render's register mode
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("log2n", range(7, 15))
+def test_block_render_register_kernels_every_size(log2n):
+    """`assemble_filters` and `block_spectra_mix_inverse` against their
+    float64 plain versions at every n_fft 128 … 16384 of the shared mode:
+    L == n and L = 128 < n; 1, 7 and (up to n_fft 4096) 8193 rows, so the
+    last CUDA block holds idle rows; S 1, 3, 16 and 64 sources, crossfade
+    on and off; equal bits over two calls."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    n = 1 << log2n
+    assert filters_plan(16, n).register and mix_plan(n).register
+    for taps in {n - 67, 16}:  # L == n, and L = 128
+        t = _random_table(taps, seed=taps, device=dev)
+        for rows in (1, 7) + ((8193,) if n <= 4096 else ()):
+            idx, w = (x.to(dev) for x in _random_inputs(t, rows, 2, rows)[:2])
+            H = br.assemble_filters_cuda(idx[None], w[None], t, n, **FLAGS)
+            H64 = br.assemble_filters_reference(idx[None], w[None].double(),
+                                                t, n, **FLAGS)
+            assert _snr_db(H64, H) >= 100, (n, taps, rows)
+            assert torch.equal(H, br.assemble_filters_cuda(
+                idx[None], w[None], t, n, **FLAGS))
+    rng = np.random.default_rng(log2n)
+    F = n // 2 + 1
+    for S, nb in ((1, 7), (3, 5), (16, 3), (64, 2)):
+        xbs = torch.from_numpy(rng.standard_normal((S, nb, n // 2)).astype(
+            np.float32)).to(dev)
+        H = torch.from_numpy((rng.standard_normal((S, nb, 2, F))
+                              + 1j * rng.standard_normal((S, nb, 2, F))
+                              ).astype(np.complex64)).to(dev)
+        for crossfade in (True, False):
+            got = br.block_spectra_mix_inverse_cuda(xbs, H, n,
+                                                    crossfade=crossfade)
+            ref = br.block_spectra_mix_inverse_reference(
+                xbs.double(), H.to(torch.complex128), n, crossfade=crossfade)
+            assert _snr_db(ref, got) >= 100, (n, S, crossfade)
+            assert torch.equal(got, br.block_spectra_mix_inverse_cuda(
+                xbs, H, n, crossfade=crossfade))
+
+
+@pytest.mark.gpu
+def test_block_render_at_the_mode_boundary(long_tables):
+    """n_fft 16384, the largest register plan, and 32768, the split mode,
+    on the same table, rows and blocks: both kernels and the whole render
+    against the float64 plain version."""
+    t = long_tables[2048]
+    xbs, idx, w = _inputs(t, 2, 6, seed=11)
+    for n in (16384, 32768):
+        assert filters_plan(t.taps, n).register == (n == 16384)
+        assert mix_plan(n).register == (n == 16384)
+        H = br.assemble_filters_cuda(idx, w, t, n, **FLAGS)
+        H64 = br.assemble_filters_reference(idx, w.double(), t, n, **FLAGS)
+        assert _snr_db(H64, H) >= 100, n
+        y = br.block_render(xbs, idx, w, t, n, crossfade=True, **FLAGS)
+        y64 = br.block_render_reference(xbs.double(), idx, w, t, n,
+                                        crossfade=True, **FLAGS)
+        assert _snr_db(y64, y) >= 100, n
+
+
+@pytest.mark.gpu
+def test_block_render_refuses_another_plan(table, monkeypatch):
+    """The entry points take only the plans they were compiled for:
+    another thread count, rows per block or blocks per SM raises, and
+    nothing is launched."""
+    xbs, idx, w = _inputs(table, 1, 9, seed=12)
+    n_fft = _n_fft(table, B)
+    H = br.assemble_filters_cuda(idx, w, table, n_fft, **FLAGS)
+    plan, mplan = filters_plan(table.taps, n_fft), mix_plan(n_fft)
+    for wrong in (dict(threads=2 * plan.threads),
+                  dict(rows_per_block=plan.rows_per_block // 2),
+                  dict(blocks_per_sm=plan.blocks_per_sm + 1)):
+        monkeypatch.setattr(br, "filters_plan", lambda taps, n, wrong=wrong:
+                            dataclasses.replace(plan, **wrong))
+        before = br.launches["assemble_filters"]
+        with pytest.raises(RuntimeError):
+            br.assemble_filters_cuda(idx, w, table, n_fft, **FLAGS)
+        assert br.launches["assemble_filters"] == before
+    for wrong in (dict(threads=2 * mplan.threads),
+                  dict(blocks_per_sm=mplan.blocks_per_sm + 1)):
+        monkeypatch.setattr(br, "mix_plan", lambda n, wrong=wrong:
+                            dataclasses.replace(mplan, **wrong))
+        before = br.launches["block_spectra_mix_inverse"]
+        with pytest.raises(RuntimeError):
+            br.block_spectra_mix_inverse_cuda(xbs, H, n_fft, crossfade=True)
+        assert br.launches["block_spectra_mix_inverse"] == before
+
+
+@pytest.mark.gpu
+def test_block_render_kernels_reject_bad_inputs(table):
+    xbs, idx, w = _inputs(table, 2, 3, seed=13)
+    n_fft = _n_fft(table, B)
+    H = br.assemble_filters_cuda(idx, w, table, n_fft, **FLAGS)
+    with pytest.raises(ValueError):  # H of another n_fft
+        br.block_spectra_mix_inverse_cuda(xbs, H, 2 * n_fft, crossfade=True)
+    with pytest.raises(ValueError):  # below the smallest plan
+        br.block_spectra_mix_inverse_cuda(xbs[..., :32].contiguous(),
+                                          H[..., :33].contiguous(), 64,
+                                          crossfade=True)
+    with pytest.raises(TypeError):
+        br.block_spectra_mix_inverse_cuda(xbs.double(), H, n_fft,
+                                          crossfade=True)
+    with pytest.raises(ValueError):
+        br.assemble_filters_cuda(idx, w, table, 96, **FLAGS)
+    with pytest.raises(ValueError):
+        br.assemble_filters_cuda(idx.cpu(), w, table, n_fft, **FLAGS)
 
 
 # ---------------------------------------------------------------- partitioned

@@ -211,17 +211,14 @@ def _unpack(Z: np.ndarray, Zm: np.ndarray):
     return A.astype(np.complex64), B.astype(np.complex64)
 
 
-def _model_row(r: int, arrays, p):
-    """One row's chain: → H at the bins kb (T, 8) each thread owns, both
-    ears (A, B), and at n/2 (lane 0)."""
+def _delays_gains(r: int, arrays):
+    """Row r's clipped delays and gains of both ears, in the kernel's
+    order of float32 operations."""
     idx, w, h, delays, gains = arrays
-    n, L, T, TL = p.n, p.L, p.threads, p.L // 16
     f32 = np.float32
-    twL, twN = twiddles(L, CPU).numpy(), twiddles(n, CPU).numpy()
-    taper = ramp_taper(L, CPU).numpy()
     rows, wk = idx[r], w[r]
     d, g = [], []
-    for e in range(2):  # clipped delays and gains, in the kernel's order
+    for e in range(2):
         dv, gv = f32(0), f32(0)
         for k in range(4):
             dv = f32(dv + wk[k] * delays[rows[k], e])
@@ -229,30 +226,57 @@ def _model_row(r: int, arrays, p):
         d.append(f32(min(max(dv - f32(ALIGN_GUARD), f32(-ALIGN_GUARD)),
                          f32(MAX_RENDER_SHIFT))))
         g.append(gv)
-    # gather conj(h0 + i·h1) at t = lane + m·TL on the first TL threads
-    lane = np.arange(TL)
-    t = lane[:, None] + np.arange(16)[None, :] * TL
+    return d, g
+
+
+def _gathered(r: int, arrays, p) -> np.ndarray:
+    """conj(h0 + i·h1) of row r at t = lane + m·TL on TL = L/16 threads,
+    after the first pass: (TL, 16)."""
+    idx, w, h = arrays[:3]
+    TL = p.L // 16
+    rows, wk = idx[r], w[r]
+    t = np.arange(TL)[:, None] + np.arange(16)[None, :] * TL
     z = np.zeros((2, TL, 16), np.float32)
     live = t < p.taps
     for k in range(4):
         z[:, live] += wk[k] * h[rows[k]][:, t[live]]
-    v = _dft((z[0] - 1j * z[1]).astype(np.complex64), 16)
-    v = _reg_passes(v, p.radices_L, L, twL)  # conj(rfft_L)
-    X = _exchange(n + n // 16, _last_positions(p.radices_L, L), np.conj(v))
-    # unpack, ramp, gain and pack in place: bins q = lane + i·T ≤ L/2 on
-    # all T threads, each writing q and L − q
-    q = np.arange(L // 2 + 1)  # = lane + i·T over the threads' iterations
+    return _dft((z[0] - 1j * z[1]).astype(np.complex64), 16)
+
+
+def _ramp_pack(X: np.ndarray, L: int, d, g, off: int = 0):
+    """The ramp pass over the bins q ≤ L/2 of an L-point spectrum at
+    X[off + q]: unpack, ramp, gain, and pack Z[q] and Z[L − q], each bin
+    once; → the exchange holding Z at off + q."""
+    twL, taper = twiddles(L, CPU).numpy(), ramp_taper(L, CPU).numpy()
+    q = np.arange(L // 2 + 1)  # = lane + i·stride over the iterations
     qm = (L - q) & (L - 1)
-    G0, G1 = _unpack(_read(X, q), _read(X, qm))
+    G0, G1 = _unpack(_read(X, off + q), _read(X, off + qm))
     G0 = (G0 * _ramp(q, L, d[0], twL, taper)) * g[0]
     G1 = (G1 * _ramp(q, L, d[1], twL, taper)) * g[1]
     edge = (q == 0) | (q == L // 2)
     G0 = np.where(edge, G0.real, G0)
     G1 = np.where(edge, G1.real, G1)
     mid = ~edge
-    Z = _exchange(n + n // 16, np.concatenate([q, qm[mid]]), np.concatenate([
+    return np.concatenate([off + q, off + qm[mid]]), np.concatenate([
         (G0.real - G1.imag) + 1j * (G0.imag + G1.real),
-        ((G0.real + G1.imag) + 1j * (G1.real - G0.imag))[mid]]))
+        ((G0.real + G1.imag) + 1j * (G1.real - G0.imag))[mid]])
+
+
+def _model_row(r: int, arrays, p):
+    """One row's chain: → H at the bins kb (T, 8) each thread owns, both
+    ears (A, B), and at n/2 (lane 0)."""
+    n, L, T, TL = p.n, p.L, p.threads, p.L // 16
+    f32 = np.float32
+    twL, twN = twiddles(L, CPU).numpy(), twiddles(n, CPU).numpy()
+    d, g = _delays_gains(r, arrays)
+    # gather conj(h0 + i·h1) at t = lane + m·TL on the first TL threads
+    t = np.arange(TL)[:, None] + np.arange(16)[None, :] * TL
+    v = _gathered(r, arrays, p)
+    v = _reg_passes(v, p.radices_L, L, twL)  # conj(rfft_L)
+    X = _exchange(n + n // 16, _last_positions(p.radices_L, L), np.conj(v))
+    # unpack, ramp, gain and pack in place: bins q = lane + i·T ≤ L/2 on
+    # all T threads, each writing q and L − q
+    Z = _exchange(n + n // 16, *_ramp_pack(X, L, d, g))
     v = _read(Z, t)  # the inverse's first pass: Z[lane + m·TL]
     v = _dft(v.astype(np.complex64), 16)
     v = _reg_passes(v, p.radices_L, L, twL)  # L·(h0 + i·h1)

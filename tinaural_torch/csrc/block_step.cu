@@ -5,7 +5,8 @@
 // Replaces, in tinaural/ops/pallas_kernels.py:
 //   fused_block_step  (_assembly_mac_s_kernel: forward four-step FFT of the
 //                      raw block, filter assembly, crossfaded MAC) — the
-//                      assembly stays in assemble_filters (block_render.cu),
+//                      assembly stays in assemble_filters
+//                      (assemble_filters.cu),
 //                      as B1's port split it, and `block_spectra` below
 //                      does the rest;
 //   fused_block_step_mix  (the same step for every (source, block),

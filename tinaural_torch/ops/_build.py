@@ -30,8 +30,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SPLIT = [_P, _I, _I, _P]
 _SIGNATURES = {
     "tt_max_shared_bytes": [_I],
-    "tt_assemble_filters": [_P] * 6 + [_I] * 6 + [_F] * 4 + _SPLIT,
-    "tt_block_spectra_mix_inverse": [_P] * 3 + [_I] * 5 + _SPLIT,
+    "tt_assemble_filters": [_P] * 9 + [_I] * 9 + [_F] * 4 + _SPLIT,
+    "tt_block_spectra_mix_inverse": [_P] * 4 + [_I] * 8 + _SPLIT,
     "tt_overlap_add": [_P] * 2 + [_I] * 4 + [_P],
     "tt_assemble_partitions": [_P] * 11 + [_I] * 8 + [_F] * 4 + _SPLIT,
     "tt_stream_conv": [_P] * 13 + [_I] * 4 + _SPLIT,

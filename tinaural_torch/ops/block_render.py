@@ -10,11 +10,14 @@ in-kernel gather mode. Per source s and block b, with ``F = n_fft/2 + 1``:
    u = (i + 0.5)/B and H[s,−1] := H[s,0]; without crossfade Y = rfft(x)·H;
 4. sum over sources, irfft per ear, overlap-add at hop B.
 
-`block_render` launches the hand-written CUDA kernels of
-``csrc/block_render.cu`` on CUDA tensors and calls the plain version,
+`block_render` launches the hand-written CUDA kernels
+(``csrc/assemble_filters.cu``, ``csrc/block_mix_inverse.cu``,
+``csrc/block_render.cu``) on CUDA tensors and calls the plain version,
 `block_render_reference`, on CPU tensors; any other device raises. The
-kernels take every FFT size: above shared memory they run with their
-buffers in a device scratch (``ops/_layout.py``). ``launches`` counts each
+first two kernels have two buffer modes (``ops/_layout.py``): up to n_fft
+16384 the shared mode, register-resident FFTs with one exchange buffer in
+shared memory (their launch plans are ``ops/render_plan.py``); above, the
+split mode, radix-2 FFTs over a device scratch. ``launches`` counts each
 kernel's launches.
 """
 
@@ -24,10 +27,13 @@ import torch
 
 from ..data.table import (ALIGN_GUARD, DELAY_PAD, MAX_RENDER_SHIFT,
                           TAPER_HI, TAPER_LO, TorchTable)
-from ._layout import layout
-from .filters import effective_filter, next_pow2
+from ._layout import layout, sm_count
+from .filters import effective_filter
 from .interp import gather_rows
+from .mac_plan import ramp_taper
 from .ola import overlap_add
+from .render_plan import MIN_MIX_N, filters_plan, mix_groups, mix_plan
+from .spectra_inverse import twiddles
 
 KERNELS = ("assemble_filters", "block_spectra_mix_inverse", "overlap_add")
 launches = dict.fromkeys(KERNELS, 0)
@@ -123,15 +129,20 @@ def assemble_filters_cuda(idx: torch.Tensor, w: torch.Tensor,
     S, nb, _ = idx.shape
     H = torch.empty((S, nb, 2, n_fft // 2 + 1), dtype=torch.complex64,
                     device=idx.device)
-    L = next_pow2(table.taps + DELAY_PAD)
-    *split, _keep = layout(idx.device, n_fft // 2 + n_fft + 2 * L,
-                           n_fft + 2 * L, S * nb, n_fft)
+    plan = filters_plan(table.taps, n_fft)
+    *split, _keep = layout(idx.device, plan.shared_f2, plan.scratch_f2,
+                           S * nb, n_fft)
+    tables = (0, 0, 0) if split[1] else (
+        twiddles(plan.L, idx.device).data_ptr(),
+        twiddles(n_fft, idx.device).data_ptr(),
+        ramp_taper(plan.L, idx.device).data_ptr())
     _build.check(_build.library().tt_assemble_filters(
         idx.data_ptr(), w.data_ptr(), table.h.data_ptr(),
         table.delays.data_ptr(), table.gains.data_ptr(), H.data_ptr(),
-        S * nb, table.taps, table.taps + DELAY_PAD, n_fft, int(apply_itd),
-        int(apply_ild), ALIGN_GUARD, MAX_RENDER_SHIFT, TAPER_LO, TAPER_HI,
-        *split, stream), "assemble_filters")
+        *tables, S * nb, table.taps, plan.t_pad, n_fft, int(apply_itd),
+        int(apply_ild), plan.threads, plan.rows_per_block,
+        plan.blocks_per_sm, ALIGN_GUARD, MAX_RENDER_SHIFT, TAPER_LO,
+        TAPER_HI, *split, stream), "assemble_filters")
     launches["assemble_filters"] += 1
     return H
 
@@ -150,17 +161,20 @@ def block_spectra_mix_inverse_cuda(xbs: torch.Tensor, H: torch.Tensor,
     if tuple(H.shape) != (S, nb, 2, n_fft // 2 + 1):
         raise ValueError(f"H must be ({S}, {nb}, 2, {n_fft // 2 + 1}), "
                          f"got {tuple(H.shape)}")
-    if n_fft & (n_fft - 1) or n_fft < B:
+    if n_fft & (n_fft - 1) or n_fft < max(B, MIN_MIX_N):
         raise ValueError(f"n_fft={n_fft} must be a power of two of at least "
-                         f"B={B}")
+                         f"B={B} and {MIN_MIX_N}")
     frames = torch.empty((nb, 2, n_fft), dtype=torch.float32,
                          device=xbs.device)
-    F = n_fft // 2 + 1
-    *split, _keep = layout(xbs.device, n_fft // 2 + n_fft + 2 * F,
-                           n_fft + 2 * F, nb, n_fft)
+    plan = mix_plan(n_fft)
+    groups = mix_groups(S, nb, plan, sm_count(xbs.device))
+    *split, _keep = layout(xbs.device, groups * plan.group_f2,
+                           plan.scratch_f2, nb, n_fft)
+    tw = 0 if split[1] else twiddles(n_fft, xbs.device).data_ptr()
     _build.check(_build.library().tt_block_spectra_mix_inverse(
-        xbs.data_ptr(), H.data_ptr(), frames.data_ptr(), S, nb, B, n_fft,
-        int(crossfade), *split, stream), "block_spectra_mix_inverse")
+        xbs.data_ptr(), H.data_ptr(), frames.data_ptr(), tw, S, nb, B, n_fft,
+        int(crossfade), plan.threads, groups, plan.blocks_per_sm, *split,
+        stream), "block_spectra_mix_inverse")
     launches["block_spectra_mix_inverse"] += 1
     return frames
 

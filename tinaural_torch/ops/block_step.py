@@ -25,10 +25,11 @@ before its inverse; step 4 then has one source. It is the port of
 `_scene_spectra_fused` + `_fused_ola_from_planes` (S = 1).
 
 `block_step_render` and `scene_step_render` launch the hand-written CUDA
-kernels of ``csrc/block_step.cu``, ``csrc/spectra_inverse.cu`` and
-``csrc/block_render.cu`` on CUDA tensors and run the plain versions on CPU
-tensors; any other device raises. The kernels take every FFT size
-(``ops/_layout.py``). ``launches`` counts the three kernels of this module.
+kernels of ``csrc/assemble_filters.cu``, ``csrc/block_step.cu``,
+``csrc/spectra_inverse.cu`` and ``csrc/block_render.cu`` on CUDA tensors
+and run the plain versions on CPU tensors; any other device raises. The
+kernels take every FFT size (``ops/_layout.py``). ``launches`` counts the
+three kernels of this module.
 """
 
 from __future__ import annotations
