@@ -17,9 +17,13 @@ Phases, each of which fails the run on any error (nothing is caught):
      and 2048 taps (S = 64, B = 256, P = 9), the offline render at 2048
      taps (nb = 2048, B = 512, P = 5), `assemble_partitions` alone at
      render (j)'s 256 rows × 44,100 taps × B 512 (L = 65536, P = 87: the
-     cluster mode, 4 blocks per row; also ≥ 100 dB against plain fp64),
-     and a chain of pushes that carries the delay line and the previous
-     filter;
+     cluster mode, 4 blocks per row) and at (d)'s, (e)'s, (f)'s and (g)'s
+     shapes (the shared mode's register body, checked too at the other
+     rows per block), then at the register body's edges (B 64 and 2048, L
+     8192, 7 rows, t_pad a multiple of B) and on the radix-2 body (B 32
+     and 4096), each also ≥ 100 dB against plain fp64; the wrapper's host
+     time a call at (d)'s, (e)'s and (f)'s shapes; and a chain of pushes
+     that carries the delay line and the previous filter;
   3c. the block-step kernels (`block_spectra`, `spectra_inverse`, the
      per-source `overlap_add`) against their plain versions at S = 64,
      nb = 128 and at S = 32, nb = 1 (B = 1024, 128 taps), SNR ≥ 100 dB
@@ -57,9 +61,11 @@ Phases, each of which fails the run on any error (nothing is caught):
      `render_streamed` at 44,100 taps (L = 65536, P = 87) and a trajectory
      at 16,384 taps (n_fft = 32768, natural order) — each against the
      float64 plain path (SNR ≥ 100 dB) with its exact launch counts;
-  5. one torch.profiler window per block render, and one per burst of (d)
-     and of (e) at update rate 1, after every timing: device busy time,
-     idle share and the largest kernels.
+  5. one torch.profiler window per block render, per burst of (d) and of
+     (e) at update rate 1 and for (g), after every timing: device busy
+     time, idle share and the largest kernels ((f)'s pushes are profiled
+     in 4b, after their walls); then one per `assemble_partitions` check
+     of 3b: its device time a call.
 Every render reads every kernel's launch count, all set to 0 just before
 it. The line before the last is the kernels' JSON record (with each
 kernel's bound: the larger of its bytes over 3.35 TB/s and its FLOPs,
@@ -89,6 +95,7 @@ B1_SOURCES = {"assemble_filters": "tinaural_torch/csrc/assemble_filters.cu",
                   "tinaural_torch/csrc/block_mix_inverse.cu",
               "overlap_add": SOURCE}
 PART_SOURCE = "tinaural_torch/csrc/partitioned.cu"
+ASM_SOURCE = "tinaural_torch/csrc/assemble_partitions.cu"
 STEP_SOURCE = "tinaural_torch/csrc/block_step.cu"
 INVERSE_SOURCE = "tinaural_torch/csrc/spectra_inverse.cu"
 MAC_SOURCE = "tinaural_torch/csrc/assembly_mac.cu"
@@ -119,15 +126,20 @@ def bound(nbytes: float, flops: float) -> dict:
             else "operations"}
 
 
-def table_bytes(table) -> int:
-    return 4 * (table.h.numel() + table.delays.numel() + table.gains.numel())
+def table_bytes(table, idx) -> int:
+    """Bytes of the table rows that idx names, each read once: both
+    ears' taps, delays and gains."""
+    rows = table.h.shape[0] * table.h.shape[1]
+    per_row = table.h.numel() + table.delays.numel() + table.gains.numel()
+    return 4 * per_row // rows * int(idx.unique().numel())
 
 
-def assembly_work(table, rows: int, n_fft: int) -> dict:
+def assembly_work(table, idx, n_fft: int) -> dict:
     """assemble_filters: gather and lerp of 4 rows, rfft_L, ramp·gain,
     irfft_L, rfft_nfft per row."""
     F = n_fft // 2 + 1
-    return bound(rows * 32 + table_bytes(table) + rows * 2 * F * 8,
+    rows = idx.numel() // 4
+    return bound(rows * 32 + table_bytes(table, idx) + rows * 2 * F * 8,
                  rows * assembly_flops(table, n_fft))
 
 
@@ -262,7 +274,7 @@ def check_kernels(table, S: int, nb: int, crossfade: bool, label: str,
               flush=True)
     F = n_fft // 2 + 1
     mac = 16 if crossfade else 8
-    res["assemble_filters"].update(assembly_work(table, S * nb, n_fft))
+    res["assemble_filters"].update(assembly_work(table, idx, n_fft))
     res["block_spectra_mix_inverse"].update(bound(
         S * nb * B * 4 + S * nb * 2 * F * 8 + nb * 2 * n_fft * 4,
         S * nb * (fft_flops(n_fft) + 2 * F * mac) + nb * fft_flops(n_fft)))
@@ -486,7 +498,7 @@ def check_stream_kernels(table, S: int, B: int, label: str, reps: int) -> dict:
                                                 **PART_FLAGS),
             lambda: pc.assemble_partitions_reference(idx, w, table, B,
                                                      **PART_FLAGS),
-            label, reps, partitions_work(table, S, B))
+            label, reps, partitions_work(table, idx, B))
     H64 = pc.assemble_partitions_reference(idx, w.double(), table, B,
                                            **PART_FLAGS)
     print(f"[{label}] assemble_partitions: SNR "
@@ -518,28 +530,39 @@ def check_stream_kernels(table, S: int, B: int, label: str, reps: int) -> dict:
     return res
 
 
-def partitions_work(table, rows: int, B: int) -> dict:
+def partitions_work(table, idx, B: int) -> dict:
     """assemble_partitions: the effective-filter chain, then P rfft_2B."""
     L = 1 << math.ceil(math.log2(table.taps + 64))
     P = -(-(table.taps + 64) // B)
-    return bound(rows * 32 + table_bytes(table) + rows * P * 2 * (B + 1) * 8,
+    rows = idx.numel() // 4
+    return bound(rows * 32 + table_bytes(table, idx)
+                 + rows * P * 2 * (B + 1) * 8,
                  rows * (16 * table.taps + 2 * fft_flops(L) + 16 * (L // 2 + 1)
                          + P * fft_flops(2 * B)))
 
 
 def check_partition_assembly(table, rows: int, B: int, label: str,
-                             reps: int) -> dict:
+                             reps: int, variants: bool = False) -> dict:
     """assemble_partitions alone against its plain fp32 and fp64 versions
-    at render (j)'s shape."""
+    (SNR ≥ KERNEL_SNR_DB against both), timed beside its bound. Its device
+    time per call comes from a torch.profiler trace of 10 calls (the
+    CUDA-event time of back-to-back calls is the host's below ~0.05 ms),
+    taken in phase 5 (`KERNEL_PROFILES`). With ``variants``, the register
+    body is checked and its device time taken again at the rows per block
+    it takes with no SM count (the most) and at one row per block, where
+    those differ from the plan's."""
     import torch
 
     from tinaural_torch.ops import partitioned_conv as pc
-    from tinaural_torch.ops.partitions_plan import partitions_plan
+    from tinaural_torch.ops._layout import sm_count
+    from tinaural_torch.ops.partitions_plan import launch, partitions_plan
 
     plan = partitions_plan(table.taps, B)
-    print(f"[{label}] L {plan.L}, P {plan.parts}, "
-          + (f"cluster mode, {plan.ranks} blocks per row" if plan.cluster
-             else "not the cluster mode"), flush=True)
+    G, T, _ = launch(table.taps, B, rows, sm_count(table.device))
+    mode = (f"cluster mode, {plan.ranks} blocks per row" if plan.cluster
+            else f"register body, {G} rows per block of {T} threads"
+            if plan.register else "radix-2 body")
+    print(f"[{label}] L {plan.L}, P {plan.parts}, {mode}", flush=True)
     idx, w = _rows(table, (rows,), seed=5)
     kern = lambda: pc.assemble_partitions_cuda(idx, w, table, B, **PART_FLAGS)
     plain = lambda: pc.assemble_partitions_reference(idx, w, table, B,
@@ -547,15 +570,150 @@ def check_partition_assembly(table, rows: int, B: int, label: str,
     res = {}
     H = torch.complex(*kern())
     _report(res, "assemble_partitions", H, torch.complex(*plain()), kern,
-            plain, label, reps, partitions_work(table, rows, B))
+            plain, label, reps, partitions_work(table, idx, B))
     H64 = torch.complex(*pc.assemble_partitions_reference(
         idx, w.double(), table, B, **PART_FLAGS))
     s64 = snr_db(H64, H)
     print(f"[{label}] assemble_partitions: SNR {s64:.2f} dB vs plain fp64",
           flush=True)
     require(s64 >= KERNEL_SNR_DB, f"{label}: SNR {s64:.2f} vs plain fp64")
-    res["assemble_partitions"].update(snr_fp64_db=s64, ranks=plan.ranks)
+    out = res["assemble_partitions"]
+    out.update(snr_fp64_db=s64, ranks=plan.ranks, rows_per_block=G)
+    KERNEL_PROFILES.append((label, out, "device_ms", kern, None))
+    if variants and plan.register:
+        real = pc.sm_count
+        for sms in (0, rows):  # the most rows per block, then one
+            g, t, _ = launch(table.taps, B, rows, sms)
+            if g == G or f"G{g}_device_ms" in out:
+                continue
+            pc.sm_count = lambda device, sms=sms: sms
+            try:
+                s = snr_db(H64, torch.complex(*kern()))
+            finally:
+                pc.sm_count = real
+            require(s >= KERNEL_SNR_DB, f"{label} at G = {g}: SNR {s:.2f}")
+            out[f"G{g}_device_ms"] = "not measured"
+            KERNEL_PROFILES.append((f"{label} at {g} rows per block of {t} "
+                                    "threads", out, f"G{g}_device_ms", kern,
+                                    sms))
+            print(f"[{label}] at {g} rows per block of {t} threads: SNR "
+                  f"{s:.2f} dB vs plain fp64", flush=True)
     return res
+
+
+# (label, result, key, call, SM count to report or None) of each
+# assemble_partitions check whose device time a torch.profiler trace
+# gives: taken in phase 5, after every timing, as no trace may run
+# before a timing
+KERNEL_PROFILES = []
+
+
+def profile_kernels() -> None:
+    """Each KERNEL_PROFILES call's assemble_partitions device time a call,
+    into its result under its key."""
+    from tinaural_torch.ops import partitioned_conv as pc
+
+    real = pc.sm_count
+    for label, res, key, fn, sms in KERNEL_PROFILES:
+        if sms is not None:
+            pc.sm_count = lambda device, sms=sms: sms
+        try:
+            res[key] = kernel_device_ms(fn, "assemble_partitions_kernel")
+        finally:
+            pc.sm_count = real
+        print(f"[profile {label}] assemble_partitions: device {res[key]} ms "
+              "a call", flush=True)
+
+
+def kernel_device_ms(fn, kernel: str, calls: int = 10):
+    """Device time of ``kernel`` per call of fn, from one torch.profiler
+    trace of ``calls`` calls; "not measured" where the trace holds none
+    of it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and kernel in e.name]
+    return sum(us) / calls / 1e3 if len(us) == calls else "not measured"
+
+
+# (label, table's taps, rows, B) of assemble_partitions' launches on the
+# serving paths: a push of (d), (e) and (f)
+SERVING_SHAPES = (("d", 128, 1024, 256), ("e", 2048, 64, 256),
+                  ("f", 128, 1, 256))
+
+
+def partition_host_us(table, rows: int, B: int, calls: int = 200) -> float:
+    """The host's time per assemble_partitions_cuda call in µs: the median
+    of 5 windows of ``calls`` calls with no sync between them (fewer
+    launches than the card queues), so the card's time stays hidden."""
+    import numpy as np
+    import torch
+
+    from tinaural_torch.ops import partitioned_conv as pc
+
+    idx, w = _rows(table, (rows,), seed=5)
+    fn = lambda: pc.assemble_partitions_cuda(idx, w, table, B, **PART_FLAGS)
+    fn()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return float(np.median(per))
+
+
+def host_costs(tables: dict | None = None) -> dict:
+    """partition_host_us at SERVING_SHAPES (``tables`` by taps, else the
+    synthetic tables), printed. It calls the wrapper by its signature
+    alone, so another checkout's wrapper is timed alike by running, from
+    that checkout's root, python3 -c 'import runpy;
+    runpy.run_path("<this file>")["host_costs"]()'."""
+    import torch
+
+    import tinaural_torch as tt
+
+    if tables is None:
+        tables = {n: tt.TorchTable.from_hrir_table(
+                      tt.load_hrir_set("synthetic", taps=n),
+                      torch.device("cuda"))
+                  for n in {taps for _, taps, _, _ in SERVING_SHAPES}}
+    res = {key: partition_host_us(tables[taps], rows, Bq)
+           for key, taps, rows, Bq in SERVING_SHAPES}
+    torch.cuda.synchronize()
+    print("[assemble_partitions host µs a call] " + ", ".join(
+        f"({k}) {v:.2f}" for k, v in res.items()), flush=True)
+    return res
+
+
+# (label, table's taps, rows, B) of the further assemble_partitions checks
+# against plain: the edges of the register body (B = 64 and 2048, L =
+# 8192, 7 rows, t_pad a multiple of B) and the radix-2 body outside it
+# (B = 32 and 4096, the shared mode)
+PARTITION_EDGES = (("B 64", 2048, 64, 64), ("B 2048", 2048, 64, 2048),
+                   ("L 8192", 8000, 64, 512), ("7 rows", 2048, 7, 256),
+                   ("t_pad 512", 448, 256, 256), ("B 32, radix-2", 2048, 64, 32),
+                   ("B 4096, radix-2", 128, 64, 4096))
+
+
+def check_partition_edges(tables: dict) -> dict:
+    """assemble_partitions at PARTITION_EDGES against its plain fp32 and
+    fp64 versions, SNR ≥ KERNEL_SNR_DB."""
+    return {name: check_partition_assembly(
+                tables[taps], rows, Bq, f"assemble_partitions {name}: "
+                f"{rows} rows × {taps} taps × B {Bq}", reps=2)[
+                    "assemble_partitions"]
+            for name, taps, rows, Bq in PARTITION_EDGES}
 
 
 def check_partitioned_kernels(table, nb: int, B: int, label: str,
@@ -579,7 +737,7 @@ def check_partitioned_kernels(table, nb: int, B: int, label: str,
                                                 **PART_FLAGS),
             lambda: pc.assemble_partitions_reference(idx, w, table, B,
                                                      **PART_FLAGS),
-            label, reps, partitions_work(table, nb, B))
+            label, reps, partitions_work(table, idx, B))
     P = H[0].shape[1]
     _report(res, "partitioned_conv",
             pc.partitioned_conv_cuda(xb, *H, crossfade=True),
@@ -752,7 +910,7 @@ def check_assembly_mac(table, S: int, nb: int, label: str, reps: int,
         plain = lambda cf=cf: am.assembly_mac_reference(
             idx, w, table, Xu, Xd, first, n_fft, crossfade=cf, **PART_FLAGS)
         _report(res, name, kern(), plain(), kern, plain, label, reps, bound(
-            rows * (32 + 4) + table_bytes(table)
+            rows * (32 + 4) + table_bytes(table, idx)
             + rows * F * 8 * (2 if cf else 1) + rows * 2 * F * 8,
             rows * (assembly_flops(table, n_fft) + 2 * F * (14 if cf else 6))))
     Y = am.assembly_mac_cuda(idx, w, table, Xu, Xd, first, n_fft,
@@ -929,15 +1087,21 @@ def check_latency(table, n: int, launches_total: dict) -> dict:
         t0 = time.perf_counter()
         s.push(x[i], float(azs[i]), 0.0).cpu()
         walls.append((time.perf_counter() - t0) * 1e3)
-    dev_ms = device_breakdown(lambda: pushes(tt.Stream(table, cfg), True))[0] / n
+    busy, by = device_breakdown(lambda: pushes(tt.Stream(table, cfg), True))
+    dev_ms = busy / n
     res = {"snr_db_vs_plain_fp64": s64, "pushes": n, "launches": counts,
            "wall_ms_per_push_median": float(np.median(walls)),
            "wall_ms_per_push_max": float(np.max(walls)),
            "device_ms_per_push": dev_ms if dev_ms > 0 else "not measured"}
+    for k in counts:  # each kernel's device time per launch
+        if f"{k}_kernel" in by:
+            res[f"{k}_device_ms"] = by[f"{k}_kernel"] / n
     print(f"[render f latency] {n} Stream.push: SNR {s64:.2f} dB vs plain "
           f"fp64, launches {counts}; wall {res['wall_ms_per_push_median']:.3f}"
           f" ms/push median (max {res['wall_ms_per_push_max']:.3f}), device "
-          f"{res['device_ms_per_push']} ms/push (profiler)", flush=True)
+          f"{res['device_ms_per_push']} ms/push (profiler): "
+          + ", ".join(f"{k} {res[f'{k}_device_ms']:.4f}" for k in counts
+                      if f"{k}_device_ms" in res), flush=True)
     return res
 
 
@@ -982,6 +1146,7 @@ def check_streamed(table, N: int, launches_total: dict, reps: int) -> dict:
           f"kernel {ms:.3f} ms = {res['kernel_audio_sec_per_sec']:.1f} "
           f"audio-s/s, plain fp32 {plain_ms:.3f} ms = "
           f"{res['plain_fp32_audio_sec_per_sec']:.1f} audio-s/s", flush=True)
+    TO_PROFILE.append(("g streamed", res, lambda: core(xb)))
     return res
 
 
@@ -1206,9 +1371,10 @@ def main() -> int:
     table = tt.TorchTable.from_hrir_table(tt.load_hrir_set("synthetic"), dev)
     cfg = tt.RenderConfig(block_size=B)
     t0 = time.perf_counter()
-    brir, long_streamed, long_traj = (
+    brir, long_streamed, long_traj, t8000, t448 = (
         tt.TorchTable.from_hrir_table(tt.load_hrir_set("synthetic", taps=n),
-                                      dev) for n in (2048, 44100, 16384))
+                                      dev)
+        for n in (2048, 44100, 16384, 8000, 448))
     print(f"long tables: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 3. kernels against their plain versions
@@ -1231,6 +1397,20 @@ def main() -> int:
     k_part_j = check_partition_assembly(long_streamed, 256, 512,
                                         "assemble_partitions 256 rows 44100 "
                                         "taps B=512", reps=5)
+    # the shared mode's register body alone at (d)'s, (e)'s, (f)'s and
+    # (g)'s shapes, then at its edges and beside the radix-2 body
+    k_asm = {key: check_partition_assembly(
+                 tb, rows, Bq, f"assemble_partitions ({key}) {rows} rows × "
+                 f"{tb.taps} taps × B {Bq}", reps=10, variants=True)[
+                     "assemble_partitions"]
+             for key, tb, rows, Bq in (("d", table, 1024, 256),
+                                       ("e", brir, 64, 256),
+                                       ("f", table, 1, 256),
+                                       ("g", brir, 2048, 512))}
+    k_edges = check_partition_edges({128: table, 2048: brir, 8000: t8000,
+                                     448: t448})
+    for key, us in host_costs({128: table, 2048: brir}).items():
+        k_asm[key]["host_us"] = us
     check_stream_chain(brir, 64, 256, 12, "stream 2048 taps P=9")
     check_stream_chain(table, 1024, 256, 4, "stream 128 taps P=1")
 
@@ -1340,6 +1520,7 @@ def main() -> int:
     renders["j_long"] = check_long(long_streamed, long_traj, 1 << 17,
                                    launches, reps=2)
     profile_renders()
+    profile_kernels()
 
     # overlap_add ends the B1 renders and is the OLA half of B2 in every
     # render that launched spectra_inverse
@@ -1362,13 +1543,28 @@ def main() -> int:
     # BRIR render; the BRIR serving step's times ride along
     main = {"assemble_partitions": k_serve, "stream_conv": k_serve,
             "partitioned_conv": k_part}
+    shape_fields = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                    "max_abs_err", "snr_db", "snr_fp64_db", "ranks",
+                    "rows_per_block", "host_us")
     extra = {"assemble_partitions": {
                  "brir_stream_ms": k_brir["assemble_partitions"]["ms"],
                  "brir_stream_plain_ms":
                      k_brir["assemble_partitions"]["plain_ms"],
-                 "j_shape": {f: k_part_j["assemble_partitions"][f] for f in (
-                     "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                     "max_abs_err", "snr_db", "snr_fp64_db", "ranks")},
+                 "j_shape": {f: v for f, v in
+                             k_part_j["assemble_partitions"].items()
+                             if f in shape_fields},
+                 "shapes": {k: {f: v for f, v in m.items()
+                                if f in shape_fields or f.startswith("G")
+                                or f == "device_ms"}
+                            for k, m in k_asm.items()},
+                 "edges": {k: {f: m[f] for f in ("ms", "snr_db",
+                                                 "snr_fp64_db")}
+                           for k, m in k_edges.items()},
+                 "f_device_ms": renders["f_latency"].get(
+                     "assemble_partitions_device_ms", "not measured"),
+                 "g_device_ms": renders["g_streamed"].get(
+                     "device_ms_by_kernel", {}).get(
+                         "assemble_partitions_kernel", "not measured"),
                  **serving_device_ms(renders, "assemble_partitions")},
              "stream_conv": {
                  "hold_ms": k_serve["stream_conv_hold"]["ms"],
@@ -1381,7 +1577,8 @@ def main() -> int:
     for name in pc.KERNELS:
         first, *also = PART_REPLACES[name]
         kernels.append(kernel_entry(
-            name, PART_SOURCE, first, launches[name], main[name][name],
+            name, ASM_SOURCE if name == "assemble_partitions" else PART_SOURCE,
+            first, launches[name], main[name][name],
             also_replaces=[f"{PALLAS}:{n}" for n in also],
             **extra.get(name, {})))
     kernels += [

@@ -38,7 +38,7 @@ from tinaural_torch.ops.partitions_plan import (KEEP_SAMPLES,
                                                 MAX_CLUSTER_BLOCK,
                                                 MAX_CLUSTER_L,
                                                 MIN_CLUSTER_BLOCK,
-                                                MIN_CLUSTER_L,
+                                                MIN_CLUSTER_L, launch,
                                                 partitions_plan)
 from tinaural_torch.ops.spectra_inverse import (CLUSTER_THREADS,
                                                 MAX_CLUSTER_N,
@@ -98,7 +98,9 @@ def test_partitions_plan(taps, block):
     p = partitions_plan(taps, block)
     assert p.parts == n_parts(taps, block) == -(-(taps + 64) // block)
     assert p.parts * block <= p.L
-    fits = p.shared_f2 * 8 + _layout._STATIC_SMEM <= H100_SHARED_BYTES
+    # the figure the layout reads, at the most rows per block (no card)
+    shared_f2 = launch(taps, block, 1000, 0)[2]
+    fits = shared_f2 * 8 + _layout._STATIC_SMEM <= H100_SHARED_BYTES
     cluster = (MIN_CLUSTER_L <= p.L <= MAX_CLUSTER_L
                and MIN_CLUSTER_BLOCK <= block <= MAX_CLUSTER_BLOCK)
     assert p.cluster == cluster
@@ -111,7 +113,7 @@ def test_partitions_plan(taps, block):
         assert p.shared_f2 * 8 + 1024 == 196 * 1024
         assert p.slots * (2 * block // 16) == THREADS
         assert p.slots * (2 * block + 2 * block // 16) == SHARE_F2
-    work = _layout.split_work(p.shared_f2, max(p.L, 2 * block),
+    work = _layout.split_work(shared_f2, max(p.L, 2 * block),
                               H100_SHARED_BYTES)
     assert work == (0 if fits else _layout.SPLIT_WORK)
 

@@ -4,8 +4,9 @@ with its hold step at P = 1, 5 and 9, S = 1 and block 128, a batched
 stream's offline render, and the partitioned offline render, chunked and
 whole), the block step's two with the per-source overlap-add, the scene
 mixdown's `block_spectra_mix` with the summing `spectra_inverse`, the
-natural-order `assembly_mac`, and `spectra_inverse` alone at every FFT
-size; each family again in the split buffer mode, forced at small shapes,
+natural-order `assembly_mac`, `spectra_inverse` alone at every FFT
+size, and `assemble_partitions`' register body at every (L, B) pair with
+its refusal of another plan; each family again in the split buffer mode, forced at small shapes,
 and at the sizes that need it (a 44,100-tap `render_streamed`, a
 16,384-tap trajectory); and the cluster mode of `spectra_inverse` and
 `assemble_partitions` at its edges, under a refused plan, and forced back
@@ -269,11 +270,13 @@ FLAGS = dict(apply_itd=True, apply_ild=True)
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("taps,B", [(128, 256), (2048, 512), (2048, 256),
-                                    (128, 128), (16384, 512), (44100, 512)])
+                                    (128, 128), (16384, 512), (44100, 512),
+                                    (2048, 32), (128, 4096)])
 def test_assemble_partitions_matches_plain(long_tables, taps, B):
-    """Against the float64 plain version: the shared mode up to 2048 taps,
-    the cluster mode at 16,384 taps (L 32768, 2 blocks per row) and
-    44,100 (L 65536, 4 blocks)."""
+    """Against the float64 plain version: the shared mode up to 2048 taps
+    (the register body at B 64 … 2048, the radix-2 body at B 32 and
+    4096), the cluster mode at 16,384 taps (L 32768, 2 blocks per row)
+    and 44,100 (L 65536, 4 blocks)."""
     t = long_tables[taps]
     assert partitions_plan(taps, B).cluster == (taps > 8128)
     idx, w = _rows(t, (6,), seed=B)
@@ -281,6 +284,71 @@ def test_assemble_partitions_matches_plain(long_tables, taps, B):
     r64, i64 = pc.assemble_partitions_reference(idx, w.double(), t, B, **FLAGS)
     assert hr.shape == (6, -(-(taps + 64) // B), 2, B + 1)
     assert _snr_db(torch.complex(r64, i64), torch.complex(hr, hi)) >= 100
+
+
+def _exact_delay_inputs(taps: int, rows: int, seed: int, dev):
+    """A random table whose delays, and rows whose weights, lie on a 1/16
+    grid, so that every row's weighted delay is exact in float32. With the
+    table's delays of 0 … 56 samples, the float32 rounding of a delay near
+    40 alone puts the float64 reference 88–97 dB away from every float32
+    version (the plain one too) at some rows; on this grid the comparison
+    measures the kernel's arithmetic."""
+    t = _random_table(taps, seed=seed, device=dev)
+    t = dataclasses.replace(t, delays=torch.round(t.delays * 16) / 16)
+    rng = np.random.default_rng(rows + seed)
+    cuts = np.sort(np.stack([rng.choice(np.arange(1, 16), 3, replace=False)
+                             for _ in range(rows)]), axis=1)
+    counts = np.diff(np.concatenate([np.zeros((rows, 1)), cuts,
+                                     np.full((rows, 1), 16)], axis=1), axis=1)
+    idx = torch.from_numpy(rng.integers(0, 8, (rows, 4)).astype(np.int32))
+    w = torch.from_numpy((counts / 16).astype(np.float32))
+    return t, idx.to(dev), w.to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("log2L", range(7, 14))
+def test_assemble_partitions_register_every_size(long_tables, log2L):
+    """The shared mode's register body at every L 128 … 8192 and every B
+    64 … 2048, t_pad just above L/2 or at L, on 1 row, 7 rows and the
+    most rows per block + 1 (no SM count: sm_count 0), against the
+    float64 plain version with the rows' delays exact in float32: ≥ 100
+    dB."""
+    L = 1 << log2L
+    dev = long_tables[128].device
+    for i, B in enumerate(64 << k for k in range(6)):
+        taps = L - 64 if i % 2 else max(1, L // 2 - 63)
+        plan = partitions_plan(taps, B)
+        assert plan.register and plan.L == L
+        for rows in (1, 7, plan.rows_per_block(10 ** 6, 0) + 1):
+            t, idx, w = _exact_delay_inputs(taps, rows, i, dev)
+            hr, hi = pc.assemble_partitions_cuda(idx, w, t, B, **FLAGS)
+            ref = torch.complex(*pc.assemble_partitions_reference(
+                idx, w.double(), t, B, **FLAGS))
+            s = _snr_db(ref, torch.complex(hr, hi))
+            assert s >= 100, (L, B, rows, s)
+
+
+@pytest.mark.gpu
+def test_assemble_partitions_register_refuses_another_plan(long_tables,
+                                                           monkeypatch):
+    """The register body takes only the plan it was compiled for: other
+    threads, or rows per block that are not a power of two up to the
+    compiled most, raise, and nothing is launched."""
+    t = long_tables[2048]
+    idx, w = _rows(t, (64,), seed=2)
+    plan = partitions_plan(2048, 256)
+    G = plan.rows_per_block(64, 132)
+    assert G == 1
+    # (G, threads, shared figure) of the launch
+    for bad in ((G, plan.block_threads(G) + 32, plan.block_shared_f2(G)),
+                *((g, plan.block_threads(g), plan.block_shared_f2(g))
+                  for g in (3, 4))):
+        with monkeypatch.context() as m:
+            m.setattr(pc, "launch", lambda *args, bad=bad: bad)
+            before = pc.launches["assemble_partitions"]
+            with pytest.raises(RuntimeError):
+                pc.assemble_partitions_cuda(idx, w, t, 256, **FLAGS)
+            assert pc.launches["assemble_partitions"] == before
 
 
 @pytest.mark.gpu

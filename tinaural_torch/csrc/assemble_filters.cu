@@ -22,15 +22,16 @@
 //                (csrc/fft_reg.cuh);
 //   rows         G = min(n/L, 16) rows per block. Their L-point chains
 //                (gather, rfft_L, ramp and gain, irfft_L: the stages of
-//                assembly_mac_kernel, below as device functions) run at
-//                once on G groups of TL = L/16 threads, group g in the
-//                g-th slice of L + L/16 complex64 of the exchange buffer,
-//                so every thread works where one row per block left
-//                T − TL threads at the barriers (at 128 taps, L = 256,
-//                n = 2048: 16 of 128). assembly_mac.cu keeps its own copy
-//                of the stages: built on these functions, 29 of its 36
-//                instances changed their spills (<9,9>: from none to
-//                232/352 B of stores/loads);
+//                assembly_mac_kernel, as the device functions of
+//                csrc/assembly_stages.cuh) run at once on G groups of
+//                TL = L/16 threads, group g in the g-th slice of
+//                L + L/16 complex64 of the exchange buffer, so every
+//                thread works where one row per block left T − TL threads
+//                at the barriers (at 128 taps, L = 256, n = 2048: 16 of
+//                128). assembly_mac.cu keeps its own copy of the stages:
+//                built on these functions, 29 of its 36 instances changed
+//                their spills (<9,9>: from none to 232/352 B of
+//                stores/loads);
 //   hand-off     each group writes its row's h_eff, truncated to t_pad and
 //                scaled by 1/L, at g·L of the buffer; every thread then
 //                holds conj(h_eff_g[lane + m·T]) for m < 16/G (the rest of
@@ -50,126 +51,9 @@
 // block's device scratch slice, 256 threads, the blocks walking the rows.
 // It shares the register kernel's name, so a profile names both alike.
 
-#include "fft_reg.cuh"
+#include "assembly_stages.cuh"
 
 namespace {
-
-// The clipped delays d and gains g of both ears of row r, as
-// effective_filter_L (common.cuh) computes them.
-__device__ __forceinline__ void row_delays_gains(
-    const int* idx, const float* w, const float* delays, const float* gains,
-    const AssemblyParams& p, int r, float (&d)[2], float (&g)[2]) {
-  int rows[4];
-  float wk[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    rows[k] = __ldg(idx + 4 * r + k);
-    wk[k] = __ldg(w + 4 * r + k);
-  }
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    float dv = p.align_guard, gv = 1.f;
-    if (p.apply_itd) {
-      dv = 0.f;
-      for (int k = 0; k < 4; ++k) dv += wk[k] * __ldg(delays + 2 * rows[k] + e);
-    }
-    if (p.apply_ild) {
-      gv = 0.f;
-      for (int k = 0; k < 4; ++k) gv += wk[k] * __ldg(gains + 2 * rows[k] + e);
-    }
-    d[e] = fminf(fmaxf(dv - p.align_guard, -p.align_guard), p.max_shift);
-    g[e] = gv;
-  }
-}
-
-// Gather: conj(h0 + i·h1) of row r at t = lane + m·TL, the first pass's
-// input of an L-point transform on TL = L/16 threads, then that pass. One
-// table row at a time, so 32 loads are in flight, not 128 (the row and
-// weight are read again: rows[k] and wk[k] at a run-time k would go to
-// local memory).
-template <int TL>
-__device__ __forceinline__ void gather_conj(float2 (&v)[16], const int* idx,
-                                            const float* w,
-                                            const float* h_table, int taps,
-                                            int r, int lane) {
-#pragma unroll
-  for (int m = 0; m < 16; ++m) v[m] = make_float2(0.f, 0.f);
-#pragma unroll 1
-  for (int k = 0; k < 4; ++k) {
-    const float wkk = __ldg(w + 4 * r + k);
-    const float* row =
-        h_table + static_cast<size_t>(__ldg(idx + 4 * r + k)) * 2 * taps;
-#pragma unroll
-    for (int m = 0; m < 16; ++m) {
-      const int t = lane + m * TL;
-      if (t < taps) {
-        v[m].x += wkk * __ldg(row + t);
-        v[m].y += wkk * __ldg(row + taps + t);
-      }
-    }
-  }
-#pragma unroll
-  for (int m = 0; m < 16; ++m) v[m] = conj(v[m]);
-  dft<16>(v);
-}
-
-// rfft_L → ramp and gain → irfft_L of one row on the TL = L/16 threads
-// with `live` true, through the row's exchange buffer buf (RegPlan<log2
-// L>::row_f2 complex64). On entry v holds gather_conj's output and buf is
-// free (the caller's barrier); on return v holds irfft_L's last pass:
-// L·h_eff at t = j + q·L/R for sub-DFT j = lane + s·TL, slot s·R + q (R
-// the last radix). The ramp pass runs bins q = lane, lane + TL, … ≤ L/2
-// on the live threads, each reading bins q and L − q, unpacking both ears,
-// applying the ramp and the gain and packing Z[q] and Z[L − q] in place,
-// each bin once. Every thread of the block calls this and keeps to its
-// barriers.
-template <int kLog2L>
-__device__ __forceinline__ void assemble_L(float2 (&v)[16], float2* buf,
-                                           int lane, bool live,
-                                           const float (&d)[2],
-                                           const float (&g)[2],
-                                           const float2* twL,
-                                           const float* taper) {
-  using PL = RegPlan<kLog2L>;
-  constexpr int L = PL::n, TL = PL::threads;
-  constexpr int RL = PL::radix(PL::passes - 1), NsL = L / RL;
-  // rfft_L
-  reg_passes_live<kLog2L, 1>(v, buf, lane, twL, live);
-  __syncthreads();  // the last pass has read buf
-  if (live) {
-#pragma unroll
-    for (int s = 0; s < 16 / RL; ++s)
-#pragma unroll
-      for (int q = 0; q < RL; ++q)
-        buf[lane + s * TL + q * NsL] = conj(v[s * RL + q]);
-  }
-  __syncthreads();
-  // unpack, ramp, gain and pack in place; DC and Nyquist lose their
-  // imaginary parts
-#pragma unroll 1
-  for (int q = live ? lane : L; q <= L / 2; q += TL) {
-    const int qm = (L - q) & (L - 1);
-    float2 G0, G1;
-    unpack_pair(buf[q], buf[qm], &G0, &G1);
-    G0 = cscale(cmul(G0, ramp_bin(q, L, d[0], twL, taper)), g[0]);
-    G1 = cscale(cmul(G1, ramp_bin(q, L, d[1], twL, taper)), g[1]);
-    if (q == 0 || q == L / 2) {
-      G0.y = 0.f;
-      G1.y = 0.f;
-    }
-    buf[q] = make_float2(G0.x - G1.y, G0.y + G1.x);
-    if (qm != q) buf[qm] = make_float2(G0.x + G1.y, G1.x - G0.y);
-  }
-  __syncthreads();
-  if (live) {
-#pragma unroll
-    for (int m = 0; m < 16; ++m) v[m] = buf[lane + m * TL];
-    dft<16>(v);
-  }
-  // irfft_L
-  __syncthreads();  // the exchange has been read
-  reg_passes_live<kLog2L, 1>(v, buf, lane, twL, live);
-}
 
 constexpr int kFiltersMinLog2 = 7;  // L ≥ next_pow2(1 + DELAY_PAD) = 128
 constexpr int kFiltersMaxRows = 16;
@@ -236,7 +120,7 @@ __global__ void __launch_bounds__(RegPlan<kLog2N>::threads,
   row_delays_gains(a.idx, a.w, a.delays, a.gains, p, live ? r : r0, d, g);
   if (live) gather_conj<TL>(v, a.idx, a.w, a.h_table, p.taps, r, gl);
   assemble_L<kLog2L>(v, buf + grp * PL::row_f2, gl, live, d, g, a.twL,
-                     a.taper);
+                     a.taper, TL, live);
   __syncthreads();  // irfft_L's last pass has read the group slices
   // h_eff of row grp, truncated and scaled, at buf[grp·L + t]: the last
   // pass's sub-DFT j = gl + s·TL holds t = j + q·NsL

@@ -28,7 +28,8 @@ tensors run the plain versions ``*_reference`` in the tensors' precision.
 The kernels take every filter length and block: above shared memory they
 run with their buffers in a device scratch (``ops/_layout.py``), except
 `assemble_partitions` at L = 16384 … 131072, which spreads each row over a
-thread-block cluster (``ops/partitions_plan.py``).
+thread-block cluster; below, at blocks 64 … 2048, it runs G rows per CUDA
+block as register FFTs (``ops/partitions_plan.py``).
 ``launches`` counts each kernel's launches.
 """
 
@@ -38,7 +39,7 @@ import torch
 
 from ..data.table import (ALIGN_GUARD, MAX_RENDER_SHIFT, TAPER_HI,
                           TAPER_LO, TorchTable)
-from ._layout import layout
+from ._layout import layout, sm_count
 from .block_render import _cuda_inputs
 from .filters import (effective_filter, filter_partitions, n_parts,
                       partition_spectra)
@@ -46,7 +47,7 @@ from .interp import gather_rows
 from .mac_plan import ramp_taper
 from .partitioned import (crossfade_tails, delayed, frame_spectra,
                           partitioned_mac, shifted_stack)
-from .partitions_plan import RANK_SAMPLES, partitions_plan
+from .partitions_plan import RANK_SAMPLES, launch, partitions_plan
 from .spectra_inverse import twiddles
 
 KERNELS = ("assemble_partitions", "stream_conv", "partitioned_conv")
@@ -205,19 +206,27 @@ def assemble_partitions_cuda(idx: torch.Tensor, w: torch.Tensor,
     h_re = torch.empty(shape, dtype=torch.float32, device=idx.device)
     h_im = torch.empty_like(h_re)
     rows = idx.numel() // 4
-    *split, _keep = layout(idx.device, plan.shared_f2, plan.scratch_f2, rows,
+    G, block_threads, shared_f2 = launch(table.taps, block, rows,
+                                         sm_count(idx.device))
+    *split, _keep = layout(idx.device, shared_f2, plan.scratch_f2, rows,
                            max(L, 2 * block))
-    tables = (0, 0, 0, 0)
-    cluster = plan.cluster and not split[1]
-    if cluster:
+    # the split mode takes the radix-2 body, and neither tables nor plan
+    tables, ranks, threads, rows_per_block = (0, 0, 0, 0), 0, 0, 0
+    if plan.cluster and not split[1]:
+        ranks = plan.ranks
         tables = tuple(t.data_ptr() for t in (
             twiddles(L, idx.device), twiddles(RANK_SAMPLES, idx.device),
             twiddles(2 * block, idx.device), ramp_taper(L, idx.device)))
+    elif plan.register and not split[1]:
+        threads, rows_per_block = block_threads, G
+        tables = (twiddles(L, idx.device).data_ptr(), 0,
+                  twiddles(2 * block, idx.device).data_ptr(),
+                  ramp_taper(L, idx.device).data_ptr())
     _build.check(_build.library().tt_assemble_partitions(
         idx.data_ptr(), w.data_ptr(), table.h.data_ptr(),
         table.delays.data_ptr(), table.gains.data_ptr(), h_re.data_ptr(),
         h_im.data_ptr(), *tables, rows, table.taps, plan.t_pad, block, P,
-        int(apply_itd), int(apply_ild), plan.ranks if cluster else 0,
+        int(apply_itd), int(apply_ild), ranks, threads, rows_per_block,
         ALIGN_GUARD, MAX_RENDER_SHIFT, TAPER_LO, TAPER_HI, *split, stream),
         "assemble_partitions")
     launches["assemble_partitions"] += 1

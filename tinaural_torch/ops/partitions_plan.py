@@ -1,11 +1,20 @@
-"""Launch plan of kernel `assemble_partitions` (``csrc/partitioned.cu``;
+"""Launch plan of kernel `assemble_partitions` (``csrc/assemble_partitions.cu``;
 wrapper `partitioned_conv.assemble_partitions_cuda`).
 
 Three buffer modes, picked by ``ops/_layout.py`` from the plan's shared
 figure:
 
-- shared (L ≤ 8192): one block of `SHARED_THREADS` threads per row, the
-  radix-2 effective-filter chain and partition FFTs in its shared memory;
+- shared (L ≤ 8192). At blocks B = `MIN_CLUSTER_BLOCK` … `MAX_CLUSTER_BLOCK`
+  the register body: G rows per CUDA block of `block_threads` threads
+  (`rows_per_block`, from the rows and the card's SM count), their
+  L-point chains (gather, rfft_L as the conjugate of the register
+  inverse, the table-driven ramp and the gain, irfft_L) at once, each on
+  L/16 of its row's T/G threads, which share the row's ramp pass and,
+  where they are at least twice the chain's, its gather; then the
+  block's G·P partitions as 2B-point register transforms of
+  ``csrc/fft_reg.cuh`` on 2B/16 threads each, T/(2B/16) at once. At
+  other blocks the radix-2 body, one block of `SHARED_THREADS` threads
+  per row;
 - cluster (`MIN_CLUSTER_L` ≤ L ≤ `MAX_CLUSTER_L`, block B in
   `MIN_CLUSTER_BLOCK` … `MAX_CLUSTER_BLOCK`): one thread-block cluster of
   ``ranks = L / 16384`` blocks of `CLUSTER_THREADS` threads per row. Each
@@ -17,13 +26,14 @@ figure:
   the blocks' shared memory, 16384 samples each, and every block runs the
   2B-point FFTs (`RegPlan`, 2B/16 threads each) of the partitions whose
   samples it holds, 8192/B of them at a time in two rounds;
-- split (every other shape, or forced): the shared mode's body over a
-  device scratch.
+- split (every other shape, or forced): the radix-2 body over a device
+  scratch.
 
 `partitions_plan` is the launch as the kernel computes it at compile time:
-the wrapper hands the entry point the plan's ranks, and the entry point
-refuses any other. Twiddles come from `spectra_inverse.twiddles` at L,
-16384 and 2B, the ramp's taper from `mac_plan.ramp_taper`.
+the wrapper hands the entry point the plan's ranks, threads and rows per
+block, and the entry point refuses any other. Twiddles come from
+`spectra_inverse.twiddles` at L, 16384 (cluster) and 2B, the ramp's taper
+from `mac_plan.ramp_taper`.
 """
 
 from __future__ import annotations
@@ -37,11 +47,20 @@ from .spectra_inverse import MAX_REGISTER_N, inverse_plan
 
 MIN_CLUSTER_L = MAX_REGISTER_N  # 16384: one block
 MAX_CLUSTER_L = 1 << 17  # 8 blocks, the portable cluster size
-# the partition FFTs of the cluster mode: 2B = 128 … 4096 points
+# the partition FFTs of the cluster mode and of the shared mode's register
+# body: 2B = 128 … 4096 points
 MIN_CLUSTER_BLOCK = 64
 MAX_CLUSTER_BLOCK = 2048
 CLUSTER_THREADS = 1024
-SHARED_THREADS = 256
+SHARED_THREADS = 256  # the radix-2 body's
+# the register body: L = 128 … MAX_REGISTER_L at the cluster mode's blocks,
+# at most REGISTER_THREADS threads (128 registers each) and MAX_ROWS rows
+# per CUDA block
+MAX_REGISTER_L = MIN_CLUSTER_L // 2
+REGISTER_THREADS = 512
+MIN_REGISTER_THREADS = 256  # over which a few rows' ramp and gather spread
+MAX_ROWS = 16
+POINTS = 16  # values per thread in each register transform
 # samples of h_eff per block of the cluster mode, and per partition round
 RANK_SAMPLES = MAX_REGISTER_N
 ROUND_SAMPLES = RANK_SAMPLES // 2
@@ -62,11 +81,14 @@ class PartitionsPlan:
     t_pad: int  # taps + DELAY_PAD
     parts: int  # P = ⌈t_pad / B⌉
     ranks: int  # blocks per row in the cluster mode, else 0
-    radices_L: tuple[int, ...]  # the cluster mode's L-point passes
-    radices_2B: tuple[int, ...]  # its partition FFTs' passes
-    threads: int  # per block
-    shared_f2: int  # complex64 of shared memory per block, shared or
-    # cluster mode
+    radices_L: tuple[int, ...]  # the register or cluster mode's L-point
+    # passes
+    radices_2B: tuple[int, ...]  # their partition FFTs' passes
+    threads: int  # per block of the radix-2 body or the cluster mode
+    # (the register body's: `block_threads`, 0 here)
+    max_rows: int  # the register body's most rows per block, else 1
+    shared_f2: int  # complex64 of shared memory per block of the radix-2
+    # body or the cluster mode (the register body's: `block_shared_f2`)
     scratch_f2: int  # complex64 of one scratch slice, split mode
 
     @property
@@ -74,9 +96,45 @@ class PartitionsPlan:
         return self.ranks > 0
 
     @property
+    def register(self) -> bool:
+        """The shared mode's register body."""
+        return not self.cluster and bool(self.radices_L)
+
+    @property
     def slots(self) -> int:
         """Partitions a block transforms at once in the cluster mode."""
         return ROUND_SAMPLES // self.block
+
+    def rows_per_block(self, rows: int, sms: int) -> int:
+        """G of the register body: the largest power of two up to
+        `max_rows` that still gives each of ``sms`` SMs a block (1 where
+        rows < sms; `max_rows` with no card, sms 0); 1 in the other
+        modes."""
+        G = self.max_rows
+        while G > 1 and -(-rows // G) < sms:
+            G //= 2
+        return G
+
+    def block_threads(self, G: int) -> int:
+        """Threads of a register block of G rows: twice the G chains' L/16
+        each up to REGISTER_THREADS, or as many partitions' 2B/16 as its
+        G·P take up to REGISTER_THREADS, whichever is more, and at least
+        MIN_REGISTER_THREADS. Each row's T/G threads share its ramp pass,
+        and its gather where they are at least twice its chain's."""
+        Tp = 2 * self.block // POINTS
+        slots = min(G * self.parts, REGISTER_THREADS // Tp)
+        wide = min(2 * G * self.L // POINTS, REGISTER_THREADS)
+        return max(wide, slots * Tp, MIN_REGISTER_THREADS)
+
+    def block_shared_f2(self, G: int) -> int:
+        """complex64 of shared memory of a register block of G rows: the
+        chains' padded exchange buffers, and over them h_eff's G·t_pad
+        samples below one padded 2B-point exchange buffer per partition
+        slot."""
+        n2 = 2 * self.block
+        slots = self.block_threads(G) // (n2 // POINTS)
+        return max(G * (self.L + self.L // 16),
+                   G * self.t_pad + slots * (n2 + n2 // 16))
 
 
 @functools.cache
@@ -98,6 +156,27 @@ def partitions_plan(taps: int, block: int) -> PartitionsPlan:
         return PartitionsPlan(taps, block, L, t_pad, P, L // RANK_SAMPLES,
                               inverse_plan(L).radices,
                               inverse_plan(2 * block).radices,
-                              CLUSTER_THREADS, rounds_f2, scratch)
+                              CLUSTER_THREADS, 1, rounds_f2, scratch)
+    if L <= MAX_REGISTER_L and MIN_CLUSTER_BLOCK <= block <= MAX_CLUSTER_BLOCK:
+        return PartitionsPlan(taps, block, L, t_pad, P, 0,
+                              inverse_plan(L).radices,
+                              inverse_plan(2 * block).radices, 0,
+                              min(MAX_ROWS, REGISTER_THREADS * POINTS // L),
+                              0, scratch)
     return PartitionsPlan(taps, block, L, t_pad, P, 0, (), (), SHARED_THREADS,
-                          max(L, 2 * block) // 2 + 2 * L + 2 * block, scratch)
+                          1, max(L, 2 * block) // 2 + 2 * L + 2 * block,
+                          scratch)
+
+
+@functools.lru_cache(maxsize=1024)
+def launch(taps: int, block: int, rows: int, sms: int) -> tuple[int, int, int]:
+    """(G, threads, shared figure) of one launch over ``rows`` rows on a
+    card of ``sms`` SMs: the register body's `rows_per_block`,
+    `block_threads` and `block_shared_f2`; (1, threads, shared_f2) of the
+    plan in the other modes. Cached, as the serving paths launch one
+    shape per push."""
+    plan = partitions_plan(taps, block)
+    if not plan.register:
+        return 1, plan.threads, plan.shared_f2
+    G = plan.rows_per_block(rows, sms)
+    return G, plan.block_threads(G), plan.block_shared_f2(G)
