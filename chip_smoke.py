@@ -10,12 +10,15 @@ Phases, each of which fails the run on any error (nothing is caught):
      path's shapes (128-tap synthetic table, B = 1024, n_fft = 2048: one
      8192-block trajectory, 64 sources × 128 blocks with and without
      crossfade, render (m)'s 16 sources × 1024 blocks) and in the split
-     mode at n_fft 32768: SNR ≥ 100 dB, each FFT kernel's SNR against
+     mode at n_fft 32768, then at dir_rate 4 (one filter per group of 4
+     blocks: 2048 filters for the 8192-block trajectory, 8 for 30 blocks
+     in the split mode): SNR ≥ 100 dB, each FFT kernel's SNR against
      plain fp64 printed;
   3b. each partitioned-convolution kernel against its plain version, SNR
      ≥ 100 dB: the streaming step at 128 taps (S = 1024, B = 256, P = 1)
      and 2048 taps (S = 64, B = 256, P = 9), the offline render at 2048
-     taps (nb = 2048, B = 512, P = 5), `assemble_partitions` alone at
+     taps (nb = 2048, B = 512, P = 5; again at dir_rate 4, 512 filters),
+     `assemble_partitions` alone at
      render (j)'s 256 rows × 44,100 taps × B 512 (L = 65536, P = 87: the
      cluster mode, 4 blocks per row) and at (d)'s, (e)'s, (f)'s and (g)'s
      shapes (the shared mode's register body, checked too at the other
@@ -27,7 +30,9 @@ Phases, each of which fails the run on any error (nothing is caught):
   3c. the block-step kernels (`block_spectra`, `spectra_inverse`, the
      per-source `overlap_add`) against their plain versions at S = 64,
      nb = 128 and at S = 32, nb = 1 (B = 1024, 128 taps), SNR ≥ 100 dB
-     (≥ 130 dB for `spectra_inverse`); then `spectra_inverse` alone, timed
+     (≥ 130 dB for `spectra_inverse`); `block_spectra` and
+     `block_spectra_mix` at dir_rate 4 (S = 64, nb = 128, 32 filters a
+     source); then `spectra_inverse` alone, timed
      beside `torch.fft.irfft`, at 8192 rows × n_fft 4096, 2048 × 16384
      (the largest shared-mode FFT), 128 × 32768 and 64 × 65536 (cluster
      mode, 2 and 4 blocks per row);
@@ -39,19 +44,22 @@ Phases, each of which fails the run on any error (nothing is caught):
      B = 2048, n_fft = 4096), against their plain versions, SNR ≥ 100 dB
      (≥ 110 dB against plain fp64 for `assembly_mac`);
   4. the renders through the public entry points — (a) a 2^23-sample
-     trajectory, (b) a 64-source moving scene and (c) a 64-source static
+     trajectory and (a4) the same at dir_rate 4, (b) a 64-source moving
+     scene, (b4) the same at dir_rate 4, and (c) a 64-source static
      scene of 2^17 samples each on the mixdown route, their cores timed on
      B1's route too, and (m) a 16-source moving scene of 2^20 samples
      (1024 blocks, B1's route) — with every kernel's launch count read
      around them, each output held against the port's own plain path in
      float64 on the card (SNR ≥ 60 dB for (a), ≥ 100 dB for the others;
-     the mixdown route's output equal in bits over two calls), and the
-     kernel and plain float32 routes timed with CUDA events;
+     the mixdown route's output equal in bits over two calls; a dir_rate
+     4 render against the float64 plain path at dir_rate 1 on the
+     snapped track, its assembly launch held to ⌈nb/4⌉ rows a source),
+     and the kernel and plain float32 routes timed with CUDA events;
   4b. the same for the streaming and partitioned renders — (d) serving,
      `BatchedStream.push_many` of 1024 streams × 32 blocks; (e) BRIR
      serving, 64 streams × 8 blocks at 2048 taps, update rate 1 and 4;
      (f) 64 single `Stream.push` calls; (g) `render_streamed` of 2^20
-     samples at 2048 taps — (d) and (e) under
+     samples at 2048 taps, and (g4) at dir_rate 4 — (d) and (e) under
      ``torch.cuda.set_sync_debug_mode("error")``, so a host sync fails;
   4c. (h) static `render` of 2^22 samples at (123.4°, 5.6°) and one short
      call on the direct route; (i) `render_batch` of 64 requests × 2^17
@@ -59,15 +67,20 @@ Phases, each of which fails the run on any error (nothing is caught):
      natural-order route); (l) a 2^23-sample trajectory at block 2048
      (n_fft 4096, natural order); (j) the sizes above shared memory:
      `render_streamed` at 44,100 taps (L = 65536, P = 87) and a trajectory
-     at 16,384 taps (n_fft = 32768, natural order) — each against the
-     float64 plain path (SNR ≥ 100 dB) with its exact launch counts;
+     at 16,384 taps (n_fft = 32768, natural order), and (j4) the stream
+     at dir_rate 4 — each against the float64 plain path (SNR ≥ 100 dB)
+     with its exact launch counts;
   5. one torch.profiler window per block render, per burst of (d) and of
      (e) at update rate 1 and for (g), after every timing: device busy
      time, idle share and the largest kernels ((f)'s pushes are profiled
-     in 4b, after their walls); then one per `assemble_partitions` check
-     of 3b: its device time a call.
+     in 4b, after their walls); each dir_rate 4 render's assembly kernel
+     at most half its device time at dir_rate 1 ((a4) against (a), (g4)
+     against (g), (j4) against (j)'s stream); then one per
+     `assemble_partitions` check of 3b and per `stream_conv` check (with
+     blend and as the hold step): its device time a call.
 Every render reads every kernel's launch count, all set to 0 just before
-it. The line before the last is the kernels' JSON record (with each
+it. The line before the last is the kernels' JSON record (each k-path
+kernel with its dir_rate 4 check and launches under ``dir_rate_4``; each
 kernel's bound: the larger of its bytes over 3.35 TB/s and its FLOPs,
 FFTs counted as 5·n·log2 n, over 67 TFLOP/s fp32); the last line is
 ``{"ok": true, "device": {...}}``.
@@ -205,13 +218,16 @@ def trajectory_dirs(nb: int):
 
 
 def check_kernels(table, S: int, nb: int, crossfade: bool, label: str,
-                  reps: int) -> dict:
-    """Each kernel against its plain version on the same inputs."""
+                  reps: int, dir_rate: int = 1) -> dict:
+    """Each kernel against its plain version on the same inputs, with one
+    filter per group of ``dir_rate`` blocks: the snapped track's rows
+    [::dir_rate]."""
     import numpy as np
     import torch
 
     from tinaural_torch.config import RenderConfig
-    from tinaural_torch.models.renderer import _n_fft, _neighbours
+    from tinaural_torch.models.renderer import (_group_dirs, _n_fft,
+                                                _neighbours)
     from tinaural_torch.ops import block_render as br
 
     dev = table.device
@@ -222,19 +238,19 @@ def check_kernels(table, S: int, nb: int, crossfade: bool, label: str,
     else:
         dirs = np.stack([rng.uniform(0, 360, (S, nb)),
                          rng.uniform(-40, 90, (S, nb))], -1)
-    idx, w = _neighbours(table, torch.tensor(dirs, dtype=torch.float32,
-                                             device=dev), RenderConfig())
+    dirs = _group_dirs(torch.tensor(dirs, dtype=torch.float32, device=dev),
+                       dir_rate)
+    idx, w = _neighbours(table, dirs, RenderConfig())
     xbs = torch.tensor(rng.standard_normal((S, nb, B)), dtype=torch.float32,
                        device=dev)
     flags = dict(apply_itd=True, apply_ild=True)
+    mix = dict(crossfade=crossfade, dir_rate=dir_rate)
 
     H = br.assemble_filters_cuda(idx, w, table, n_fft, **flags)
     H_ref = br.assemble_filters_reference(idx, w, table, n_fft, **flags)
     H_64 = br.assemble_filters_reference(idx, w.double(), table, n_fft, **flags)
-    frames = br.block_spectra_mix_inverse_cuda(xbs, H, n_fft,
-                                               crossfade=crossfade)
-    frames_ref = br.block_spectra_mix_inverse_reference(
-        xbs, H, n_fft, crossfade=crossfade)
+    frames = br.block_spectra_mix_inverse_cuda(xbs, H, n_fft, **mix)
+    frames_ref = br.block_spectra_mix_inverse_reference(xbs, H, n_fft, **mix)
     out = br.overlap_add_cuda(frames[None], B)[0]
     out_ref = br.overlap_add(frames.transpose(0, 1), B)
     torch.cuda.synchronize()
@@ -246,10 +262,9 @@ def check_kernels(table, S: int, nb: int, crossfade: bool, label: str,
              lambda: br.assemble_filters_reference(idx, w, table, n_fft,
                                                    **flags)),
             ("block_spectra_mix_inverse", frames, frames_ref,
-             lambda: br.block_spectra_mix_inverse_cuda(
-                 xbs, H, n_fft, crossfade=crossfade),
-             lambda: br.block_spectra_mix_inverse_reference(
-                 xbs, H, n_fft, crossfade=crossfade)),
+             lambda: br.block_spectra_mix_inverse_cuda(xbs, H, n_fft, **mix),
+             lambda: br.block_spectra_mix_inverse_reference(xbs, H, n_fft,
+                                                            **mix)),
             ("overlap_add", out, out_ref,
              lambda: br.overlap_add_cuda(frames[None], B),
              lambda: br.overlap_add(frames.transpose(0, 1), B))):
@@ -258,13 +273,14 @@ def check_kernels(table, S: int, nb: int, crossfade: bool, label: str,
         s = snr_db(ref, got)
         res[name] = {"snr_db": s, "max_abs_err": max_abs(ref, got),
                      "ms": cuda_ms(kern, reps), "plain_ms": cuda_ms(plain, reps)}
-        print(f"[{label} S={S} nb={nb} crossfade={crossfade}] {name}: "
+        print(f"[{label} S={S} nb={nb} crossfade={crossfade} "
+              f"dir_rate={dir_rate}] {name}: "
               f"SNR {s:.2f} dB vs plain fp32, max abs err "
               f"{res[name]['max_abs_err']:.3e}, kernel {res[name]['ms']:.4f} ms,"
               f" plain {res[name]['plain_ms']:.4f} ms", flush=True)
         require(s >= KERNEL_SNR_DB, f"{name} SNR {s:.2f} < {KERNEL_SNR_DB} dB")
     frames_64 = br.block_spectra_mix_inverse_reference(
-        xbs.double(), H.to(torch.complex128), n_fft, crossfade=crossfade)
+        xbs.double(), H.to(torch.complex128), n_fft, **mix)
     for name, ref64, got, plain in (
             ("assemble_filters", H_64, H, H_ref),
             ("block_spectra_mix_inverse", frames_64, frames, frames_ref)):
@@ -276,7 +292,7 @@ def check_kernels(table, S: int, nb: int, crossfade: bool, label: str,
     mac = 16 if crossfade else 8
     res["assemble_filters"].update(assembly_work(table, idx, n_fft))
     res["block_spectra_mix_inverse"].update(bound(
-        S * nb * B * 4 + S * nb * 2 * F * 8 + nb * 2 * n_fft * 4,
+        S * nb * B * 4 + H.numel() * 8 + nb * 2 * n_fft * 4,
         S * nb * (fft_flops(n_fft) + 2 * F * mac) + nb * fft_flops(n_fft)))
     res["overlap_add"].update(ola_work(1, nb, B, n_fft))
     res["overlap_add"]["library_ms"] = fold_ms(frames[None], B, reps)
@@ -319,22 +335,26 @@ def check_render(name: str, public_call, core_call, audio_sec: float,
                  expect: dict, launches_total: dict, reps: int,
                  min_snr: float = RENDER_SNR_DB, no_sync: bool = False,
                  other_routes: dict | None = None,
-                 same_bits: bool = False) -> dict:
+                 same_bits: bool = False, ref=None,
+                 assembly_rows: tuple | None = None) -> dict:
     """One render through the public entry point with every launch count
     at 0 before it and exactly ``expect`` after, then the float64 plain
     check and the kernel / plain fp32 timings, both on the render core
     with the inputs already on the card. core_call(plain, dtype).
     ``other_routes``: name → core call on another route, each held against
     the same float64 output and timed; ``same_bits``: two core calls must
-    give equal bits."""
+    give equal bits; ``ref``: the float64 output's call, by default
+    core_call(True, float64); ``assembly_rows``: the shape of idx less its
+    last axis that each assembly launch of the public call must take."""
     import torch
 
-    y, counts = _counts_after(public_call, expect, name, launches_total,
-                              no_sync)
+    y, counts = _counts_after(
+        lambda: _assembly_rows(public_call, name, assembly_rows), expect,
+        name, launches_total, no_sync)
     require(bool(torch.isfinite(y).all()), f"render {name}: output not finite")
 
     y_core = core_call(False, torch.float32)
-    y64 = core_call(True, torch.float64)
+    y64 = ref() if ref else core_call(True, torch.float64)
     require(torch.equal(y, y_core[..., : y.shape[-1]]),
             f"render {name}: public call and core differ")
     if same_bits:
@@ -348,6 +368,8 @@ def check_render(name: str, public_call, core_call, audio_sec: float,
            "launches": counts, "kernel_ms": ms, "plain_fp32_ms": plain_ms,
            "kernel_audio_sec_per_sec": audio_sec / (ms / 1e3),
            "plain_fp32_audio_sec_per_sec": audio_sec / (plain_ms / 1e3)}
+    if assembly_rows:
+        res["assembly_rows"] = list(assembly_rows)
     print(f"[render {name}] out {tuple(y.shape)}, SNR {s:.2f} dB vs plain "
           f"fp64, launches {counts}, kernel {ms:.3f} ms = "
           f"{res['kernel_audio_sec_per_sec']:.1f} audio-s/s, plain fp32 "
@@ -423,6 +445,41 @@ def device_breakdown(fn) -> tuple[float, dict]:
             name = name.split("::")[-1].strip()
             by[name] = by.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
     return sum(by.values()), by
+
+
+# (dir_rate 4 render, its dir_rate 1 counterpart, the assembly kernel):
+# phase 5 holds the kernel's device time in the first to at most half
+# its time in the second
+ASSEMBLY_SAVINGS = (
+    (("a4_trajectory_dir_rate_4",), ("a_trajectory",), "assemble_filters"),
+    (("g4_streamed_dir_rate_4",), ("g_streamed",), "assemble_partitions"),
+    (("j4_streamed_44100_taps_dir_rate_4",),
+     ("j_long", "streamed_44100_taps"), "assemble_partitions"))
+
+
+def check_assembly_savings(renders: dict) -> None:
+    """Each ASSEMBLY_SAVINGS pair's assembly device time from the profiles
+    of phase 5, added to the dir_rate 4 render's result; fails where the
+    dir_rate 4 time exceeds half the dir_rate 1 time. A pair whose
+    profiles are incomplete is "not measured"."""
+    for keys4, keys1, kernel in ASSEMBLY_SAVINGS:
+        r4, r1 = renders, renders
+        for k in keys4:
+            r4 = r4[k]
+        for k in keys1:
+            r1 = r1[k]
+        ms4, ms1 = (r.get("device_ms_by_kernel", {}).get(f"{kernel}_kernel")
+                    for r in (r4, r1))
+        if ms4 is None or ms1 is None:
+            r4["assembly_device_ms"] = "not measured"
+            print(f"[profile {keys4[0]}] {kernel}: not measured", flush=True)
+            continue
+        r4["assembly_device_ms"] = {"dir_rate_4": ms4, "dir_rate_1": ms1}
+        print(f"[profile {keys4[0]}] {kernel}: device {ms4:.4f} ms at "
+              f"dir_rate 4 against {ms1:.4f} at dir_rate 1 "
+              f"({ms4 / ms1:.3f}×)", flush=True)
+        require(ms4 <= 0.5 * ms1, f"{keys4[0]}: {kernel} {ms4:.4f} ms is "
+                f"more than half its dir_rate 1 time {ms1:.4f}")
 
 
 PART_FLAGS = dict(apply_itd=True, apply_ild=True)
@@ -518,16 +575,26 @@ def check_stream_kernels(table, S: int, B: int, label: str, reps: int) -> dict:
         for what, g, r in (("fdl_re", got[2], ref[2]), ("fdl_im", got[3], ref[3])):
             s = snr_db(r, g)
             require(s >= KERNEL_SNR_DB, f"{label} {name} {what}: SNR {s:.2f}")
-        n_h = 2 if cf else 1  # H and the previous filter, or H alone
-        _report(res, name, got[0], ref[0],
-                lambda: pc.stream_conv_cuda(*args, crossfade=cf),
+        kern = lambda args=args, cf=cf: pc.stream_conv_cuda(*args,
+                                                            crossfade=cf)
+        _report(res, name, got[0], ref[0], kern,
                 lambda: pc.stream_conv_reference(*args, crossfade=cf),
-                label, reps, bound(
-                    S * (B * 4 * 2 + 4 + P * (B + 1) * 8 * 2
-                         + n_h * P * 2 * (B + 1) * 8 + 3 * B * 4),
-                    S * ((1 + n_h) * fft_flops(2 * B)
-                         + n_h * P * (B + 1) * 2 * 8)))
+                label, reps, stream_conv_work(S, B, P, cf))
+        KERNEL_PROFILES.append((f"{label} {name}", res[name], "device_ms",
+                                kern, None, "stream_conv"))
     return res
+
+
+def stream_conv_work(S: int, B: int, P: int, crossfade: bool) -> dict:
+    """stream_conv's bound: each stream's block, previous input, started
+    flag, delay line in and out, partitions (and the previous filter's
+    when blending), output and prev_in' once; 1 + n_h FFTs of 2B and the
+    MAC over P."""
+    n_h = 2 if crossfade else 1  # H and the previous filter, or H alone
+    return bound(S * (B * 4 * 2 + 4 + P * (B + 1) * 8 * 2
+                      + n_h * P * 2 * (B + 1) * 8 + 3 * B * 4),
+                 S * ((1 + n_h) * fft_flops(2 * B)
+                      + n_h * P * (B + 1) * 2 * 8))
 
 
 def partitions_work(table, idx, B: int) -> dict:
@@ -579,7 +646,8 @@ def check_partition_assembly(table, rows: int, B: int, label: str,
     require(s64 >= KERNEL_SNR_DB, f"{label}: SNR {s64:.2f} vs plain fp64")
     out = res["assemble_partitions"]
     out.update(snr_fp64_db=s64, ranks=plan.ranks, rows_per_block=G)
-    KERNEL_PROFILES.append((label, out, "device_ms", kern, None))
+    KERNEL_PROFILES.append((label, out, "device_ms", kern, None,
+                            "assemble_partitions"))
     if variants and plan.register:
         real = pc.sm_count
         for sms in (0, rows):  # the most rows per block, then one
@@ -595,34 +663,33 @@ def check_partition_assembly(table, rows: int, B: int, label: str,
             out[f"G{g}_device_ms"] = "not measured"
             KERNEL_PROFILES.append((f"{label} at {g} rows per block of {t} "
                                     "threads", out, f"G{g}_device_ms", kern,
-                                    sms))
+                                    sms, "assemble_partitions"))
             print(f"[{label}] at {g} rows per block of {t} threads: SNR "
                   f"{s:.2f} dB vs plain fp64", flush=True)
     return res
 
 
-# (label, result, key, call, SM count to report or None) of each
-# assemble_partitions check whose device time a torch.profiler trace
-# gives: taken in phase 5, after every timing, as no trace may run
-# before a timing
+# (label, result, key, call, SM count to report or None, kernel) of each
+# check whose kernel's device time a torch.profiler trace gives: taken in
+# phase 5, after every timing, as no trace may run before a timing
 KERNEL_PROFILES = []
 
 
 def profile_kernels() -> None:
-    """Each KERNEL_PROFILES call's assemble_partitions device time a call,
-    into its result under its key."""
+    """Each KERNEL_PROFILES call's kernel device time a call, into its
+    result under its key."""
     from tinaural_torch.ops import partitioned_conv as pc
 
     real = pc.sm_count
-    for label, res, key, fn, sms in KERNEL_PROFILES:
+    for label, res, key, fn, sms, kernel in KERNEL_PROFILES:
         if sms is not None:
             pc.sm_count = lambda device, sms=sms: sms
         try:
-            res[key] = kernel_device_ms(fn, "assemble_partitions_kernel")
+            res[key] = kernel_device_ms(fn, f"{kernel}_kernel")
         finally:
             pc.sm_count = real
-        print(f"[profile {label}] assemble_partitions: device {res[key]} ms "
-              "a call", flush=True)
+        print(f"[profile {label}] {kernel}: device {res[key]} ms a call",
+              flush=True)
 
 
 def kernel_device_ms(fn, kernel: str, calls: int = 10):
@@ -717,15 +784,16 @@ def check_partition_edges(tables: dict) -> dict:
 
 
 def check_partitioned_kernels(table, nb: int, B: int, label: str,
-                              reps: int) -> dict:
-    """assemble_partitions per block and partitioned_conv against their
-    plain versions at the offline render's shape."""
+                              reps: int, dir_rate: int = 1) -> dict:
+    """assemble_partitions per group of ``dir_rate`` blocks and
+    partitioned_conv against their plain versions at the offline render's
+    shape."""
     import numpy as np
     import torch
 
     from tinaural_torch.ops import partitioned_conv as pc
 
-    idx, w = _rows(table, (nb,), seed=3)
+    idx, w = _rows(table, (-(-nb // dir_rate),), seed=3)
     xb = torch.tensor(np.random.default_rng(4).standard_normal((nb, B)),
                       dtype=torch.float32, device=table.device)
     res = {}
@@ -739,13 +807,14 @@ def check_partitioned_kernels(table, nb: int, B: int, label: str,
                                                      **PART_FLAGS),
             label, reps, partitions_work(table, idx, B))
     P = H[0].shape[1]
+    conv = dict(crossfade=True, dir_rate=dir_rate)
     _report(res, "partitioned_conv",
-            pc.partitioned_conv_cuda(xb, *H, crossfade=True),
-            pc.partitioned_conv_reference(xb, *H, crossfade=True),
-            lambda: pc.partitioned_conv_cuda(xb, *H, crossfade=True),
-            lambda: pc.partitioned_conv_reference(xb, *H, crossfade=True),
+            pc.partitioned_conv_cuda(xb, *H, **conv),
+            pc.partitioned_conv_reference(xb, *H, **conv),
+            lambda: pc.partitioned_conv_cuda(xb, *H, **conv),
+            lambda: pc.partitioned_conv_reference(xb, *H, **conv),
             label, reps, bound(
-                nb * B * 4 + nb * P * 2 * (B + 1) * 8 + 2 * nb * B * 4,
+                nb * B * 4 + H[0].numel() * 8 + 2 * nb * B * 4,
                 nb * (-(-P // 2) * fft_flops(2 * B) + 2 * P * (B + 1) * 2 * 8
                       + 2 * fft_flops(2 * B))))
     return res
@@ -856,10 +925,11 @@ def check_mix_kernels(table, S: int, nb: int, label: str, reps: int) -> dict:
         i, ww = (idx[:, :1].contiguous(), w[:, :1].contiguous()) if one \
             else (idx, w)
         H = br.assemble_filters_cuda(i, ww, table, n_fft, **PART_FLAGS)
-        kern = lambda H=H, cf=cf: bs.block_spectra_mix_cuda(
-            xbs, H, n_fft, crossfade=cf, chunk=chunk)
-        plain = lambda H=H, cf=cf: bs.block_spectra_mix_reference(
-            xbs, H, n_fft, crossfade=cf, chunk=chunk)
+        kw = dict(crossfade=cf, chunk=chunk, dir_rate=nb if one else 1)
+        kern = lambda H=H, kw=kw: bs.block_spectra_mix_cuda(xbs, H, n_fft,
+                                                            **kw)
+        plain = lambda H=H, kw=kw: bs.block_spectra_mix_reference(
+            xbs, H, n_fft, **kw)
         _report(res, name, kern(), plain(), kern, plain, label, reps, bound(
             S * nb * B * 4 + H.numel() * 8 + C * nb * 2 * F * 8,
             S * nb * (fft_flops(n_fft) + 2 * F * (16 if cf else 8))))
@@ -873,6 +943,44 @@ def check_mix_kernels(table, S: int, nb: int, label: str, reps: int) -> dict:
             reps, bound(P.numel() * 8 + nb * 2 * n_fft * 4,
                         nb * (fft_flops(n_fft) + 2 * F * 2 * (C - 1))),
             min_snr=INVERSE_SNR_DB)
+    return res
+
+
+def check_group_step_kernels(table, S: int, nb: int, dir_rate: int,
+                             label: str, reps: int) -> dict:
+    """block_spectra and block_spectra_mix (the scene renders' source
+    chunk) with one filter per group of ``dir_rate`` blocks, block b under
+    row ⌊b/k⌋, against their plain fp32 versions."""
+    import numpy as np
+    import torch
+
+    from tinaural_torch.ops import block_render as br
+    from tinaural_torch.ops import block_step as bs
+    from tinaural_torch.ops._layout import sm_count
+
+    n_fft = 2048
+    F = n_fft // 2 + 1
+    idx, w = _rows(table, (S, -(-nb // dir_rate)), seed=S + nb + dir_rate)
+    xbs = torch.tensor(np.random.default_rng(nb + dir_rate).standard_normal(
+        (S, nb, B)), dtype=torch.float32, device=table.device)
+    H = br.assemble_filters_cuda(idx, w, table, n_fft, **PART_FLAGS)
+    chunk = bs.mix_chunk(S, nb, sm_count(table.device))
+    C = -(-S // chunk)
+    kw = dict(crossfade=True, dir_rate=dir_rate)
+    res = {}
+    for name, kern, plain, out_rows in (
+            ("block_spectra",
+             lambda: bs.block_spectra_cuda(xbs, H, n_fft, **kw),
+             lambda: bs.block_spectra_reference(xbs, H, n_fft, **kw), S * nb),
+            ("block_spectra_mix",
+             lambda: bs.block_spectra_mix_cuda(xbs, H, n_fft, chunk=chunk,
+                                               **kw),
+             lambda: bs.block_spectra_mix_reference(xbs, H, n_fft,
+                                                    chunk=chunk, **kw),
+             C * nb)):
+        _report(res, name, kern(), plain(), kern, plain, label, reps, bound(
+            S * nb * B * 4 + H.numel() * 8 + out_rows * 2 * F * 8,
+            S * nb * (fft_flops(n_fft) + 2 * F * 16)))
     return res
 
 
@@ -957,6 +1065,41 @@ def check_stream_chain(table, S: int, B: int, n: int, label: str) -> None:
           f"{min(snrs[:n]):.2f}–{max(snrs[:n]):.2f} dB, final state min "
           f"{min(snrs[n:]):.2f} dB vs the plain fp32 chain", flush=True)
     require(min(snrs) >= KERNEL_SNR_DB, f"{label}: chain SNR {min(snrs):.2f}")
+
+
+def _assembly_rows(fn, name: str, want: tuple | None):
+    """fn(), each launch of `assemble_filters` and `assemble_partitions`
+    held to take idx of shape (*want, 4) when ``want`` is given."""
+    from tinaural_torch.ops import block_render as br
+    from tinaural_torch.ops import block_step as bs
+    from tinaural_torch.ops import partitioned_conv as pc
+
+    if want is None:
+        return fn()
+    seen = []
+    spied = [(m, f) for m in (br, bs, pc) for f in ("assemble_filters_cuda",
+                                                   "assemble_partitions_cuda")
+             if hasattr(m, f)]
+    real = {(m, f): getattr(m, f) for m, f in spied}
+
+    def spy(kernel):
+        def call(idx, *args, **kw):
+            seen.append(tuple(idx.shape[:-1]))
+            return kernel(idx, *args, **kw)
+        return call
+
+    for (m, f), kernel in real.items():
+        setattr(m, f, spy(kernel))
+    try:
+        out = fn()
+    finally:
+        for (m, f), kernel in real.items():
+            setattr(m, f, kernel)
+    require(seen and all(s == tuple(want) for s in seen),
+            f"render {name}: assembly launches took rows {seen}, want "
+            f"{tuple(want)}")
+    print(f"[render {name}] assembly launches took rows {seen}", flush=True)
+    return out
 
 
 def _counts_after(fn, expect: dict, name: str, launches_total: dict,
@@ -1096,6 +1239,8 @@ def check_latency(table, n: int, launches_total: dict) -> dict:
     for k in counts:  # each kernel's device time per launch
         if f"{k}_kernel" in by:
             res[f"{k}_device_ms"] = by[f"{k}_kernel"] / n
+    res["stream_conv_bound"] = stream_conv_work(
+        1, B, -(-(table.taps + 64) // B), True)
     print(f"[render f latency] {n} Stream.push: SNR {s64:.2f} dB vs plain "
           f"fp64, launches {counts}; wall {res['wall_ms_per_push_median']:.3f}"
           f" ms/push median (max {res['wall_ms_per_push_max']:.3f}), device "
@@ -1105,48 +1250,60 @@ def check_latency(table, n: int, launches_total: dict) -> dict:
     return res
 
 
-def check_streamed(table, N: int, launches_total: dict, reps: int) -> dict:
+def check_streamed(table, N: int, launches_total: dict, reps: int,
+                   dir_rate: int = 1) -> dict:
     """render_streamed of N samples at block 512, bench.py's BRIR
-    direction track; float64 plain check and both routes' throughput."""
+    direction track; float64 plain check and both routes' throughput.
+    Above ``dir_rate`` 1 the float64 check is the plain path at dir_rate 1
+    on the snapped track, and the one assembly launch must take
+    ⌈nb/dir_rate⌉ rows."""
     import numpy as np
     import torch
 
     import tinaural_torch as tt
-    from tinaural_torch.models.renderer import _partitioned_core
+    from tinaural_torch.models.renderer import _partitioned_core, _snap_dirs
     from tinaural_torch.ops import partitioned_conv as pc
 
     B = 512
-    cfg = tt.RenderConfig(stream_block=B)
+    cfg = tt.RenderConfig(stream_block=B, dir_rate=dir_rate)
     nb = N // B
     x = np.random.default_rng(6).standard_normal(N).astype(np.float32)
     dirs = np.stack([np.linspace(0, 350, nb) % 360,
                      20 * np.sin(np.linspace(0, 9, nb))],
                     axis=1).astype(np.float32)
     r = tt.BinauralRenderer(table, cfg)
-    y, counts = _counts_after(lambda: r.render_streamed(x, dirs),
-                              {"assemble_partitions": 1,
-                               "partitioned_conv": 1}, "g streamed",
-                              launches_total, no_sync=False)
-    require(bool(torch.isfinite(y).all()), "render g: not finite")
+    name = "g streamed" + (f" dir_rate {dir_rate}" if dir_rate > 1 else "")
+    rows = (-(-nb // dir_rate),)
+    y, counts = _counts_after(
+        lambda: _assembly_rows(lambda: r.render_streamed(x, dirs), name,
+                               rows),
+        {"assemble_partitions": 1, "partitioned_conv": 1}, name,
+        launches_total, no_sync=False)
+    require(bool(torch.isfinite(y).all()), f"render {name}: not finite")
     xb = torch.tensor(x.reshape(nb, B), device=table.device)
     dirs_t = torch.tensor(dirs, device=table.device)
     core = lambda xx, render=pc.partitioned_render: _partitioned_core(
         table, xx, dirs_t, cfg, render=render)
-    require(torch.equal(y, core(xb)), "render g: public call and core differ")
-    s = snr_db(core(xb.double(), pc.partitioned_render_reference), y)
-    require(s >= RENDER_SNR_DB, f"render g: SNR {s:.2f}")
+    require(torch.equal(y, core(xb)),
+            f"render {name}: public call and core differ")
+    y64 = _partitioned_core(table, xb.double(), _snap_dirs(dirs_t, dir_rate),
+                            cfg.replace(dir_rate=1),
+                            render=pc.partitioned_render_reference)
+    s = snr_db(y64, y)
+    require(s >= RENDER_SNR_DB, f"render {name}: SNR {s:.2f}")
     ms = cuda_ms(lambda: core(xb), reps)
     plain_ms = cuda_ms(lambda: core(xb, pc.partitioned_render_reference), reps)
     res = {"snr_db_vs_plain_fp64": s, "shape": list(y.shape),
            "launches": counts, "kernel_ms": ms, "plain_fp32_ms": plain_ms,
            "kernel_audio_sec_per_sec": N / SR / (ms / 1e3),
-           "plain_fp32_audio_sec_per_sec": N / SR / (plain_ms / 1e3)}
-    print(f"[render g streamed] 2^{N.bit_length() - 1} samples, {table.taps} "
+           "plain_fp32_audio_sec_per_sec": N / SR / (plain_ms / 1e3),
+           "assembly_rows": list(rows)}
+    print(f"[render {name}] 2^{N.bit_length() - 1} samples, {table.taps} "
           f"taps, B={B}: SNR {s:.2f} dB vs plain fp64, launches {counts}, "
           f"kernel {ms:.3f} ms = {res['kernel_audio_sec_per_sec']:.1f} "
           f"audio-s/s, plain fp32 {plain_ms:.3f} ms = "
           f"{res['plain_fp32_audio_sec_per_sec']:.1f} audio-s/s", flush=True)
-    TO_PROFILE.append(("g streamed", res, lambda: core(xb)))
+    TO_PROFILE.append((name, res, lambda: core(xb)))
     return res
 
 
@@ -1250,15 +1407,18 @@ def check_long(long_streamed, long_traj, N: int, launches_total: dict,
 
 def long_render(name: str, table, Bj: int, N: int, streamed: bool, core,
                 kern, plain_fn, expect: dict, launches_total: dict,
-                reps: int, other=None) -> dict:
+                reps: int, other=None, dir_rate: int = 1) -> dict:
     """One render of (j) or (l) on bench.py's BRIR direction track;
-    ``other`` another route timed beside it."""
+    ``other`` another route timed beside it. Above ``dir_rate`` 1 the
+    float64 check is the plain path at dir_rate 1 on the snapped track,
+    and each assembly launch must take ⌈nb/dir_rate⌉ rows."""
     import numpy as np
     import torch
 
     import tinaural_torch as tt
+    from tinaural_torch.models.renderer import _snap_dirs
 
-    cfg = tt.RenderConfig(block_size=Bj, stream_block=Bj)
+    cfg = tt.RenderConfig(block_size=Bj, stream_block=Bj, dir_rate=dir_rate)
     r = tt.BinauralRenderer(table, cfg)
     nb = N // Bj
     x = np.random.default_rng(6).standard_normal(N).astype(np.float32)
@@ -1268,13 +1428,17 @@ def long_render(name: str, table, Bj: int, N: int, streamed: bool, core,
     public = r.render_streamed if streamed else r.render_trajectory
     xb = torch.tensor(x.reshape(nb, Bj), device=table.device)
     dirs_t = torch.tensor(dirs, device=table.device)
+    rows = (-(-nb // dir_rate),) if streamed else (1, -(-nb // dir_rate))
     return check_render(
         name, lambda: public(x, dirs),
         lambda plain, dt: core(table, xb.to(dt), dirs_t, cfg,
                                render=plain_fn if plain else kern),
         N / SR, expect, launches_total, reps, NEW_RENDER_SNR_DB,
         other_routes=other and {other.__name__: lambda: core(
-            table, xb, dirs_t, cfg, render=other)})
+            table, xb, dirs_t, cfg, render=other)},
+        ref=lambda: core(table, xb.double(), _snap_dirs(dirs_t, dir_rate),
+                         cfg.replace(dir_rate=1), render=plain_fn),
+        assembly_rows=rows if dir_rate > 1 else None)
 
 
 def ptxas_summary(log: str) -> list[str]:
@@ -1337,9 +1501,10 @@ def main() -> int:
     import numpy as np
 
     import tinaural_torch as tt
-    from tinaural_torch.models.renderer import (_scene_core,
+    from tinaural_torch.models.renderer import (_partitioned_core,
+                                                _scene_core,
                                                 _scene_static_core,
-                                                _trajectory_core)
+                                                _snap_dirs, _trajectory_core)
     from tinaural_torch.ops import _build
     from tinaural_torch.ops import assembly_mac as am
     from tinaural_torch.ops import block_render as br
@@ -1370,6 +1535,7 @@ def main() -> int:
 
     table = tt.TorchTable.from_hrir_table(tt.load_hrir_set("synthetic"), dev)
     cfg = tt.RenderConfig(block_size=B)
+    cfg4 = cfg.replace(dir_rate=4)
     t0 = time.perf_counter()
     brir, long_streamed, long_traj, t8000, t448 = (
         tt.TorchTable.from_hrir_table(tt.load_hrir_set("synthetic", taps=n),
@@ -1386,6 +1552,12 @@ def main() -> int:
     k_m = check_kernels(table, 16, 1024, True, "m scene", reps=5)
     # B1's split mode, at the 16,384-tap table's n_fft 32768
     check_kernels(long_traj, 1, 32, True, "split n_fft 32768", reps=2)
+    # the dir_rate path: one filter per group of 4 blocks, at (a4)'s shape
+    # and in the split mode (8 filters for 30 blocks)
+    k_traj4 = check_kernels(table, 1, 8192, True, "trajectory dir_rate 4",
+                            reps=5, dir_rate=4)
+    check_kernels(long_traj, 1, 30, True, "split n_fft 32768 dir_rate 4",
+                  reps=2, dir_rate=4)
 
     # 3b. the partitioned-convolution kernels against their plain versions
     k_serve = check_stream_kernels(table, 1024, 256, "stream 128 taps P=1",
@@ -1394,6 +1566,9 @@ def main() -> int:
                                   reps=10)
     k_part = check_partitioned_kernels(brir, 2048, 512,
                                        "partitioned 2048 taps P=5", reps=5)
+    k_part4 = check_partitioned_kernels(
+        brir, 2048, 512, "partitioned 2048 taps P=5 dir_rate 4", reps=5,
+        dir_rate=4)
     k_part_j = check_partition_assembly(long_streamed, 256, 512,
                                         "assemble_partitions 256 rows 44100 "
                                         "taps B=512", reps=5)
@@ -1418,6 +1593,9 @@ def main() -> int:
     k_step = check_step_kernels(table, 64, 128, "block step S=64 nb=128",
                                 reps=5)
     check_step_kernels(table, 32, 1, "block step S=32 nb=1", reps=5)
+    k_step4 = check_group_step_kernels(
+        table, 64, 128, 4, "block step and mix S=64 nb=128 dir_rate 4",
+        reps=5)
     k_inverse = check_inverse_shapes(dev, reps=5)
 
     # 3d. the scene mixdown's and the natural-order route's kernels
@@ -1449,6 +1627,18 @@ def main() -> int:
         lambda plain, dt: _trajectory_core(table, xb.to(dt), dirs_t, cfg,
                                            render=block_op(plain)),
         N / SR, B1_COUNTS, launches, reps=3)
+    # (a4): the same at dir_rate 4 (bench.py w_traj_dir4), held against
+    # the float64 plain path at dir_rate 1 on the snapped track
+    r4 = tt.BinauralRenderer(table, cfg4)
+    renders["a4_trajectory_dir_rate_4"] = check_render(
+        "a4 trajectory 2^23 dir_rate 4", lambda: r4.render_trajectory(x, dirs),
+        lambda plain, dt: _trajectory_core(table, xb.to(dt), dirs_t, cfg4,
+                                           render=block_op(plain)),
+        N / SR, B1_COUNTS, launches, reps=3,
+        ref=lambda: _trajectory_core(table, xb.double(),
+                                     _snap_dirs(dirs_t, 4), cfg,
+                                     render=br.block_render_reference),
+        assembly_rows=(1, N // B // 4))
 
     rng = np.random.default_rng(2)
     S, N = 64, 1 << 17
@@ -1465,6 +1655,19 @@ def main() -> int:
         min_snr=NEW_RENDER_SNR_DB, same_bits=True,
         other_routes={"block_render": lambda: _scene_core(
             table, xbs, dmov_t, cfg, render=br.block_render)})
+
+    # (b4): the same at dir_rate 4 (bench.py w_scene_moving_dir4)
+    renders["b4_scene_moving_dir_rate_4"] = check_render(
+        "b4 scene 64 moving dir_rate 4", lambda: r4.render_scene(xs, dmov),
+        lambda plain, dt: _scene_core(table, xbs.to(dt), dmov_t, cfg4,
+                                      render=mix_op(plain)),
+        S * N / SR, MIX_COUNTS, launches, reps=3,
+        min_snr=NEW_RENDER_SNR_DB, same_bits=True,
+        other_routes={"block_render": lambda: _scene_core(
+            table, xbs, dmov_t, cfg4, render=br.block_render)},
+        ref=lambda: _scene_core(table, xbs.double(), _snap_dirs(dmov_t, 4),
+                                cfg, render=bs.scene_step_render_reference),
+        assembly_rows=(S, N // B // 4))
 
     dstat = np.stack([rng.uniform(0, 360, S), rng.uniform(-40, 90, S)],
                      -1).astype(np.float32)
@@ -1501,6 +1704,8 @@ def main() -> int:
                                                  8, 4, launches, reps=3)
     renders["f_latency"] = check_latency(table, 64, launches)
     renders["g_streamed"] = check_streamed(brir, 1 << 20, launches, reps=3)
+    renders["g4_streamed_dir_rate_4"] = check_streamed(
+        brir, 1 << 20, launches, reps=3, dir_rate=4)
 
     # 4c. static render, render_batch on both routes, the natural-order
     # trajectory, and the sizes above shared memory
@@ -1519,14 +1724,37 @@ def main() -> int:
         other=br.block_render)
     renders["j_long"] = check_long(long_streamed, long_traj, 1 << 17,
                                    launches, reps=2)
+    renders["j4_streamed_44100_taps_dir_rate_4"] = long_render(
+        "j4 streamed 44100 taps dir_rate 4", long_streamed, 512, 1 << 17,
+        True, _partitioned_core, pc.partitioned_render,
+        pc.partitioned_render_reference,
+        {"assemble_partitions": 1, "partitioned_conv": 1}, launches, reps=2,
+        dir_rate=4)
     profile_renders()
     profile_kernels()
+    check_assembly_savings(renders)
 
     # overlap_add ends the B1 renders and is the OLA half of B2 in every
     # render that launched spectra_inverse
     ola_b2 = sum(res["launches"].get("overlap_add", 0)
                  for _, res, _ in TO_PROFILE
                  if "spectra_inverse" in res["launches"])
+    # each k-path kernel's check at dir_rate 4, and its launches in the
+    # dir_rate 4 renders
+    k4_checks = {"assemble_filters": k_traj4["assemble_filters"],
+                 "block_spectra_mix_inverse":
+                     k_traj4["block_spectra_mix_inverse"],
+                 "assemble_partitions": k_part4["assemble_partitions"],
+                 "partitioned_conv": k_part4["partitioned_conv"],
+                 "block_spectra": k_step4["block_spectra"],
+                 "block_spectra_mix": k_step4["block_spectra_mix"]}
+    k4 = {name: {"launches": sum(
+              res["launches"].get(name, 0) for key, res in renders.items()
+              if key.endswith("dir_rate_4")),
+              **{f: m.get(f) for f in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "max_abs_err", "snr_db",
+                                       "library_ms")}}
+          for name, m in k4_checks.items()}
     kernels = [kernel_entry(
         name, B1_SOURCES[name], FUSED_BLOCK_RENDER,
         launches[name] - (ola_b2 if name == "overlap_add" else 0),
@@ -1573,6 +1801,16 @@ def main() -> int:
                  "brir_stream_plain_ms": k_brir["stream_conv"]["plain_ms"],
                  "brir_hold_ms": k_brir["stream_conv_hold"]["ms"],
                  "brir_hold_plain_ms": k_brir["stream_conv_hold"]["plain_ms"],
+                 # device ms a call alone, from the profiles of phase 5
+                 "device_ms": k_serve["stream_conv"]["device_ms"],
+                 "hold_device_ms": k_serve["stream_conv_hold"]["device_ms"],
+                 "hold_bound_ms": k_serve["stream_conv_hold"]["bound_ms"],
+                 "brir_device_ms": k_brir["stream_conv"]["device_ms"],
+                 "brir_hold_device_ms":
+                     k_brir["stream_conv_hold"]["device_ms"],
+                 "brir_hold_bound_ms": k_brir["stream_conv_hold"]["bound_ms"],
+                 "f_bound_ms":
+                     renders["f_latency"]["stream_conv_bound"]["bound_ms"],
                  **serving_device_ms(renders, "stream_conv")}}
     for name in pc.KERNELS:
         first, *also = PART_REPLACES[name]
@@ -1609,6 +1847,8 @@ def main() -> int:
                          "max_abs_err", "snr_db", "snr_fp64_db", "run")})]
     for k in kernels:
         require(k["launches"] > 0, f"kernel {k['name']} was not launched")
+        if k["name"] in k4:
+            k["dir_rate_4"] = k4[k["name"]]
     print(json.dumps({"renders": renders}), flush=True)
     print(f"card: {card_line()}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

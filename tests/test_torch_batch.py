@@ -170,8 +170,9 @@ def test_block_step_render_on_cpu_is_the_reference(tables):
     assert torch.equal(y, bs.block_step_render_reference(xbs, idx, w, t, 512,
                                                          **flags))
     assert (dict(bs.launches), dict(br.launches)) == before
-    # one filter per source: the same as that filter on every block
-    one = bs.block_step_render(xbs, idx[:, :1], w[:, :1], t, 512, **flags)
+    # one filter per source (dir_rate nb): that filter on every block
+    one = bs.block_step_render(xbs, idx[:, :1], w[:, :1], t, 512,
+                               dir_rate=nb, **flags)
     every = bs.block_step_render(xbs, idx[:, :1].expand(S, nb, 4).contiguous(),
                                  w[:, :1].expand(S, nb, 4).contiguous(), t,
                                  512, **flags)

@@ -8,9 +8,14 @@ natural-order `assembly_mac`, `spectra_inverse` alone at every FFT
 size, and `assemble_partitions`' register body at every (L, B) pair with
 its refusal of another plan; each family again in the split buffer mode, forced at small shapes,
 and at the sizes that need it (a 44,100-tap `render_streamed`, a
-16,384-tap trajectory); and the cluster mode of `spectra_inverse` and
+16,384-tap trajectory); the cluster mode of `spectra_inverse` and
 `assemble_partitions` at its edges, under a refused plan, and forced back
-to the split mode.
+to the split mode; and the dir_rate row map (one filter per group of k
+blocks) of B1's, the block step's, the scene mixdown's and the
+partitioned kernels at k = 2, 4 and 8, nb no multiple of k, in chunks,
+in B1's split mode at n_fft 32768 and `assemble_partitions`' cluster
+mode, each against the float64 plain path at k = 1 on the snapped
+track.
 
 This file imports neither the JAX package nor the shared conftest (which
 does), so it also runs where `tinaural` cannot be imported, as on a
@@ -465,13 +470,14 @@ def test_block_step_kernels_match_plain(table, S, nb, crossfade, one_filter):
     against their plain float64 versions on the same inputs, with source
     boundaries inside the rows."""
     xbs, idx, w = _inputs(table, S, nb, seed=S * 10 + nb)
+    k = nb if one_filter else 1  # one filter per source: dir_rate nb
     if one_filter:
         idx, w = idx[:, :1].contiguous(), w[:, :1].contiguous()
     n_fft = _n_fft(table, B)
     H = br.assemble_filters_cuda(idx, w, table, n_fft, **FLAGS)
-    Y = bs.block_spectra_cuda(xbs, H, n_fft, crossfade=crossfade)
+    Y = bs.block_spectra_cuda(xbs, H, n_fft, crossfade=crossfade, dir_rate=k)
     Y64 = bs.block_spectra_reference(xbs.double(), H.to(torch.complex128),
-                                     n_fft, crossfade=crossfade)
+                                     n_fft, crossfade=crossfade, dir_rate=k)
     assert Y.shape == Y64.shape == (S, nb, 2, n_fft // 2 + 1)
     assert _snr_db(Y64, Y) >= 100
     frames = bs.spectra_inverse_cuda(Y, n_fft)
@@ -483,7 +489,7 @@ def test_block_step_kernels_match_plain(table, S, nb, crossfade, one_filter):
     assert torch.allclose(out, ref, rtol=0, atol=1e-6)
     before = (dict(br.launches), dict(bs.launches))
     y = bs.block_step_render(xbs, idx, w, table, n_fft, crossfade=crossfade,
-                             **FLAGS)
+                             dir_rate=k, **FLAGS)
     torch.cuda.synchronize()
     assert br.launches["assemble_filters"] == before[0]["assemble_filters"] + 1
     assert br.launches["overlap_add"] == before[0]["overlap_add"] + 1
@@ -491,7 +497,8 @@ def test_block_step_kernels_match_plain(table, S, nb, crossfade, one_filter):
                for k in ("block_spectra", "spectra_inverse"))
     assert bs.launches["block_spectra_mix"] == before[1]["block_spectra_mix"]
     y64 = bs.block_step_render_reference(xbs.double(), idx, w, table, n_fft,
-                                         crossfade=crossfade, **FLAGS)
+                                         crossfade=crossfade, dir_rate=k,
+                                         **FLAGS)
     assert _snr_db(y64, y) >= 100
 
 
@@ -540,21 +547,22 @@ def test_block_spectra_mix_matches_plain(table, S, nb, crossfade, one_filter,
     summing spectra_inverse against the irfft of their sum, and the whole
     scene route against its plain version."""
     xbs, idx, w = _inputs(table, S, nb, seed=S * 10 + nb + chunk)
+    k = nb if one_filter else 1  # one filter per source: dir_rate nb
     if one_filter:
         idx, w = idx[:, :1].contiguous(), w[:, :1].contiguous()
     n_fft = _n_fft(table, B)
     H = br.assemble_filters_cuda(idx, w, table, n_fft, **FLAGS)
     P = bs.block_spectra_mix_cuda(xbs, H, n_fft, crossfade=crossfade,
-                                  chunk=chunk)
+                                  chunk=chunk, dir_rate=k)
     P64 = bs.block_spectra_mix_reference(xbs.double(), H.to(torch.complex128),
                                          n_fft, crossfade=crossfade,
-                                         chunk=chunk)
+                                         chunk=chunk, dir_rate=k)
     assert P.shape == P64.shape == (-(-S // chunk), nb, 2, n_fft // 2 + 1)
     assert _snr_db(P64, P) >= 100
     frames = bs.spectra_inverse_cuda(P, n_fft, summed=True)
     f64 = bs.spectra_inverse_reference(P.to(torch.complex128).sum(0), n_fft)
     assert frames.shape == (nb, 2, n_fft) and _snr_db(f64, frames) >= 100
-    kw = dict(crossfade=crossfade, **FLAGS)
+    kw = dict(crossfade=crossfade, dir_rate=k, **FLAGS)
     y = bs.scene_step_render(xbs, idx, w, table, n_fft, **kw)
     y64 = bs.scene_step_render_reference(xbs.double(), idx, w, table, n_fft,
                                          **kw)
@@ -760,6 +768,161 @@ def test_long_filters_render_on_the_card():
         y64 = core(t, xb.double(), dirs, cfg, render=render)
         assert bool(torch.isfinite(y).all())
         assert _snr_db(y64, y) >= 100, taps
+
+
+# ------------------------------------------------------- the dir_rate row map
+
+
+def _group_rows(t, S, nb, k, seed):
+    """(S, nb, B) blocks and the rows and weights of ⌈nb/k⌉ random
+    directions a source: one filter per group of k blocks."""
+    xbs, _, _ = _inputs(t, S, nb, seed)
+    idx, w = _rows(t, (S, br.filter_rows(nb, k)), seed + 1)
+    return xbs, idx, w
+
+
+def _per_block(t: torch.Tensor, nb: int, k: int) -> torch.Tensor:
+    """Group rows (..., ⌈nb/k⌉, 4) → block rows (..., nb, 4): the snapped
+    track's rows at dir_rate 1."""
+    return t[..., torch.arange(nb, device=t.device) // k, :].contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [2, 4, 8])
+@pytest.mark.parametrize("S,nb,crossfade", [(1, 37, True), (3, 21, True),
+                                            (2, 13, False)])
+def test_dir_rate_block_render_matches_plain(table, k, S, nb, crossfade):
+    """B1 at dir_rate k, nb no multiple of k: `assemble_filters` on ⌈nb/k⌉
+    rows a source, `block_spectra_mix_inverse` reading row ⌊b/k⌋ and
+    ⌊(b−1)/k⌋ against its float64 plain version, and the route against
+    the float64 plain path at k = 1 with every block's row."""
+    xbs, idx, w = _group_rows(table, S, nb, k, seed=S * 100 + nb + k)
+    n_fft = _n_fft(table, B)
+    H = br.assemble_filters_cuda(idx, w, table, n_fft, **FLAGS)
+    assert H.shape[1] == -(-nb // k)
+    frames = br.block_spectra_mix_inverse_cuda(xbs, H, n_fft,
+                                               crossfade=crossfade,
+                                               dir_rate=k)
+    f64 = br.block_spectra_mix_inverse_reference(
+        xbs.double(), H.to(torch.complex128), n_fft, crossfade=crossfade,
+        dir_rate=k)
+    assert _snr_db(f64, frames) >= 100
+    kw = dict(crossfade=crossfade, **FLAGS)
+    before = dict(br.launches)
+    y = br.block_render(xbs, idx, w, table, n_fft, dir_rate=k, **kw)
+    torch.cuda.synchronize()
+    assert all(br.launches[n] == before[n] + 1 for n in br.KERNELS)
+    y64 = br.block_render_reference(xbs.double(), _per_block(idx, nb, k),
+                                    _per_block(w, nb, k), table, n_fft, **kw)
+    assert _snr_db(y64, y) >= 100
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [2, 4, 8])
+@pytest.mark.parametrize("S,nb,crossfade,chunk", [(3, 21, True, 2),
+                                                  (5, 13, False, 5)])
+def test_dir_rate_block_step_kernels_match_plain(table, k, S, nb, crossfade,
+                                                 chunk):
+    """`block_spectra` and `block_spectra_mix` at dir_rate k against their
+    float64 plain versions, and both routes against the float64 plain
+    path at k = 1 with every block's row."""
+    xbs, idx, w = _group_rows(table, S, nb, k, seed=S * 10 + nb + k)
+    n_fft = _n_fft(table, B)
+    H = br.assemble_filters_cuda(idx, w, table, n_fft, **FLAGS)
+    H64 = H.to(torch.complex128)
+    Y = bs.block_spectra_cuda(xbs, H, n_fft, crossfade=crossfade, dir_rate=k)
+    assert _snr_db(bs.block_spectra_reference(
+        xbs.double(), H64, n_fft, crossfade=crossfade, dir_rate=k), Y) >= 100
+    P = bs.block_spectra_mix_cuda(xbs, H, n_fft, crossfade=crossfade,
+                                  chunk=chunk, dir_rate=k)
+    assert _snr_db(bs.block_spectra_mix_reference(
+        xbs.double(), H64, n_fft, crossfade=crossfade, chunk=chunk,
+        dir_rate=k), P) >= 100
+    kw = dict(crossfade=crossfade, **FLAGS)
+    rows = (xbs.double(), _per_block(idx, nb, k), _per_block(w, nb, k))
+    for route, plain in ((bs.block_step_render, bs.block_step_render_reference),
+                         (bs.scene_step_render, bs.scene_step_render_reference)):
+        y = route(xbs, idx, w, table, n_fft, dir_rate=k, **kw)
+        assert _snr_db(plain(*rows, table, n_fft, **kw), y) >= 100
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [2, 4, 8])
+@pytest.mark.parametrize("taps,B,nb", [(2048, 512, 37), (128, 256, 21)])
+def test_dir_rate_partitioned_matches_plain(cuda, monkeypatch, k, taps, B,
+                                            nb):
+    """`partitioned_conv` at dir_rate k against its float64 plain version;
+    `partitioned_render` in chunks of two groups (group-aligned starts, a
+    partial last group) equal in bits to one chunk, and against the
+    float64 plain path at k = 1 with every block's row, on
+    `_exact_delay_inputs`' table and rows: with 5 filters for 37 blocks
+    (k = 8) one row weighs a fifth of the error, and random synthetic
+    rows once held that float64 comparison to 96.5 dB through the
+    float32 assembly alone."""
+    t, idx, w = _exact_delay_inputs(taps, -(-nb // k), nb + B + k, cuda)
+    xb = torch.from_numpy(np.random.default_rng(B + k).standard_normal(
+        (nb, B)).astype(np.float32)).to(cuda)
+    hr, hi = pc.assemble_partitions_cuda(idx, w, t, B, **FLAGS)
+    y = pc.partitioned_conv_cuda(xb, hr, hi, crossfade=True, dir_rate=k)
+    y64 = pc.partitioned_conv_reference(xb.double(), hr.double(), hi.double(),
+                                        crossfade=True, dir_rate=k)
+    assert _snr_db(y64, y) >= 100
+    kw = dict(crossfade=True, **FLAGS)
+    whole = pc.partitioned_render(xb, idx, w, t, dir_rate=k, **kw)
+    monkeypatch.setattr(pc, "CHUNK_BYTES", 2 * hr[0].numel() * 8)
+    assert torch.equal(whole, pc.partitioned_render(xb, idx, w, t,
+                                                    dir_rate=k, **kw))
+    ref = pc.partitioned_render_reference(
+        xb.double(), _per_block(idx, nb, k), _per_block(w, nb, k), t, **kw)
+    assert _snr_db(ref, whole) >= 100
+
+
+@pytest.mark.gpu
+def test_dir_rate_above_shared_memory(table, long_tables, monkeypatch):
+    """dir_rate 4, nb no multiple of 4, where the buffers leave shared
+    memory: B1's split mode at n_fft 32768 (16,384 taps) and
+    `assemble_partitions`' cluster mode (44,100 taps) through the
+    renderer's cores against the float64 plain path at dir_rate 1 on the
+    snapped track; then B1, the block-step routes and the partitioned
+    route in the forced split mode."""
+    dev = table.device
+    rng = np.random.default_rng(12)
+    nb = 13
+    dirs = torch.from_numpy(np.stack(
+        [np.linspace(0, 300, nb), np.linspace(-30, 60, nb)], 1).astype(
+            np.float32)).to(dev)
+    snapped = dirs[torch.arange(nb, device=dev) // 4 * 4]
+    for taps, core, kern, plain, B_ in (
+            (44100, _partitioned_core, pc.partitioned_render,
+             pc.partitioned_render_reference, 512),
+            (16384, _trajectory_core, br.block_render,
+             br.block_render_reference, 1024)):
+        t = long_tables[taps]
+        cfg = tinaural_torch.RenderConfig(block_size=B_, stream_block=B_)
+        xb = torch.from_numpy(rng.standard_normal((nb, B_)).astype(
+            np.float32)).to(dev)
+        y = core(t, xb, dirs, cfg.replace(dir_rate=4), render=kern)
+        y64 = core(t, xb.double(), snapped, cfg, render=plain)
+        assert bool(torch.isfinite(y).all())
+        assert _snr_db(y64, y) >= 100, taps
+    monkeypatch.setattr(_layout, "force_work", 64)
+    xbs, idx, w = _group_rows(table, 3, 10, 4, seed=13)
+    n_fft = _n_fft(table, B)
+    kw = dict(crossfade=True, **FLAGS)
+    rows = (xbs.double(), _per_block(idx, 10, 4), _per_block(w, 10, 4))
+    for route, plain in ((br.block_render, br.block_render_reference),
+                         (bs.block_step_render, bs.block_step_render_reference),
+                         (bs.scene_step_render, bs.scene_step_render_reference)):
+        y = route(xbs, idx, w, table, n_fft, dir_rate=4, **kw)
+        assert _snr_db(plain(*rows, table, n_fft, **kw), y) >= 100
+    t = long_tables[2048]
+    idx, w = _rows(t, (3,), seed=14)
+    xb = torch.from_numpy(rng.standard_normal((10, 256)).astype(
+        np.float32)).to(dev)
+    y = pc.partitioned_render(xb, idx, w, t, dir_rate=4, **kw)
+    assert _snr_db(pc.partitioned_render_reference(
+        xb.double(), _per_block(idx, 10, 4), _per_block(w, 10, 4), t, **kw),
+        y) >= 100
 
 
 # ----------------------------------------------------------- spectra_inverse

@@ -91,7 +91,7 @@ def test_block_spectra_mix_reference_one_filter_per_source(tables):
     H = br.assemble_filters_reference(idx, w, t, n_fft, apply_itd=True,
                                       apply_ild=True)
     P = bs.block_spectra_mix_reference(torch.from_numpy(xbs), H, n_fft,
-                                       crossfade=False, chunk=2)
+                                       crossfade=False, chunk=2, dir_rate=nb)
     assert snr_db(_cplanes(theirs), _cplanes(P.sum(0).numpy())) >= 100
 
 

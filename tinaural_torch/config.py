@@ -31,9 +31,10 @@ class RenderConfig:
         sources (the de-duplicated count is rounded up to a multiple).
       out_length: ``"full"`` → N + taps + DELAY_PAD - 1 samples,
         ``"same"`` → N samples.
-      dir_rate: re-assemble a moving source's filter every ``dir_rate``
-        blocks; block b renders with the direction of block
-        ⌊b/dir_rate⌋·dir_rate. One of 1, 2, 4, 8.
+      dir_rate: block b of a moving source renders with the direction of
+        block ⌊b/dir_rate⌋·dir_rate, and the renders assemble one filter
+        per group of ``dir_rate`` blocks (⌈nb/dir_rate⌉ a source), which
+        serves the group's blocks. One of 1, 2, 4, 8.
       stream_update_rate: streaming counterpart of ``dir_rate``. One of
         1, 2, 4, 8.
     """

@@ -1,13 +1,18 @@
 // Hand-written Hopper kernel `block_spectra_mix_inverse`: the crossfaded
 // MAC of every source's block against its filters, the mixdown over the
 // sources and the packed inverse of both ears, x (S, nb, B) f32 and H (S,
-// nb, 2, F) complex64 → frames (nb, 2, n_fft) f32:
-//   frames[b, e] = irfft(Σ_s Xu[s,b]·H[s,b,e] + Xd[s,b]·H[s,b−1,e]),
-// Xu = rfft(x·u), Xd = rfft(x·(1−u)), u = (i + 0.5)/B, H[s,−1] := H[s,0];
-// without crossfade Σ_s rfft(x)·H[s,b,e].
+// ⌈nb/k⌉, 2, F) complex64 → frames (nb, 2, n_fft) f32:
+//   frames[b, e] = irfft(Σ_s Xu[s,b]·H[s,⌊b/k⌋,e] + Xd[s,b]·H[s,⌊(b−1)/k⌋,e]),
+// Xu = rfft(x·u), Xd = rfft(x·(1−u)), u = (i + 0.5)/B, block 0's previous
+// filter its own; without crossfade Σ_s rfft(x)·H[s,⌊b/k⌋,e]. k is the
+// dir_rate row map: one filter per group of k blocks (k = 1: one per
+// block; k ≥ nb: one per source).
 //
 // Replaces the MAC, mixdown and inverse of tinaural/ops/pallas_kernels.py
-// fused_block_render (:1089; _block_spectra_core and _inverse_ola_core).
+// fused_block_render (:1089; _block_spectra_core and _inverse_ola_core),
+// its dir_rate path included: where the TPU kernel copies each of the
+// chunk/k unique filters to its k blocks (_expand_rows), every block here
+// reads its group's row.
 // The TPU kernel carries the mixdown across its sequential source axis;
 // here one CUDA block loops over the sources in order (deterministic, no
 // atomics). block_render.cu's header says how the block render's map is
@@ -84,10 +89,11 @@ __host__ __device__ constexpr int mix_min_blocks(int threads) {
 
 struct MixArgs {
   const float* x;   // (S, nb, B)
-  const float2* H;  // (S·nb, 2, F)
+  const float2* H;  // (S·⌈nb/k⌉, 2, F)
   float* frames;    // (nb, 2, n)
   const float2* tw;  // exp(+2πi·m/n), m < n
-  int S, nb, B, crossfade;
+  int S, nb, B, crossfade, dir_rate;
+  int fnb;  // filter rows per source, ⌈nb/dir_rate⌉
 };
 
 // The shared buffer mode: one output block per CUDA block of `groups`
@@ -108,6 +114,10 @@ __global__ void __launch_bounds__(RegPlan<kLog2N>::threads *
   const int grp = threadIdx.x / T;
   const int lane = threadIdx.x % T;
   const int b = blockIdx.x;
+  // block b's filter row; its predecessor's is the row before where b
+  // starts a group past block 0, else the same row
+  const int hc = b / a.dir_rate;
+  const bool group_start = b > 0 && b == hc * a.dir_rate;
   float2* buf = smem + grp * mix_group_f2<kLog2N>();  // the group's
   const float inv_B = 1.0f / a.B;
   // both ears' sums at bins lane + i·T (i < 8) and, on lane 0, n/2
@@ -157,10 +167,8 @@ __global__ void __launch_bounds__(RegPlan<kLog2N>::threads *
     __syncthreads();
     if (!live) continue;
 
-    const float2* Hc = a.H + (static_cast<size_t>(s) * a.nb + b) * 2 * F;
-    // block 0 of every source takes its own filter as the previous one
-    const float2* Hp =
-        a.H + (static_cast<size_t>(s) * a.nb + (b > 0 ? b - 1 : 0)) * 2 * F;
+    const float2* Hc = a.H + (static_cast<size_t>(s) * a.fnb + hc) * 2 * F;
+    const float2* Hp = group_start ? Hc - 2 * F : Hc;
 #pragma unroll(kSharedAcc ? 1 : 9)
     for (int i = 0; i <= 8; ++i) {
       if (i < 8 || lane == 0) {
@@ -250,6 +258,7 @@ __global__ void block_spectra_mix_inverse_kernel(const float* __restrict__ x,
                                                  float* __restrict__ frames,
                                                  int S, int nb, int B,
                                                  int n_fft, int crossfade,
+                                                 int dir_rate,
                                                  float2* scratch, int work) {
   extern __shared__ float2 smem[];
   const int n = n_fft;
@@ -264,8 +273,11 @@ __global__ void block_spectra_mix_inverse_kernel(const float* __restrict__ x,
   const FftPlan f = fft_plan(n, work);
   make_twiddles(tw, tw_n);
   const float inv_B = 1.0f / B;
+  const int fnb = (nb + dir_rate - 1) / dir_rate;
   for (int b = blockIdx.x; b < nb; b = next_row<true>(b, nb)) {
     __syncthreads();  // the previous block is done with buf
+    const int hc = b / dir_rate;
+    const bool group_start = b > 0 && b == hc * dir_rate;
     for (int k = threadIdx.x; k < F; k += blockDim.x) {
       acc0[k] = make_float2(0.f, 0.f);
       acc1[k] = make_float2(0.f, 0.f);
@@ -288,10 +300,10 @@ __global__ void block_spectra_mix_inverse_kernel(const float* __restrict__ x,
       }
       fft_run<true>(f, buf, tw, tw_n, wbuf, false);
 
-      const float2* Hc = H + (static_cast<size_t>(s) * nb + b) * 2 * F;
-      // block 0 of every source takes its own filter as "previous"
-      const float2* Hp =
-          H + (static_cast<size_t>(s) * nb + (b > 0 ? b - 1 : 0)) * 2 * F;
+      const float2* Hc = H + (static_cast<size_t>(s) * fnb + hc) * 2 * F;
+      // the previous filter: the row before where b starts a group past
+      // block 0, else the same row (block 0 takes its own)
+      const float2* Hp = group_start ? Hc - 2 * F : Hc;
       for (int k = threadIdx.x; k < F; k += blockDim.x) {
         if (crossfade) {
           float2 Xu, Xd;
@@ -314,7 +326,7 @@ __global__ void block_spectra_mix_inverse_kernel(const float* __restrict__ x,
 }
 
 using SplitKernel = void (*)(const float*, const float2*, float*, int, int,
-                             int, int, int, float2*, int);
+                             int, int, int, int, float2*, int);
 
 // The register kernel for n = 2^kLog2N, checked against the caller's plan.
 template <int kLog2N>
@@ -346,7 +358,8 @@ int launch_register(int log2n, int threads, int groups, int blocks_per_sm,
 
 extern "C" {
 
-// x: (S, nb, B) f32; H: (S·nb, 2, F) complex64; frames: (nb, 2, n_fft) f32.
+// x: (S, nb, B) f32; H: (S·⌈nb/k⌉, 2, F) complex64, k = dir_rate, block
+// b reading row ⌊b/k⌋ of its source's; frames: (nb, 2, n_fft) f32.
 // slices > 0: split mode, scratch holds slices · (n_fft + 2F) complex64,
 // and tw, threads, groups and blocks_per_sm are unused. Otherwise the
 // register kernel (128 ≤ n_fft ≤ 16384): tw the table of exp(+2πi·m/n),
@@ -354,9 +367,11 @@ extern "C" {
 // (ops/render_plan.py `mix_plan`, `mix_groups`).
 int tt_block_spectra_mix_inverse(const void* x, const void* H, void* frames,
                                  const void* tw, int S, int nb, int B,
-                                 int n_fft, int crossfade, int threads,
-                                 int groups, int blocks_per_sm, void* scratch,
-                                 int slices, int work, void* stream) {
+                                 int n_fft, int crossfade, int dir_rate,
+                                 int threads, int groups, int blocks_per_sm,
+                                 void* scratch, int slices, int work,
+                                 void* stream) {
+  if (dir_rate < 1) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   if (slices == 0) {
     const MixArgs a{static_cast<const float*>(x),
@@ -366,7 +381,9 @@ int tt_block_spectra_mix_inverse(const void* x, const void* H, void* frames,
                     S,
                     nb,
                     B,
-                    crossfade};
+                    crossfade,
+                    dir_rate,
+                    (nb + dir_rate - 1) / dir_rate};
     return launch_register<kMixMinLog2>(ilog2(n_fft), threads, groups,
                                         blocks_per_sm, a, s);
   }
@@ -378,7 +395,7 @@ int tt_block_spectra_mix_inverse(const void* x, const void* H, void* frames,
   if (err) return err;
   kernel<<<l.grid, 512, l.smem, s>>>(
       static_cast<const float*>(x), static_cast<const float2*>(H),
-      static_cast<float*>(frames), S, nb, B, n_fft, crossfade,
+      static_cast<float*>(frames), S, nb, B, n_fft, crossfade, dir_rate,
       static_cast<float2*>(scratch), work);
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,6 +14,12 @@
 //                      revisits each output tile across a sequential source
 //                      axis) — `block_spectra_mix` below, then the summing
 //                      `spectra_inverse`.
+// fused_block_step's dir_rate path (_block_spectra_core, _expand_rows: the
+// chunk/k unique filters of a snapped track assembled, then each copied to
+// its k blocks) is the row map ⌊b/k⌋ of both kernels below: assemble_filters
+// assembles ⌈nb/k⌉ rows a source and no row is copied. The JAX package has
+// no dir_rate in fused_block_step_mix; the port's scene route takes the
+// same map there.
 // fused_epilogue, the inverse FFT and OLA that follow both, is
 // `spectra_inverse` (spectra_inverse.cu) and then the overlap_add kernel
 // of block_render.cu over a leading source axis, which is what its
@@ -27,8 +33,11 @@
 //   block_spectra    one block per (source, block) row: rfft_nfft of the
 //                    up/down-ramped raw block (both ramps in one complex
 //                    FFT), Y = Xu·H[s,b] + Xd·H[s,b−1]; without crossfade
-//                    Y = X·H[s,b]. A filter count per source of 1 lets one
-//                    filter serve every block (the static render).
+//                    Y = X·H[s,b]. Block b reads filter row ⌊b/k⌋ of its
+//                    source's ⌈nb/k⌉ (the dir_rate row map: one filter per
+//                    group of k blocks, assembled once), and its previous
+//                    filter is row ⌊(b−1)/k⌋, the same row inside a group;
+//                    k ≥ nb is one filter per source (the static render).
 //   block_spectra_mix  one block per (source chunk c, output block b): the
 //                    forward FFT and MAC of block_spectra for each source of
 //                    the chunk in turn, accumulated in shared memory → one
@@ -49,13 +58,13 @@
 
 namespace {
 
-// x: (S, nb, B) f32; H: (S·fnb, 2, F) complex64 with fnb ∈ {1, nb};
-// Y: (S, nb, 2, F) complex64.
+// x: (S, nb, B) f32; H: (S·fnb, 2, F) complex64, fnb = ⌈nb/k⌉ filter rows
+// per source; Y: (S, nb, 2, F) complex64.
 template <bool kSplit>
 __global__ void block_spectra_kernel(const float* __restrict__ x,
                                      const float2* __restrict__ H,
                                      float2* __restrict__ Y, int S, int nb,
-                                     int B, int n_fft, int fnb,
+                                     int B, int n_fft, int dir_rate,
                                      int crossfade, float2* scratch,
                                      int work) {
   extern __shared__ float2 smem[];
@@ -70,6 +79,7 @@ __global__ void block_spectra_kernel(const float* __restrict__ x,
   const FftPlan f = fft_plan(n, kSplit ? work : 0);
   make_twiddles(tw, tw_n);
   const float inv_B = 1.0f / B;
+  const int fnb = (nb + dir_rate - 1) / dir_rate;
   for (int r = blockIdx.x; r < S * nb; r = next_row<kSplit>(r, S * nb)) {
     __syncthreads();  // the previous row is done with buf
     const int s = r / nb;
@@ -91,11 +101,11 @@ __global__ void block_spectra_kernel(const float* __restrict__ x,
     }
     fft_run<kSplit>(f, buf, tw, tw_n, wbuf, false);
 
-    const int bc = fnb == 1 ? 0 : b;
-    const float2* Hc = H + (static_cast<size_t>(s) * fnb + bc) * 2 * F;
-    // block 0 of every source takes its own filter as "previous"
-    const float2* Hp =
-        H + (static_cast<size_t>(s) * fnb + (bc > 0 ? bc - 1 : 0)) * 2 * F;
+    const float2* Hc =
+        H + (static_cast<size_t>(s) * fnb + b / dir_rate) * 2 * F;
+    // the previous filter: the row before where b starts a group past
+    // block 0, else the same row (block 0 takes its own)
+    const float2* Hp = b > 0 && b % dir_rate == 0 ? Hc - 2 * F : Hc;
     float2* Y0 = Y + static_cast<size_t>(r) * 2 * F;
     for (int k = threadIdx.x; k < F; k += blockDim.x) {
       if (crossfade) {
@@ -112,16 +122,17 @@ __global__ void block_spectra_kernel(const float* __restrict__ x,
   }
 }
 
-// x: (S, nb, B) f32; H: (S·fnb, 2, F) complex64 with fnb ∈ {1, nb};
+// x: (S, nb, B) f32; H: (S·fnb, 2, F) complex64, fnb = ⌈nb/k⌉;
 // P: (C, nb, 2, F) complex64, C = ⌈S/chunk⌉, P[c, b] = Σ of Y[s, b] over the
 // sources c·chunk ≤ s < (c+1)·chunk, added in order of s.
 template <bool kSplit>
 __global__ void block_spectra_mix_kernel(const float* __restrict__ x,
                                          const float2* __restrict__ H,
                                          float2* __restrict__ P, int S,
-                                         int nb, int B, int n_fft, int fnb,
-                                         int chunk, int crossfade,
-                                         float2* scratch, int work) {
+                                         int nb, int B, int n_fft,
+                                         int dir_rate, int chunk,
+                                         int crossfade, float2* scratch,
+                                         int work) {
   extern __shared__ float2 smem[];
   const int n = n_fft;
   const int F = n / 2 + 1;
@@ -137,6 +148,7 @@ __global__ void block_spectra_mix_kernel(const float* __restrict__ x,
   make_twiddles(tw, tw_n);
   const float inv_B = 1.0f / B;
   const int rows = (S + chunk - 1) / chunk * nb;
+  const int fnb = (nb + dir_rate - 1) / dir_rate;
   for (int r = blockIdx.x; r < rows; r = next_row<kSplit>(r, rows)) {
     const int c = r / nb;
     const int b = r - c * nb;
@@ -145,7 +157,10 @@ __global__ void block_spectra_mix_kernel(const float* __restrict__ x,
       acc0[k] = make_float2(0.f, 0.f);
       acc1[k] = make_float2(0.f, 0.f);
     }
-    const int bc = fnb == 1 ? 0 : b;
+    const int hc = b / dir_rate;
+    // the previous filter: the row before where b starts a group past
+    // block 0, else the same row (block 0 takes its own)
+    const bool group_start = b > 0 && b == hc * dir_rate;
     const int s_end = min(S, (c + 1) * chunk);
     for (int s = c * chunk; s < s_end; ++s) {
       const float* xb = x + (static_cast<size_t>(s) * nb + b) * B;
@@ -165,10 +180,8 @@ __global__ void block_spectra_mix_kernel(const float* __restrict__ x,
       }
       fft_run<kSplit>(f, buf, tw, tw_n, wbuf, false);
 
-      const float2* Hc = H + (static_cast<size_t>(s) * fnb + bc) * 2 * F;
-      // block 0 of every source takes its own filter as "previous"
-      const float2* Hp =
-          H + (static_cast<size_t>(s) * fnb + (bc > 0 ? bc - 1 : 0)) * 2 * F;
+      const float2* Hc = H + (static_cast<size_t>(s) * fnb + hc) * 2 * F;
+      const float2* Hp = group_start ? Hc - 2 * F : Hc;
       for (int k = threadIdx.x; k < F; k += blockDim.x) {
         if (crossfade) {
           float2 Xu, Xd;
@@ -197,12 +210,13 @@ __global__ void block_spectra_mix_kernel(const float* __restrict__ x,
 
 extern "C" {
 
-// x: (S, nb, B) f32; H: (S·fnb, 2, F) complex64; Y: (S, nb, 2, F)
-// complex64. slices > 0: split mode, scratch holds slices · n_fft
-// complex64.
+// x: (S, nb, B) f32; H: (S·⌈nb/k⌉, 2, F) complex64, k = dir_rate; Y:
+// (S, nb, 2, F) complex64. slices > 0: split mode, scratch holds slices ·
+// n_fft complex64.
 int tt_block_spectra(const void* x, const void* H, void* Y, int S, int nb,
-                     int B, int n_fft, int fnb, int crossfade, void* scratch,
-                     int slices, int work, void* stream) {
+                     int B, int n_fft, int dir_rate, int crossfade,
+                     void* scratch, int slices, int work, void* stream) {
+  if (dir_rate < 1) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel =
       slices > 0 ? block_spectra_kernel<true> : block_spectra_kernel<false>;
   Launch l;
@@ -211,18 +225,19 @@ int tt_block_spectra(const void* x, const void* H, void* Y, int S, int nb,
   if (err) return err;
   kernel<<<l.grid, 256, l.smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float2*>(H),
-      static_cast<float2*>(Y), S, nb, B, n_fft, fnb, crossfade,
+      static_cast<float2*>(Y), S, nb, B, n_fft, dir_rate, crossfade,
       static_cast<float2*>(scratch), work);
   return static_cast<int>(cudaGetLastError());
 }
 
-// x: (S, nb, B) f32; H: (S·fnb, 2, F) complex64; P: (⌈S/chunk⌉, nb, 2, F)
-// complex64. slices > 0: split mode, scratch holds slices · (n_fft + 2F)
-// complex64.
+// x: (S, nb, B) f32; H: (S·⌈nb/k⌉, 2, F) complex64, k = dir_rate; P:
+// (⌈S/chunk⌉, nb, 2, F) complex64. slices > 0: split mode, scratch holds
+// slices · (n_fft + 2F) complex64.
 int tt_block_spectra_mix(const void* x, const void* H, void* P, int S,
-                         int nb, int B, int n_fft, int fnb, int chunk,
+                         int nb, int B, int n_fft, int dir_rate, int chunk,
                          int crossfade, void* scratch, int slices, int work,
                          void* stream) {
+  if (dir_rate < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int F = n_fft / 2 + 1;
   auto kernel = slices > 0 ? block_spectra_mix_kernel<true>
                            : block_spectra_mix_kernel<false>;
@@ -232,7 +247,7 @@ int tt_block_spectra_mix(const void* x, const void* H, void* P, int S,
   if (err) return err;
   kernel<<<l.grid, 256, l.smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float2*>(H),
-      static_cast<float2*>(P), S, nb, B, n_fft, fnb, chunk, crossfade,
+      static_cast<float2*>(P), S, nb, B, n_fft, dir_rate, chunk, crossfade,
       static_cast<float2*>(scratch), work);
   return static_cast<int>(cudaGetLastError());
 }

@@ -29,8 +29,13 @@
 //                        hold step is the same kernel without crossfade.
 //   partitioned_conv     one block per output block b of the offline render:
 //                        the P frame spectra X[b-p] recomputed from the input
-//                        (two frames per complex FFT), the MAC under H[b]
-//                        and H[b-1] (H[-1] := H[0]), tails and blend.
+//                        (two frames per complex FFT), the MAC under its
+//                        filter and the previous block's (block 0: its
+//                        own), tails and blend. Block b's filter is row
+//                        ⌊b/k⌋ of the ⌈nb/k⌉ assembled (k = dir_rate): the
+//                        TPU kernel's dir_rate path assembles the chunk/k
+//                        unique filters and copies each to its k blocks
+//                        (_expand_rows); here no row is copied.
 //
 // The two here run radix-2 FFTs in shared memory over natural-order bins.
 // Bound on the H100 by those FFT stages and their __syncthreads();
@@ -154,15 +159,18 @@ __device__ __forceinline__ float frame_sample(const float* x, int c, int t,
 }
 
 // One block per output block b = b0 + i, i < n_blocks (grid-stride when
-// split). x: (nb, B); H_*: rows for blocks b0 - has_prev … (P, 2, B+1
-// each); y: (2, nb·B).
+// split). x: (nb, B); H_*: filter rows ⌊b0/k⌋ − has_prev … (P, 2, B+1
+// each), k = dir_rate and b0 a multiple of k, so that a chunk that starts
+// past block 0 holds the previous group's row first; y: (2, nb·B).
+// ops/partitioned_conv.py `conv_rows` is the same map.
 template <bool kSplit>
 __global__ void partitioned_conv_kernel(const float* __restrict__ x,
                                         const float* __restrict__ H_re,
                                         const float* __restrict__ H_im,
                                         float* __restrict__ y, int nb, int b0,
-                                        int n_blocks, int has_prev, int B,
-                                        int P, int crossfade, float2* scratch,
+                                        int n_blocks, int has_prev,
+                                        int dir_rate, int B, int P,
+                                        int crossfade, float2* scratch,
                                         int work) {
   extern __shared__ float2 smem[];
   const int n = 2 * B;
@@ -181,8 +189,12 @@ __global__ void partitioned_conv_kernel(const float* __restrict__ x,
   for (int i = blockIdx.x; i < n_blocks; i = next_row<kSplit>(i, n_blocks)) {
     __syncthreads();
     const int b = b0 + i;
-    const size_t row = static_cast<size_t>(i + has_prev);
-    const size_t prow = b == 0 ? row : row - 1;
+    // block b's filter row, counted from the chunk's first (the group
+    // before b0's where b0 > 0); its predecessor's is the row before where
+    // b starts a group past block 0, else the same row
+    const size_t row =
+        static_cast<size_t>(b / dir_rate - b0 / dir_rate + has_prev);
+    const size_t prow = b > 0 && b % dir_rate == 0 ? row - 1 : row;
     for (int k = threadIdx.x; k < 4 * F2; k += blockDim.x)
       acc[k] = make_float2(0.f, 0.f);
 
@@ -256,13 +268,16 @@ int tt_stream_conv(const void* xb, const void* prev_in, const void* fdl_re,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x: (nb, B) f32; H_re, H_im: (n_blocks + has_prev, P, 2, B+1) f32 for
-// blocks b0 - has_prev … b0 + n_blocks - 1; y: (2, nb·B) f32. slices > 0:
-// split mode, scratch holds slices · (4B + 4(B+1)) complex64.
+// x: (nb, B) f32; H_re, H_im: (rows, P, 2, B+1) f32, the filter rows
+// ⌊b0/k⌋ − has_prev … ⌊(b0 + n_blocks − 1)/k⌋ with k = dir_rate and b0 a
+// multiple of k; y: (2, nb·B) f32. slices > 0: split mode, scratch holds
+// slices · (4B + 4(B+1)) complex64.
 int tt_partitioned_conv(const void* x, const void* H_re, const void* H_im,
                         void* y, int nb, int b0, int n_blocks, int has_prev,
-                        int B, int P, int crossfade, void* scratch,
-                        int slices, int work, void* stream) {
+                        int dir_rate, int B, int P, int crossfade,
+                        void* scratch, int slices, int work, void* stream) {
+  if (dir_rate < 1 || b0 % dir_rate)
+    return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = slices > 0 ? partitioned_conv_kernel<true>
                            : partitioned_conv_kernel<false>;
   Launch l;
@@ -272,8 +287,8 @@ int tt_partitioned_conv(const void* x, const void* H_re, const void* H_im,
   kernel<<<l.grid, 256, l.smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(H_re),
       static_cast<const float*>(H_im), static_cast<float*>(y), nb, b0,
-      n_blocks, has_prev, B, P, crossfade, static_cast<float2*>(scratch),
-      work);
+      n_blocks, has_prev, dir_rate, B, P, crossfade,
+      static_cast<float2*>(scratch), work);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -16,6 +16,14 @@ A short static `render` is one direct FFT convolution in `torch.fft` on
 either device. Numerical semantics are those of
 `tinaural.reference.golden` (≥60 dB SNR; f32 against f64 in practice
 ~90 dB).
+
+``RenderConfig.dir_rate`` = k snaps a moving track (block b takes the
+direction of block ⌊b/k⌋·k), and every route then works on one filter per
+group of k blocks: the cores look up rows [::k] of the snapped track,
+⌈nb/k⌉ directions a source, and pass ``dir_rate=k`` to the route, which
+assembles those filters only (the JAX kernels' unique-filter path). The
+output is the same as one filter per block of the snapped track. A static
+source is the case k ≥ nb: one filter for all its blocks.
 """
 
 from __future__ import annotations
@@ -54,6 +62,16 @@ def _snap_dirs(dirs, dir_rate: int):
     return dirs[..., idx, :]
 
 
+def _group_dirs(dirs, dir_rate: int):
+    """One direction per group of ``dir_rate`` blocks: rows [::k] of the
+    snapped track (`_snap_dirs`), block b's at row ⌊b/k⌋. dirs: (..., nb,
+    2) → (..., ⌈nb/k⌉, 2). Row g of the snapped track's rows [::k] is the
+    track's own row g·k, so this is a view of dirs: snapping by a gather
+    first would copy a numpy index to the card, a copy that waits for
+    the card."""
+    return dirs[..., ::dir_rate, :]
+
+
 def _neighbours(table: TorchTable, dirs: torch.Tensor, config: RenderConfig):
     """dirs (..., 2) → flat table rows idx (..., 4) int32 and bilinear (or
     nearest) weights w (..., 4) f32, contiguous."""
@@ -88,14 +106,15 @@ def _scene_mixes(S: int, nb: int, static: bool, sms: int) -> bool:
 
 
 def _block_render(table: TorchTable, xbs: torch.Tensor, dirs: torch.Tensor,
-                  config: RenderConfig, crossfade: bool,
-                  render) -> torch.Tensor:
-    """Neighbour rows/weights per (source, block) — or per source, with
-    dirs (S, 1, 2) — then one render call. xbs: (S, nb, B); ``render`` is
-    a route or, for checks, its plain version."""
+                  config: RenderConfig, crossfade: bool, render,
+                  dir_rate: int) -> torch.Tensor:
+    """Neighbour rows/weights of each group of ``dir_rate`` blocks, then
+    one render call. xbs: (S, nb, B); dirs: (S, ⌈nb/dir_rate⌉, 2);
+    ``render`` is a route or, for checks, its plain version."""
     idx, w = _neighbours(table, dirs, config)
     return render(xbs, idx, w, table, _n_fft(table, xbs.shape[-1]),
-                  crossfade=crossfade, **_flags(table, config))
+                  crossfade=crossfade, dir_rate=dir_rate,
+                  **_flags(table, config))
 
 
 def _static_core(table: TorchTable, x: torch.Tensor, dir2: torch.Tensor,
@@ -114,12 +133,12 @@ def _static_block_core(table: TorchTable, xb: torch.Tensor,
                        dir2: torch.Tensor, config: RenderConfig,
                        render=block_step_render) -> torch.Tensor:
     """OLA block convolution at one fixed direction: one filter, assembled
-    once, serves every block, with no crossfade (between equal filters it
-    is the identity). xb: (nb, B); dir2: (2,) → (2, (nb−1)·B + n_fft).
-    ``render`` is `block_step_render` or, for checks, its plain version."""
-    idx, w = _neighbours(table, dir2[None, None], config)
-    return render(xb[None], idx, w, table, _n_fft(table, xb.shape[-1]),
-                  crossfade=False, **_flags(table, config))[0]
+    once, serves every block (dir_rate nb), with no crossfade (between
+    equal filters it is the identity). xb: (nb, B); dir2: (2,) → (2,
+    (nb−1)·B + n_fft). ``render`` is `block_step_render` or, for checks,
+    its plain version."""
+    return _block_render(table, xb[None], dir2[None, None], config, False,
+                         render, xb.shape[0])[0]
 
 
 def _batch_core(table: TorchTable, xbs: torch.Tensor, dirs: torch.Tensor,
@@ -128,55 +147,64 @@ def _batch_core(table: TorchTable, xbs: torch.Tensor, dirs: torch.Tensor,
     (S, 2, (nb−1)·B + n_fft). Crossfades per ``config.crossfade`` even
     where a source's track is constant, as the JAX package does.
     ``render`` (a route, or its plain version for checks) defaults to
-    the one the shapes pick."""
+    the one the shapes pick. One filter per group of ``dir_rate`` blocks
+    of each source at every S: the JAX package keeps k = 1 above one
+    source, where its kernel's matmuls over chunk/k rows per source would
+    run too few rows for the TPU's matrix unit; a CUDA block here takes
+    one row at a time."""
     if render is None:
         render = (assembly_mac_render
                   if _natural_order(_n_fft(table, xbs.shape[-1]))
                   else block_step_render)
-    dirs = _snap_dirs(dirs, config.dir_rate)
-    return _block_render(table, xbs, dirs, config, config.crossfade, render)
+    k = config.dir_rate
+    return _block_render(table, xbs, _group_dirs(dirs, k), config,
+                         config.crossfade, render, k)
 
 
 def _trajectory_core(table: TorchTable, xb: torch.Tensor, dirs: torch.Tensor,
                      config: RenderConfig, render=None) -> torch.Tensor:
     """Crossfaded OLA block convolution. xb: (nb, B); dirs: (nb, 2) →
-    (2, (nb−1)·B + n_fft). ``render`` as in `_batch_core`."""
+    (2, (nb−1)·B + n_fft). ``render`` as in `_batch_core`; one filter per
+    group of ``dir_rate`` blocks."""
     if render is None:
         render = (assembly_mac_render
                   if _natural_order(_n_fft(table, xb.shape[-1]))
                   else block_render)
-    dirs = _snap_dirs(dirs, config.dir_rate)
+    k = config.dir_rate
     # one source: (2, out) mixed or (1, 2, out) per source, as the route has it
-    return _block_render(table, xb[None], dirs[None], config,
-                         config.crossfade, render).reshape(2, -1)
+    return _block_render(table, xb[None], _group_dirs(dirs, k)[None], config,
+                         config.crossfade, render, k).reshape(2, -1)
 
 
 def _scene_core(table: TorchTable, xbs: torch.Tensor, dirs: torch.Tensor,
                 config: RenderConfig, render=None) -> torch.Tensor:
     """Moving scene + stereo mixdown. xbs: (S, nb, B); dirs: (S, nb, 2) →
-    (2, out). ``render`` as in `_batch_core`."""
+    (2, out). ``render`` as in `_batch_core`; one filter per group of
+    ``dir_rate`` blocks of each source."""
     S, nb, _ = xbs.shape
     if render is None:
         render = (scene_step_render
                   if _scene_mixes(S, nb, False, sm_count(xbs.device))
                   else block_render)
-    dirs = _snap_dirs(dirs, config.dir_rate)
-    return _block_render(table, xbs, dirs, config, config.crossfade, render)
+    k = config.dir_rate
+    return _block_render(table, xbs, _group_dirs(dirs, k), config,
+                         config.crossfade, render, k)
 
 
 def _scene_static_core(table: TorchTable, xbs: torch.Tensor,
                        dirs: torch.Tensor, config: RenderConfig,
                        render=None) -> torch.Tensor:
     """Static-direction scene: xbs (S, nb, B); dirs (S, 2) → (2, out).
-    One filter per source serves all its blocks; between equal filters the
-    crossfade is the identity, so it is skipped. ``render`` as in
-    `_batch_core`."""
+    One filter per source serves all its blocks (dir_rate nb); between
+    equal filters the crossfade is the identity, so it is skipped.
+    ``render`` as in `_batch_core`."""
     S, nb, _ = xbs.shape
     if render is None:
         render = (scene_step_render
                   if _scene_mixes(S, nb, True, sm_count(xbs.device))
                   else block_render)
-    return _block_render(table, xbs, dirs[:, None, :], config, False, render)
+    return _block_render(table, xbs, dirs[:, None, :], config, False, render,
+                         nb)
 
 
 def _partitioned_core(table: TorchTable, xb: torch.Tensor,
@@ -184,12 +212,12 @@ def _partitioned_core(table: TorchTable, xb: torch.Tensor,
                       render=partitioned_render) -> torch.Tensor:
     """Batched partitioned convolution: the streaming renderer's map with
     every block at once. xb: (nb, B); dirs: (nb, 2) → (2, nb·B). Reads
-    ``dir_rate`` (snapped track); ``stream_update_rate`` is the streams'
-    knob. ``render`` is `partitioned_render` or, for checks, its plain
-    version."""
-    dirs = _snap_dirs(dirs, config.dir_rate)
-    idx, w = _neighbours(table, dirs, config)
-    return render(xb, idx, w, table, crossfade=config.crossfade,
+    ``dir_rate`` (snapped track, one filter per group of k blocks);
+    ``stream_update_rate`` is the streams' knob. ``render`` is
+    `partitioned_render` or, for checks, its plain version."""
+    k = config.dir_rate
+    idx, w = _neighbours(table, _group_dirs(dirs, k), config)
+    return render(xb, idx, w, table, crossfade=config.crossfade, dir_rate=k,
                   **_flags(table, config))
 
 

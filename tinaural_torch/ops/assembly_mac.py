@@ -20,6 +20,12 @@ flattened (source, block) axis, with ``F = n_fft/2 + 1``:
 3. kernel `spectra_inverse` and the per-source `overlap_add`
    (``ops/block_step.py``, ``ops/block_render.py``) → (S, 2, out).
 
+The route takes the block routes' ``dir_rate`` rows (one per group of k
+blocks) and hands the kernel one row per block, row ⌊b/k⌋ of its source's:
+the kernel assembles each row's filter inside its MAC, so a filter that k
+blocks share is assembled for each of them, as the JAX package's route
+runs `fused_assembly_mac` on the snapped track.
+
 `assembly_mac_render` launches the hand-written CUDA kernels on CUDA
 tensors and runs the plain versions on CPU tensors; any other device
 raises. ``launches`` counts this module's kernel.
@@ -62,22 +68,25 @@ def run_length(rows: int, slots: int) -> int:
 
 def assembly_mac_render(xbs: torch.Tensor, idx: torch.Tensor,
                         w: torch.Tensor, table: TorchTable, n_fft: int, *,
-                        crossfade: bool, apply_itd: bool,
-                        apply_ild: bool) -> torch.Tensor:
-    """xbs (S, nb, B) f32; idx (S, nb, 4) int32 flat table rows; w (S, nb,
-    4) → (S, 2, (nb−1)·B + n_fft) f32, one render per source."""
-    _check_inputs(xbs, idx, w, table, n_fft)
+                        crossfade: bool, apply_itd: bool, apply_ild: bool,
+                        dir_rate: int = 1) -> torch.Tensor:
+    """xbs (S, nb, B) f32; idx (S, ⌈nb/k⌉, 4) int32 flat table rows, one
+    per group of k = ``dir_rate`` blocks; w of idx's shape → (S, 2,
+    (nb−1)·B + n_fft) f32, one render per source."""
+    _check_inputs(xbs, idx, w, table, n_fft, dir_rate)
     kw = dict(crossfade=crossfade, apply_itd=apply_itd, apply_ild=apply_ild)
     if xbs.device.type == "cpu":
-        return assembly_mac_render_reference(xbs, idx, w, table, n_fft, **kw)
+        return assembly_mac_render_reference(xbs, idx, w, table, n_fft,
+                                             dir_rate=dir_rate, **kw)
     if xbs.device.type != "cuda":
         raise ValueError(f"assembly_mac_render runs on cpu or cuda, not {xbs.device}")
     if xbs.dtype != torch.float32:  # before the first launch
         raise TypeError(f"the CUDA route takes float32 blocks, got {xbs.dtype}")
     S, nb, B = xbs.shape
     Xu, Xd = _input_spectra(xbs, n_fft, crossfade)
-    Y = assembly_mac_cuda(idx.reshape(S * nb, 4), w.reshape(S * nb, 4), table,
-                          Xu, Xd, _first_rows(S, nb, xbs.device), n_fft, **kw)
+    Y = assembly_mac_cuda(_block_rows(idx, nb, dir_rate),
+                          _block_rows(w, nb, dir_rate), table, Xu, Xd,
+                          _first_rows(S, nb, xbs.device), n_fft, **kw)
     frames = spectra_inverse_cuda(Y.reshape(S, nb, 2, -1), n_fft)
     return overlap_add_cuda(frames, B)
 
@@ -85,19 +94,26 @@ def assembly_mac_render(xbs: torch.Tensor, idx: torch.Tensor,
 def assembly_mac_render_reference(xbs: torch.Tensor, idx: torch.Tensor,
                                   w: torch.Tensor, table: TorchTable,
                                   n_fft: int, *, crossfade: bool,
-                                  apply_itd: bool,
-                                  apply_ild: bool) -> torch.Tensor:
+                                  apply_itd: bool, apply_ild: bool,
+                                  dir_rate: int = 1) -> torch.Tensor:
     """`assembly_mac_render` in plain torch, in xbs' precision (float32 or
     float64)."""
     S, nb, B = xbs.shape
     Xu, Xd = _input_spectra(xbs, n_fft, crossfade)
-    Y = assembly_mac_reference(idx.reshape(S * nb, 4),
-                               w.reshape(S * nb, 4).to(xbs.dtype), table, Xu,
-                               Xd, _first_rows(S, nb, xbs.device), n_fft,
-                               crossfade=crossfade, apply_itd=apply_itd,
-                               apply_ild=apply_ild)
+    Y = assembly_mac_reference(_block_rows(idx, nb, dir_rate),
+                               _block_rows(w, nb, dir_rate).to(xbs.dtype),
+                               table, Xu, Xd, _first_rows(S, nb, xbs.device),
+                               n_fft, crossfade=crossfade,
+                               apply_itd=apply_itd, apply_ild=apply_ild)
     frames = spectra_inverse_reference(Y.reshape(S, nb, 2, -1), n_fft)
     return overlap_add(frames.transpose(1, 2), B)
+
+
+def _block_rows(t: torch.Tensor, nb: int, dir_rate: int) -> torch.Tensor:
+    """(S, ⌈nb/k⌉, 4) rows of groups of k = dir_rate blocks → (S·nb, 4),
+    block b's the row ⌊b/k⌋ of its source's."""
+    b = torch.arange(nb, device=t.device) // dir_rate
+    return t[:, b].reshape(-1, 4)
 
 
 def _input_spectra(xbs: torch.Tensor, n_fft: int, crossfade: bool):

@@ -1,14 +1,23 @@
 """The single-launch block render: raw blocks in, overlap-added stereo out.
 
 Counterpart of `tinaural.ops.pallas_kernels.fused_block_render` in its
-in-kernel gather mode. Per source s and block b, with ``F = n_fft/2 + 1``:
+in-kernel gather mode, its ``dir_rate`` path included. With ``F = n_fft/2
++ 1`` and k = ``dir_rate``, the filters are one per group of k blocks:
+idx and w hold ⌈nb/k⌉ rows per source, and block b takes row g(b) =
+⌊b/k⌋ (k = 1: one filter per block; k ≥ nb: one per source). Per source
+s and filter row j, then per block b:
 
 1. gather: h, d, g = Σₖ wₖ·row[idxₖ] (delay ALIGN_GUARD without ITD, gain
    1 without ILD);
-2. assembly: H[s,b] = rfft_nfft(effective_filter(h, d, g)) — (2, F);
-3. crossfaded MAC: Y = rfft(x·u)·H[s,b] + rfft(x·(1−u))·H[s,b−1] with
-   u = (i + 0.5)/B and H[s,−1] := H[s,0]; without crossfade Y = rfft(x)·H;
+2. assembly: H[s,j] = rfft_nfft(effective_filter(h, d, g)) — (2, F);
+3. crossfaded MAC: Y = rfft(x·u)·H[s,g(b)] + rfft(x·(1−u))·H[s,g(b−1)]
+   with u = (i + 0.5)/B and block 0's previous filter its own; without
+   crossfade Y = rfft(x)·H[s,g(b)];
 4. sum over sources, irfft per ear, overlap-add at hop B.
+
+On the track that `RenderConfig.dir_rate` snaps (block b at the direction
+of block ⌊b/k⌋·k), rows [::k] of the per-block rows give the same output
+at k as every row at k = 1, with k× fewer assemblies.
 
 `block_render` launches the hand-written CUDA kernels
 (``csrc/assemble_filters.cu``, ``csrc/block_mix_inverse.cu``,
@@ -44,18 +53,26 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def _check_inputs(xbs, idx, w, table: TorchTable, n_fft: int, *,
-                  one_filter_ok: bool = False) -> None:
-    """Shapes, types and devices of a block render's inputs; with
-    ``one_filter_ok`` idx and w may also hold one row set per source
-    (S, 1, 4)."""
+def filter_rows(nb: int, dir_rate: int) -> int:
+    """Filter rows per source of ``nb`` blocks at ``dir_rate`` blocks a
+    filter: ⌈nb/dir_rate⌉."""
+    if dir_rate < 1:
+        raise ValueError(f"dir_rate={dir_rate} must be at least 1")
+    return -(-nb // dir_rate)
+
+
+def _check_inputs(xbs, idx, w, table: TorchTable, n_fft: int,
+                  dir_rate: int) -> None:
+    """Shapes, types and devices of a block render's inputs: idx and w
+    hold ⌈nb/dir_rate⌉ rows per source."""
     if xbs.dim() != 3:
         raise ValueError(f"xbs must be (S, nb, B), got {tuple(xbs.shape)}")
     S, nb, B = xbs.shape
-    shapes = {(S, nb, 4), (S, 1, 4)} if one_filter_ok else {(S, nb, 4)}
+    want = (S, filter_rows(nb, dir_rate), 4)
     for name, t in (("idx", idx), ("w", w)):
-        if tuple(t.shape) not in shapes:
-            raise ValueError(f"{name} must be ({S}, {nb}, 4), got {tuple(t.shape)}")
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name} must be {want} at dir_rate={dir_rate}, "
+                             f"got {tuple(t.shape)}")
     if idx.dtype != torch.int32:
         raise TypeError(f"idx must be int32, got {idx.dtype}")
     if n_fft & (n_fft - 1) or n_fft % B or n_fft < B + table.taps + DELAY_PAD - 1:
@@ -69,12 +86,14 @@ def _check_inputs(xbs, idx, w, table: TorchTable, n_fft: int, *,
 
 def block_render(xbs: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
                  table: TorchTable, n_fft: int, *, crossfade: bool,
-                 apply_itd: bool, apply_ild: bool) -> torch.Tensor:
-    """xbs (S, nb, B) f32; idx (S, nb, 4) int32 flat table rows
-    (e·A_max + a), or (S, 1, 4): one direction per source; w of idx's
+                 apply_itd: bool, apply_ild: bool,
+                 dir_rate: int = 1) -> torch.Tensor:
+    """xbs (S, nb, B) f32; idx (S, ⌈nb/k⌉, 4) int32 flat table rows
+    (e·A_max + a), one per group of k = ``dir_rate`` blocks; w of idx's
     shape, f32 → (2, (nb−1)·B + n_fft) f32, sources mixed down."""
-    _check_inputs(xbs, idx, w, table, n_fft, one_filter_ok=True)
-    kw = dict(crossfade=crossfade, apply_itd=apply_itd, apply_ild=apply_ild)
+    _check_inputs(xbs, idx, w, table, n_fft, dir_rate)
+    kw = dict(crossfade=crossfade, apply_itd=apply_itd, apply_ild=apply_ild,
+              dir_rate=dir_rate)
     if xbs.device.type == "cpu":
         return block_render_reference(xbs, idx, w, table, n_fft, **kw)
     if xbs.device.type != "cuda":
@@ -83,16 +102,15 @@ def block_render(xbs: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
 
 
 def _block_render_cuda(xbs, idx, w, table: TorchTable, n_fft: int, *,
-                       crossfade: bool, apply_itd: bool,
-                       apply_ild: bool) -> torch.Tensor:
+                       crossfade: bool, apply_itd: bool, apply_ild: bool,
+                       dir_rate: int) -> torch.Tensor:
     if xbs.dtype != torch.float32:  # before the first launch
         raise TypeError(f"the CUDA route takes float32 blocks, got {xbs.dtype}")
-    shape = (*xbs.shape[:2], 4)  # the mix kernel reads a filter per block
-    H = assemble_filters_cuda(idx.expand(shape).contiguous(),
-                              w.expand(shape).contiguous(), table, n_fft,
-                              apply_itd=apply_itd, apply_ild=apply_ild)
+    H = assemble_filters_cuda(idx, w, table, n_fft, apply_itd=apply_itd,
+                              apply_ild=apply_ild)
     frames = block_spectra_mix_inverse_cuda(xbs, H, n_fft,
-                                            crossfade=crossfade)
+                                            crossfade=crossfade,
+                                            dir_rate=dir_rate)
     return overlap_add_cuda(frames[None], xbs.shape[-1])[0]
 
 
@@ -113,8 +131,8 @@ def _cuda_inputs(*tensors: torch.Tensor) -> int:
 def assemble_filters_cuda(idx: torch.Tensor, w: torch.Tensor,
                           table: TorchTable, n_fft: int, *, apply_itd: bool,
                           apply_ild: bool) -> torch.Tensor:
-    """Kernel `assemble_filters`: idx (S, nb, 4) int32, w (S, nb, 4) f32 →
-    H (S, nb, 2, F) complex64."""
+    """Kernel `assemble_filters`: idx (S, rows, 4) int32, w (S, rows, 4)
+    f32 → H (S, rows, 2, F) complex64, one filter per row."""
     from . import _build
 
     stream = _cuda_inputs(idx, w, table.h, table.delays, table.gains)
@@ -148,19 +166,21 @@ def assemble_filters_cuda(idx: torch.Tensor, w: torch.Tensor,
 
 
 def block_spectra_mix_inverse_cuda(xbs: torch.Tensor, H: torch.Tensor,
-                                   n_fft: int, *, crossfade: bool
-                                   ) -> torch.Tensor:
-    """Kernel `block_spectra_mix_inverse`: xbs (S, nb, B) f32, H (S, nb, 2,
-    F) complex64 → frames (nb, 2, n_fft) f32."""
+                                   n_fft: int, *, crossfade: bool,
+                                   dir_rate: int = 1) -> torch.Tensor:
+    """Kernel `block_spectra_mix_inverse`: xbs (S, nb, B) f32, H (S,
+    ⌈nb/k⌉, 2, F) complex64, block b's filter row ⌊b/k⌋ with k =
+    ``dir_rate`` → frames (nb, 2, n_fft) f32."""
     from . import _build
 
     stream = _cuda_inputs(xbs, H)
     S, nb, B = xbs.shape
     if xbs.dtype != torch.float32 or H.dtype != torch.complex64:
         raise TypeError("xbs must be float32 and H complex64")
-    if tuple(H.shape) != (S, nb, 2, n_fft // 2 + 1):
-        raise ValueError(f"H must be ({S}, {nb}, 2, {n_fft // 2 + 1}), "
-                         f"got {tuple(H.shape)}")
+    want = (S, filter_rows(nb, dir_rate), 2, n_fft // 2 + 1)
+    if tuple(H.shape) != want:
+        raise ValueError(f"H must be {want} at dir_rate={dir_rate}, got "
+                         f"{tuple(H.shape)}")
     if n_fft & (n_fft - 1) or n_fft < max(B, MIN_MIX_N):
         raise ValueError(f"n_fft={n_fft} must be a power of two of at least "
                          f"B={B} and {MIN_MIX_N}")
@@ -173,8 +193,8 @@ def block_spectra_mix_inverse_cuda(xbs: torch.Tensor, H: torch.Tensor,
     tw = 0 if split[1] else twiddles(n_fft, xbs.device).data_ptr()
     _build.check(_build.library().tt_block_spectra_mix_inverse(
         xbs.data_ptr(), H.data_ptr(), frames.data_ptr(), tw, S, nb, B, n_fft,
-        int(crossfade), plan.threads, groups, plan.blocks_per_sm, *split,
-        stream), "block_spectra_mix_inverse")
+        int(crossfade), dir_rate, plan.threads, groups, plan.blocks_per_sm,
+        *split, stream), "block_spectra_mix_inverse")
     launches["block_spectra_mix_inverse"] += 1
     return frames
 
@@ -203,8 +223,8 @@ def overlap_add_cuda(frames: torch.Tensor, hop: int) -> torch.Tensor:
 def assemble_filters_reference(idx, w, table: TorchTable, n_fft: int, *,
                                apply_itd: bool, apply_ild: bool
                                ) -> torch.Tensor:
-    """Plain version of `assemble_filters`: (S, nb, 4) rows/weights →
-    H (S, nb, 2, F) in w's precision, through the kernel's FFT chain (the
+    """Plain version of `assemble_filters`: (S, rows, 4) rows/weights →
+    H (S, rows, 2, F) in w's precision, through the kernel's FFT chain (the
     map of `filter_spectrum_mm`, whose dense matrices grow as taps·L)."""
     h, d, g = gather_rows(table, idx, w, apply_itd=apply_itd,
                           apply_ild=apply_ild)
@@ -212,25 +232,28 @@ def assemble_filters_reference(idx, w, table: TorchTable, n_fft: int, *,
 
 
 def block_spectra_mix_inverse_reference(xbs, H, n_fft: int, *,
-                                        crossfade: bool) -> torch.Tensor:
+                                        crossfade: bool,
+                                        dir_rate: int = 1) -> torch.Tensor:
     """Plain version of `block_spectra_mix_inverse`: xbs (S, nb, B) and
-    H (S, nb, 2, F) → frames (nb, 2, n_fft)."""
+    H (S, ⌈nb/k⌉, 2, F) → frames (nb, 2, n_fft)."""
     from .block_step import block_spectra_reference  # which imports this
 
-    Y = block_spectra_reference(xbs, H, n_fft, crossfade=crossfade)
+    Y = block_spectra_reference(xbs, H, n_fft, crossfade=crossfade,
+                                dir_rate=dir_rate)
     return torch.fft.irfft(Y.sum(0), n=n_fft)
 
 
 def block_render_reference(xbs: torch.Tensor, idx: torch.Tensor,
                            w: torch.Tensor, table: TorchTable, n_fft: int, *,
                            crossfade: bool, apply_itd: bool,
-                           apply_ild: bool) -> torch.Tensor:
+                           apply_ild: bool, dir_rate: int = 1
+                           ) -> torch.Tensor:
     """`block_render` in plain torch, in xbs' precision (float32 or
-    float64): gather → effective filter → rfft MAC → source sum → irfft
-    → overlap_add. One filter per source (idx (S, 1, 4)) serves all its
-    blocks."""
+    float64): gather → effective filter per row → rfft MAC, block b under
+    row ⌊b/dir_rate⌋ → source sum → irfft → overlap_add."""
     H = assemble_filters_reference(idx, w.to(xbs.dtype), table, n_fft,
                                    apply_itd=apply_itd, apply_ild=apply_ild)
     frames = block_spectra_mix_inverse_reference(xbs, H, n_fft,
-                                                 crossfade=crossfade)
+                                                 crossfade=crossfade,
+                                                 dir_rate=dir_rate)
     return overlap_add(frames.transpose(0, 1), xbs.shape[-1])

@@ -6,14 +6,16 @@ Counterpart of `tinaural.ops.pallas_kernels`' `fused_block_step` (forward
 FFT, filter assembly, crossfaded MAC → block spectra),
 `fused_block_step_mix` (the same, accumulated over sources) and
 `fused_epilogue` (inverse FFT of both ears, OLA that never crosses a source
-boundary). Per source s and block b, with ``F = n_fft/2 + 1``:
+boundary). With ``F = n_fft/2 + 1``, k = ``dir_rate`` and g(b) = ⌊b/k⌋
+(one filter per group of k blocks, as `ops/block_render.py` says; k ≥ nb
+is one filter per source), per source s:
 
-1. kernel `assemble_filters` (``ops/block_render.py``): H[s,b] =
-   rfft_nfft(effective_filter(gather(idx, w))), or one H[s] per source
-   when idx holds one row set per source;
-2. kernel `block_spectra`: Y[s,b] = rfft(x·u)·H[s,b] + rfft(x·(1−u))·
-   H[s,b−1] with u = (i + 0.5)/B and H[s,−1] := H[s,0]; without crossfade
-   Y = rfft(x)·H[s,b];
+1. kernel `assemble_filters` (``ops/block_render.py``): H[s,j] =
+   rfft_nfft(effective_filter(gather(idx, w))) for each of the ⌈nb/k⌉
+   rows j;
+2. kernel `block_spectra`: Y[s,b] = rfft(x·u)·H[s,g(b)] + rfft(x·(1−u))·
+   H[s,g(b−1)] with u = (i + 0.5)/B and block 0's previous filter its
+   own; without crossfade Y = rfft(x)·H[s,g(b)];
 3. kernel `spectra_inverse`: frames[s,b] = irfft(Y[s,b]) per ear;
 4. kernel `overlap_add` (``ops/block_render.py``) at hop B within each
    source → (S, 2, (nb−1)·B + n_fft).
@@ -39,7 +41,8 @@ import torch
 from ._layout import layout, sm_count
 from .block_render import (_check_inputs, _cuda_inputs,
                            assemble_filters_cuda, assemble_filters_reference,
-                           block_render_reference, overlap_add_cuda)
+                           block_render_reference, filter_rows,
+                           overlap_add_cuda)
 from .ola import overlap_add
 from .spectra_inverse import MAX_REGISTER_N, inverse_plan, twiddles
 
@@ -58,12 +61,14 @@ def reset_launches() -> None:
 
 def block_step_render(xbs: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
                       table, n_fft: int, *, crossfade: bool, apply_itd: bool,
-                      apply_ild: bool) -> torch.Tensor:
-    """xbs (S, nb, B) f32; idx (S, nb, 4) int32 flat table rows (e·A_max +
-    a) or (S, 1, 4), one filter per source; w the weights of idx's shape
-    → (S, 2, (nb−1)·B + n_fft) f32, one render per source."""
-    _check_inputs(xbs, idx, w, table, n_fft, one_filter_ok=True)
-    kw = dict(crossfade=crossfade, apply_itd=apply_itd, apply_ild=apply_ild)
+                      apply_ild: bool, dir_rate: int = 1) -> torch.Tensor:
+    """xbs (S, nb, B) f32; idx (S, ⌈nb/k⌉, 4) int32 flat table rows
+    (e·A_max + a), one per group of k = ``dir_rate`` blocks; w the weights
+    of idx's shape → (S, 2, (nb−1)·B + n_fft) f32, one render per
+    source."""
+    _check_inputs(xbs, idx, w, table, n_fft, dir_rate)
+    kw = dict(crossfade=crossfade, apply_itd=apply_itd, apply_ild=apply_ild,
+              dir_rate=dir_rate)
     if xbs.device.type == "cpu":
         return block_step_render_reference(xbs, idx, w, table, n_fft, **kw)
     if xbs.device.type != "cuda":
@@ -72,31 +77,35 @@ def block_step_render(xbs: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
         raise TypeError(f"the CUDA route takes float32 blocks, got {xbs.dtype}")
     H = assemble_filters_cuda(idx, w, table, n_fft, apply_itd=apply_itd,
                               apply_ild=apply_ild)
-    Y = block_spectra_cuda(xbs, H, n_fft, crossfade=crossfade)
+    Y = block_spectra_cuda(xbs, H, n_fft, crossfade=crossfade,
+                           dir_rate=dir_rate)
     return overlap_add_cuda(spectra_inverse_cuda(Y, n_fft), xbs.shape[-1])
 
 
 def block_step_render_reference(xbs: torch.Tensor, idx: torch.Tensor,
                                 w: torch.Tensor, table, n_fft: int, *,
                                 crossfade: bool, apply_itd: bool,
-                                apply_ild: bool) -> torch.Tensor:
+                                apply_ild: bool, dir_rate: int = 1
+                                ) -> torch.Tensor:
     """`block_step_render` in plain torch, in xbs' precision (float32 or
     float64)."""
     H = assemble_filters_reference(idx, w.to(xbs.dtype), table, n_fft,
                                    apply_itd=apply_itd, apply_ild=apply_ild)
-    Y = block_spectra_reference(xbs, H, n_fft, crossfade=crossfade)
+    Y = block_spectra_reference(xbs, H, n_fft, crossfade=crossfade,
+                                dir_rate=dir_rate)
     frames = spectra_inverse_reference(Y, n_fft)  # (S, nb, 2, n_fft)
     return overlap_add(frames.transpose(1, 2), xbs.shape[-1])
 
 
 def scene_step_render(xbs: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
                       table, n_fft: int, *, crossfade: bool, apply_itd: bool,
-                      apply_ild: bool) -> torch.Tensor:
-    """xbs (S, nb, B) f32; idx (S, nb, 4) int32 flat table rows or
-    (S, 1, 4), one filter per source; w the weights of idx's shape →
+                      apply_ild: bool, dir_rate: int = 1) -> torch.Tensor:
+    """xbs (S, nb, B) f32; idx (S, ⌈nb/k⌉, 4) int32 flat table rows, one
+    per group of k = ``dir_rate`` blocks; w the weights of idx's shape →
     (2, (nb−1)·B + n_fft) f32, the sources mixed down."""
-    _check_inputs(xbs, idx, w, table, n_fft, one_filter_ok=True)
-    kw = dict(crossfade=crossfade, apply_itd=apply_itd, apply_ild=apply_ild)
+    _check_inputs(xbs, idx, w, table, n_fft, dir_rate)
+    kw = dict(crossfade=crossfade, apply_itd=apply_itd, apply_ild=apply_ild,
+              dir_rate=dir_rate)
     if xbs.device.type == "cpu":
         return scene_step_render_reference(xbs, idx, w, table, n_fft, **kw)
     if xbs.device.type != "cuda":
@@ -107,14 +116,15 @@ def scene_step_render(xbs: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     H = assemble_filters_cuda(idx, w, table, n_fft, apply_itd=apply_itd,
                               apply_ild=apply_ild)
     P = block_spectra_mix_cuda(xbs, H, n_fft, crossfade=crossfade,
-                               chunk=mix_chunk(S, nb, sm_count(xbs.device)))
+                               chunk=mix_chunk(S, nb, sm_count(xbs.device)),
+                               dir_rate=dir_rate)
     frames = spectra_inverse_cuda(P, n_fft, summed=True)
     return overlap_add_cuda(frames[None], B)[0]
 
 
 # `scene_step_render` in plain torch is B1's plain version: the same map
 # (block spectra summed over sources, irfft, overlap-add), in xbs'
-# precision, one filter per source allowed.
+# precision, at any dir_rate.
 scene_step_render_reference = block_render_reference
 
 
@@ -126,8 +136,8 @@ def mix_chunk(S: int, nb: int, sms: int) -> int:
     return -(-S // chunks)
 
 
-def _check_spectra_inputs(xbs: torch.Tensor, H: torch.Tensor,
-                          n_fft: int) -> tuple[int, int, int, int]:
+def _check_spectra_inputs(xbs: torch.Tensor, H: torch.Tensor, n_fft: int,
+                          dir_rate: int) -> tuple[int, int, int, int]:
     """Types and shapes of a block-spectra kernel's inputs → (S, nb, B, F)."""
     if xbs.dtype != torch.float32 or H.dtype != torch.complex64:
         raise TypeError("xbs must be float32 and H complex64")
@@ -135,9 +145,9 @@ def _check_spectra_inputs(xbs: torch.Tensor, H: torch.Tensor,
         raise ValueError(f"xbs must be (S, nb, B), got {tuple(xbs.shape)}")
     S, nb, B = xbs.shape
     F = n_fft // 2 + 1
-    if H.dim() != 4 or H.shape[0] != S or H.shape[1] not in (1, nb) \
-            or H.shape[2:] != (2, F):
-        raise ValueError(f"H must be ({S}, {nb} or 1, 2, {F}), got "
+    want = (S, filter_rows(nb, dir_rate), 2, F)
+    if tuple(H.shape) != want:
+        raise ValueError(f"H must be {want} at dir_rate={dir_rate}, got "
                          f"{tuple(H.shape)}")
     if n_fft & (n_fft - 1) or n_fft < B:
         raise ValueError(f"n_fft={n_fft} must be a power of two of at least "
@@ -146,32 +156,35 @@ def _check_spectra_inputs(xbs: torch.Tensor, H: torch.Tensor,
 
 
 def block_spectra_cuda(xbs: torch.Tensor, H: torch.Tensor, n_fft: int, *,
-                       crossfade: bool) -> torch.Tensor:
-    """Kernel `block_spectra`: xbs (S, nb, B) f32, H (S, nb, 2, F) or
-    (S, 1, 2, F) complex64 → Y (S, nb, 2, F) complex64."""
+                       crossfade: bool, dir_rate: int = 1) -> torch.Tensor:
+    """Kernel `block_spectra`: xbs (S, nb, B) f32, H (S, ⌈nb/k⌉, 2, F)
+    complex64, block b's filter row ⌊b/k⌋ with k = ``dir_rate`` → Y (S,
+    nb, 2, F) complex64."""
     from . import _build
 
     stream = _cuda_inputs(xbs, H)
-    S, nb, B, F = _check_spectra_inputs(xbs, H, n_fft)
+    S, nb, B, F = _check_spectra_inputs(xbs, H, n_fft, dir_rate)
     Y = torch.empty((S, nb, 2, F), dtype=torch.complex64, device=xbs.device)
     *split, _keep = layout(xbs.device, n_fft // 2 + n_fft, n_fft, S * nb,
                            n_fft)
     _build.check(_build.library().tt_block_spectra(
         xbs.data_ptr(), H.data_ptr(), Y.data_ptr(), S, nb, B, n_fft,
-        H.shape[1], int(crossfade), *split, stream), "block_spectra")
+        dir_rate, int(crossfade), *split, stream), "block_spectra")
     launches["block_spectra"] += 1
     return Y
 
 
 def block_spectra_mix_cuda(xbs: torch.Tensor, H: torch.Tensor, n_fft: int,
-                           *, crossfade: bool, chunk: int) -> torch.Tensor:
-    """Kernel `block_spectra_mix`: xbs (S, nb, B) f32, H (S, nb, 2, F) or
-    (S, 1, 2, F) complex64 → partials P (⌈S/chunk⌉, nb, 2, F) complex64,
-    P[c] the block spectra of sources c·chunk … (c+1)·chunk − 1 summed."""
+                           *, crossfade: bool, chunk: int,
+                           dir_rate: int = 1) -> torch.Tensor:
+    """Kernel `block_spectra_mix`: xbs (S, nb, B) f32, H (S, ⌈nb/k⌉, 2,
+    F) complex64 as in `block_spectra_cuda` → partials P (⌈S/chunk⌉, nb, 2,
+    F) complex64, P[c] the block spectra of sources c·chunk … (c+1)·chunk
+    − 1 summed."""
     from . import _build
 
     stream = _cuda_inputs(xbs, H)
-    S, nb, B, F = _check_spectra_inputs(xbs, H, n_fft)
+    S, nb, B, F = _check_spectra_inputs(xbs, H, n_fft, dir_rate)
     if chunk < 1:
         raise ValueError(f"chunk={chunk} must be positive")
     P = torch.empty((-(-S // chunk), nb, 2, F), dtype=torch.complex64,
@@ -180,7 +193,7 @@ def block_spectra_mix_cuda(xbs: torch.Tensor, H: torch.Tensor, n_fft: int,
                            n_fft + 2 * F, P.shape[0] * nb, n_fft)
     _build.check(_build.library().tt_block_spectra_mix(
         xbs.data_ptr(), H.data_ptr(), P.data_ptr(), S, nb, B, n_fft,
-        H.shape[1], chunk, int(crossfade), *split, stream),
+        dir_rate, chunk, int(crossfade), *split, stream),
         "block_spectra_mix")
     launches["block_spectra_mix"] += 1
     return P
@@ -223,25 +236,30 @@ def spectra_inverse_cuda(Y: torch.Tensor, n_fft: int, *,
 
 
 def block_spectra_reference(xbs: torch.Tensor, H: torch.Tensor, n_fft: int,
-                            *, crossfade: bool) -> torch.Tensor:
+                            *, crossfade: bool,
+                            dir_rate: int = 1) -> torch.Tensor:
     """Plain version of `block_spectra`, in xbs' precision: xbs (S, nb, B),
-    H (S, nb or 1, 2, F) → Y (S, nb, 2, F)."""
-    B = xbs.shape[-1]
+    H (S, ⌈nb/k⌉, 2, F) → Y (S, nb, 2, F), block b under H[:, ⌊b/k⌋] and,
+    crossfading, H[:, ⌊(b−1)/k⌋] (block 0: its own)."""
+    nb, B = xbs.shape[-2:]
+    b = torch.arange(nb, device=xbs.device)
+    Hc = H[:, b // dir_rate]
     if not crossfade:
-        return torch.fft.rfft(xbs, n=n_fft)[:, :, None] * H
+        return torch.fft.rfft(xbs, n=n_fft)[:, :, None] * Hc
     u = (torch.arange(B, dtype=xbs.dtype, device=xbs.device) + 0.5) / B
     Xu = torch.fft.rfft(xbs * u, n=n_fft)[:, :, None]
     Xd = torch.fft.rfft(xbs * (1.0 - u), n=n_fft)[:, :, None]
-    Hp = torch.cat([H[:, :1], H[:, :-1]], dim=1)  # block 0: own filter
-    return Xu * H + Xd * Hp
+    Hp = H[:, (b - 1).clamp(min=0) // dir_rate]
+    return Xu * Hc + Xd * Hp
 
 
 def block_spectra_mix_reference(xbs: torch.Tensor, H: torch.Tensor,
-                                n_fft: int, *, crossfade: bool,
-                                chunk: int) -> torch.Tensor:
+                                n_fft: int, *, crossfade: bool, chunk: int,
+                                dir_rate: int = 1) -> torch.Tensor:
     """Plain version of `block_spectra_mix`, in xbs' precision: xbs
-    (S, nb, B), H (S, nb or 1, 2, F) → P (⌈S/chunk⌉, nb, 2, F)."""
-    Y = block_spectra_reference(xbs, H, n_fft, crossfade=crossfade)
+    (S, nb, B), H (S, ⌈nb/k⌉, 2, F) → P (⌈S/chunk⌉, nb, 2, F)."""
+    Y = block_spectra_reference(xbs, H, n_fft, crossfade=crossfade,
+                                dir_rate=dir_rate)
     return torch.stack([Y[s:s + chunk].sum(0)
                         for s in range(0, xbs.shape[0], chunk)])
 

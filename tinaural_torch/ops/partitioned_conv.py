@@ -15,8 +15,11 @@ and ``F2 = B + 1`` bins of the 2B frame:
   H_prev;
 - `stream_hold`: `stream_conv` under the carried partitions, no blend;
 - `partitioned_render`: the same map with every block of one signal
-  batched: H for each block, then kernel `partitioned_conv`, with
-  ``H[b−1]`` as the previous filter and ``H[−1] := H[0]``.
+  batched: H for each group of k = ``dir_rate`` blocks (⌈nb/k⌉ rows, the
+  JAX kernel's unique-filter path), then kernel `partitioned_conv`, block
+  b under row ⌊b/k⌋ with row ⌊(b−1)/k⌋ as the previous filter (block 0:
+  its own). On the track `RenderConfig.dir_rate` snaps, that is the map
+  of k = 1 with every block's filter, at k× fewer assemblies.
 
 Partition spectra travel as float32 re/im planes (..., P, 2, F2), the
 layout of `StreamState.prev_h`, and the delay line as (..., P, F2) planes.
@@ -40,7 +43,7 @@ import torch
 from ..data.table import (ALIGN_GUARD, MAX_RENDER_SHIFT, TAPER_HI,
                           TAPER_LO, TorchTable)
 from ._layout import layout, sm_count
-from .block_render import _cuda_inputs
+from .block_render import _cuda_inputs, filter_rows
 from .filters import (effective_filter, filter_partitions, n_parts,
                       partition_spectra)
 from .interp import gather_rows
@@ -55,8 +58,9 @@ launches = dict.fromkeys(KERNELS, 0)
 
 # The CUDA route of `partitioned_render` assembles the partition planes of
 # at most this many bytes at a time (rows·P·2·F2·8): blocks go through
-# `partitioned_conv` in chunks, each with its own rows and the row before.
-# 2048 blocks of 512 at 2048 taps (P = 5) are 84 MB, one chunk.
+# `partitioned_conv` in chunks of whole groups of dir_rate blocks, each
+# with its own rows and the row before (`render_chunks`). 2048 blocks of
+# 512 at 2048 taps (P = 5) are 84 MB at dir_rate 1, one chunk.
 CHUNK_BYTES = 1 << 28
 
 
@@ -129,50 +133,110 @@ def stream_hold_reference(xb, prev_in, fdl_re, fdl_im, ph_re, ph_im,
 
 def partitioned_render(xb: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
                        table: TorchTable, *, crossfade: bool, apply_itd: bool,
-                       apply_ild: bool) -> torch.Tensor:
+                       apply_ild: bool, dir_rate: int = 1) -> torch.Tensor:
     """Batched partitioned convolution of one signal. xb (nb, B); idx
-    (nb, 4) int32 flat table rows, w (nb, 4) per block → (2, nb·B)."""
-    kw = dict(crossfade=crossfade, apply_itd=apply_itd, apply_ild=apply_ild)
+    (⌈nb/k⌉, 4) int32 flat table rows and w (⌈nb/k⌉, 4), one per group of
+    k = ``dir_rate`` blocks → (2, nb·B)."""
+    kw = dict(crossfade=crossfade, apply_itd=apply_itd, apply_ild=apply_ild,
+              dir_rate=dir_rate)
+    nb, B = xb.shape
+    want = (filter_rows(nb, dir_rate), 4)
+    if tuple(idx.shape) != want or w.shape != idx.shape:
+        raise ValueError(f"idx and w must be {want} at dir_rate={dir_rate}, "
+                         f"got {tuple(idx.shape)} and {tuple(w.shape)}")
     if not _on_cuda(xb, "partitioned_render"):
         return partitioned_render_reference(xb, idx, w, table, **kw)
     if xb.dtype != torch.float32:  # before the first launch
         raise TypeError(f"the CUDA route takes float32 blocks, got {xb.dtype}")
+    return chunked_render(assemble_partitions_cuda, partitioned_conv_cuda,
+                          xb, idx, w, table, **kw)
+
+
+def chunked_render(assemble, conv, xb, idx, w, table: TorchTable, *,
+                   crossfade: bool, apply_itd: bool, apply_ild: bool,
+                   dir_rate: int) -> torch.Tensor:
+    """`partitioned_render`'s CUDA route over `render_chunks`, with
+    ``assemble`` and ``conv`` the two kernels' wrappers or their plain
+    versions."""
     nb, B = xb.shape
-    P = n_parts(table.taps, B)
-    chunk = max(1, CHUNK_BYTES // (P * 2 * (B + 1) * 8))
-    out = torch.empty((2, nb * B), dtype=torch.float32, device=xb.device)
-    for b0 in range(0, nb, chunk):
-        b1 = min(nb, b0 + chunk)
-        r0 = b0 - (b0 > 0)
-        h_re, h_im = assemble_partitions_cuda(idx[r0:b1], w[r0:b1], table, B,
-                                              apply_itd=apply_itd,
-                                              apply_ild=apply_ild)
-        partitioned_conv_cuda(xb, h_re, h_im, crossfade=crossfade, start=b0,
-                              out=out)
+    row_bytes = n_parts(table.taps, B) * 2 * (B + 1) * 8
+    chunk = max(1, CHUNK_BYTES // row_bytes) * dir_rate
+    out = xb.new_empty((2, nb * B))
+    for b0, b1, r0, r1 in render_chunks(nb, dir_rate, chunk):
+        h_re, h_im = assemble(idx[r0:r1], w[r0:r1].to(xb.dtype), table, B,
+                              apply_itd=apply_itd, apply_ild=apply_ild)
+        conv(xb, h_re, h_im, crossfade=crossfade, start=b0, stop=b1,
+             dir_rate=dir_rate, out=out)
     return out
+
+
+def render_chunks(nb: int, dir_rate: int, chunk: int
+                  ) -> list[tuple[int, int, int, int]]:
+    """The chunks of `partitioned_render`'s CUDA route: (b0, b1, r0, r1),
+    blocks b0 … b1 − 1 through one `partitioned_conv` launch with the
+    filter rows r0 … r1 − 1 of the ⌈nb/k⌉ (k = ``dir_rate``) assembled
+    for it. A chunk is ``chunk`` blocks rounded down to whole groups (at
+    least one), so each starts a group: past block 0 its rows begin with
+    the one group before it, the previous filter of its first block."""
+    k = dir_rate
+    step = max(k, chunk - chunk % k)
+    return [(b0, min(nb, b0 + step), b0 // k - (b0 > 0),
+             filter_rows(min(nb, b0 + step), k))
+            for b0 in range(0, nb, step)]
+
+
+def conv_rows(start: int, stop: int, dir_rate: int, device=None):
+    """The row map of `partitioned_conv` (``csrc/partitioned.cu``) for
+    blocks start … stop − 1, start a multiple of k = ``dir_rate``: (row,
+    prow) int64 tensors, block b's filter row ⌊b/k⌋ and its predecessor's
+    ⌊(b−1)/k⌋ (block 0: its own), each counted from the chunk's first
+    row, the group ⌊start/k⌋ − (start > 0)."""
+    b = torch.arange(start, stop, device=device)
+    g0 = start // dir_rate - (start > 0)
+    return b // dir_rate - g0, (b - 1).clamp(min=0) // dir_rate - g0
+
+
+def _conv_span(nb: int, rows: int, start: int, stop: int | None,
+               dir_rate: int) -> int:
+    """`partitioned_conv`'s blocks start … stop − 1 for ``rows`` filter
+    rows → stop (by default as many blocks as the rows cover); raises
+    where the rows are not exactly those the blocks read."""
+    k = dir_rate
+    if k < 1 or start < 0 or start % k:
+        raise ValueError(f"start={start} must be a multiple of "
+                         f"dir_rate={dir_rate} ≥ 1")
+    g0 = start // k - (start > 0)
+    if stop is None:
+        stop = min(nb, (g0 + rows) * k)
+    if not start < stop <= nb or rows != filter_rows(stop, k) - g0:
+        raise ValueError(f"{rows} filter rows do not cover blocks "
+                         f"{start}…{stop - 1} of {nb} at dir_rate={k}")
+    return stop
 
 
 def partitioned_render_reference(xb: torch.Tensor, idx: torch.Tensor,
                                  w: torch.Tensor, table: TorchTable, *,
                                  crossfade: bool, apply_itd: bool,
-                                 apply_ild: bool) -> torch.Tensor:
+                                 apply_ild: bool,
+                                 dir_rate: int = 1) -> torch.Tensor:
     """`partitioned_render` in plain torch, in xb's precision. It loops
-    over the partitions, generating partition p of every block's filter
+    over the partitions, generating partition p of every group's filter
     from the effective filters, so memory stays O(nb·(taps + B)) however
     long the filter (the JAX package's `_partitioned_scan`)."""
     nb, B = xb.shape
     h, d, g = gather_rows(table, idx, w.to(xb.dtype), apply_itd=apply_itd,
                           apply_ild=apply_ild)
-    h_eff = effective_filter(h, d, g, table.taps)  # (nb, 2, T_pad)
+    h_eff = effective_filter(h, d, g, table.taps)  # (⌈nb/k⌉, 2, T_pad)
+    row, prow = conv_rows(0, nb, dir_rate, xb.device)
     parts = (partition_spectra(h_eff[..., p * B:(p + 1) * B], B)[:, 0]
              for p in range(n_parts(table.taps, B)))
     X = frame_spectra(xb)
     Yn = Yp = 0
-    for p, Hp in enumerate(parts):  # Hp: (nb, 2, F2)
+    for p, Hp in enumerate(parts):  # Hp: (⌈nb/k⌉, 2, F2)
         Xp = delayed(X, p)[:, None]
-        Yn = Yn + Xp * Hp
+        Yn = Yn + Xp * Hp[row]
         if crossfade:
-            Yp = Yp + Xp * torch.cat([Hp[:1], Hp[:-1]], dim=0)
+            Yp = Yp + Xp * Hp[prow]
     y = crossfade_tails(Yn, Yp if crossfade else None, B)  # (nb, 2, B)
     return y.transpose(0, 1).reshape(2, nb * B)
 
@@ -271,11 +335,13 @@ def stream_conv_cuda(xb, prev_in, fdl_re, fdl_im, h_re, h_im, hp_re, hp_im,
 
 def partitioned_conv_cuda(xb: torch.Tensor, h_re: torch.Tensor,
                           h_im: torch.Tensor, *, crossfade: bool,
-                          start: int = 0, out: torch.Tensor | None = None
-                          ) -> torch.Tensor:
+                          start: int = 0, stop: int | None = None,
+                          dir_rate: int = 1,
+                          out: torch.Tensor | None = None) -> torch.Tensor:
     """Kernel `partitioned_conv`: xb (nb, B) f32; h_* (rows, P, 2, F2) f32
-    the partitions of blocks start − (start > 0) … start + n − 1 → out
-    (2, nb·B), of which blocks start … start + n − 1 are written."""
+    the partitions of the filter rows ⌊start/k⌋ − (start > 0) …
+    ⌊(stop − 1)/k⌋ (`conv_rows`), k = ``dir_rate`` and start a multiple of
+    k → out (2, nb·B), of which blocks start … stop − 1 are written."""
     from . import _build
 
     stream = _cuda_inputs(xb, h_re, h_im)
@@ -283,23 +349,22 @@ def partitioned_conv_cuda(xb: torch.Tensor, h_re: torch.Tensor,
         raise TypeError("partitioned_conv takes float32 tensors")
     nb, B = xb.shape
     _check_block(B)
-    has_prev = int(start > 0)
-    n = h_re.shape[0] - has_prev
     if (h_re.dim() != 4 or h_re.shape[2:] != (2, B + 1)
-            or h_im.shape != h_re.shape or n <= 0 or start + n > nb):
-        raise ValueError(f"h_re/h_im must be (rows, P, 2, {B + 1}) for "
-                         f"blocks {start}… of {nb}, got {tuple(h_re.shape)}")
+            or h_im.shape != h_re.shape):
+        raise ValueError(f"h_re/h_im must be (rows, P, 2, {B + 1}), got "
+                         f"{tuple(h_re.shape)}")
+    stop = _conv_span(nb, h_re.shape[0], start, stop, dir_rate)
     if out is None:
         out = torch.empty((2, nb * B), dtype=torch.float32, device=xb.device)
     _cuda_inputs(out)
     if tuple(out.shape) != (2, nb * B) or out.dtype != torch.float32:
         raise ValueError(f"out must be float32 (2, {nb * B})")
     *split, _keep = layout(xb.device, 5 * B + 4 * (B + 1),
-                           4 * B + 4 * (B + 1), n, 2 * B)
+                           4 * B + 4 * (B + 1), stop - start, 2 * B)
     _build.check(_build.library().tt_partitioned_conv(
         xb.data_ptr(), h_re.data_ptr(), h_im.data_ptr(), out.data_ptr(), nb,
-        start, n, has_prev, B, h_re.shape[1], int(crossfade), *split,
-        stream), "partitioned_conv")
+        start, stop - start, int(start > 0), dir_rate, B, h_re.shape[1],
+        int(crossfade), *split, stream), "partitioned_conv")
     launches["partitioned_conv"] += 1
     return out
 
@@ -334,16 +399,24 @@ def stream_conv_reference(xb, prev_in, fdl_re, fdl_im, h_re, h_im, hp_re,
             fdl.real.contiguous(), fdl.imag.contiguous())
 
 
-def partitioned_conv_reference(xb, h_re, h_im, *, crossfade: bool
+def partitioned_conv_reference(xb, h_re, h_im, *, crossfade: bool,
+                               start: int = 0, stop: int | None = None,
+                               dir_rate: int = 1,
+                               out: torch.Tensor | None = None
                                ) -> torch.Tensor:
-    """Plain version of `partitioned_conv` over all blocks: xb (nb, B),
-    h_* (nb, P, 2, F2) → (2, nb·B)."""
+    """Plain version of `partitioned_conv`, in xb's precision, with its
+    arguments; blocks outside start … stop − 1 of a new ``out`` are
+    zero."""
     nb, B = xb.shape
+    stop = _conv_span(nb, h_re.shape[0], start, stop, dir_rate)
+    row, prow = conv_rows(start, stop, dir_rate, xb.device)
     H = torch.complex(h_re, h_im)
-    Xs = shifted_stack(frame_spectra(xb), H.shape[1])  # (P, nb, F2)
-    Yn = partitioned_mac(Xs, H)
-    Yp = None
-    if crossfade:
-        Yp = partitioned_mac(Xs, torch.cat([H[:1], H[:-1]], dim=0))
-    y = crossfade_tails(Yn, Yp, B)
-    return y.transpose(0, 1).reshape(2, nb * B)
+    # (P, n, F2): the delay line of blocks start … stop − 1
+    Xs = shifted_stack(frame_spectra(xb), H.shape[1])[:, start:stop]
+    Yn = partitioned_mac(Xs, H[row])
+    Yp = partitioned_mac(Xs, H[prow]) if crossfade else None
+    y = crossfade_tails(Yn, Yp, B)  # (n, 2, B)
+    if out is None:
+        out = xb.new_zeros((2, nb * B))
+    out[:, start * B:stop * B] = y.transpose(0, 1).reshape(2, -1)
+    return out
