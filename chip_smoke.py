@@ -15,10 +15,14 @@ Phases, each of which fails the run on any error (nothing is caught):
      in the split mode): SNR ≥ 100 dB, each FFT kernel's SNR against
      plain fp64 printed;
   3b. each partitioned-convolution kernel against its plain version, SNR
-     ≥ 100 dB: the streaming step at 128 taps (S = 1024, B = 256, P = 1)
-     and 2048 taps (S = 64, B = 256, P = 9), the offline render at 2048
-     taps (nb = 2048, B = 512, P = 5; again at dir_rate 4, 512 filters),
-     `assemble_partitions` alone at
+     ≥ 100 dB, each line naming the body it ran: the streaming step at
+     128 taps (S = 1024, B = 256, P = 1) and 2048 taps (S = 64, B = 256,
+     P = 9), the offline render's `frame_spectra` and `partitioned_conv`
+     at 2048 taps (nb = 2048, B = 512, P = 5; again at dir_rate 4, 512
+     filters) and at 44,100 taps (nb = 256, P = 87), `stream_conv` and
+     `partitioned_conv` also against plain fp64 and at the register
+     body's edges (B 64 and 2048) and on the radix-2 body (B 32, and B
+     4096 in the split mode), `assemble_partitions` alone at
      render (j)'s 256 rows × 44,100 taps × B 512 (L = 65536, P = 87: the
      cluster mode, 4 blocks per row) and at (d)'s, (e)'s, (f)'s and (g)'s
      shapes (the shared mode's register body, checked too at the other
@@ -76,13 +80,16 @@ Phases, each of which fails the run on any error (nothing is caught):
      in 4b, after their walls); each dir_rate 4 render's assembly kernel
      at most half its device time at dir_rate 1 ((a4) against (a), (g4)
      against (g), (j4) against (j)'s stream); then one per
-     `assemble_partitions` check of 3b and per `stream_conv` check (with
-     blend and as the hold step): its device time a call.
+     `assemble_partitions` check of 3b, per `stream_conv` check (with
+     blend and as the hold step) and per `frame_spectra` and
+     `partitioned_conv` check: its device time a call.
 Every render reads every kernel's launch count, all set to 0 just before
 it. The line before the last is the kernels' JSON record (each k-path
 kernel with its dir_rate 4 check and launches under ``dir_rate_4``; each
 kernel's bound: the larger of its bytes over 3.35 TB/s and its FLOPs,
-FFTs counted as 5·n·log2 n, over 67 TFLOP/s fp32); the last line is
+FFTs counted as 5·n·log2 n, over 67 TFLOP/s fp32; the partitioned
+convolution's kernels with their device ms, body and forward
+transforms); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -116,7 +123,11 @@ PALLAS = "tinaural/ops/pallas_kernels.py"
 # each partitioned kernel → the TPU kernels it replaces (def lines)
 PART_REPLACES = {"assemble_partitions": (2215, 1710),
                  "stream_conv": (2215, 2338),
+                 "frame_spectra": (1413, 1710),
                  "partitioned_conv": (1413, 1710)}
+# each render of the partitioned route: its kernels' launches
+PART_COUNTS = {"assemble_partitions": 1, "frame_spectra": 1,
+               "partitioned_conv": 1}
 FUSED_BLOCK_RENDER, FUSED_BLOCK_STEP, FUSED_EPILOGUE = 1089, 814, 2587
 FUSED_BLOCK_STEP_MIX, FUSED_ASSEMBLY_MAC = 910, 354
 # the card's peaks (NVIDIA H100 SXM data sheet, at 700 W)
@@ -525,14 +536,38 @@ def _rows(table, shape, seed: int):
                        RenderConfig())
 
 
-def check_stream_kernels(table, S: int, B: int, label: str, reps: int) -> dict:
+def conv_mode(B: int, P: int, rows: int, dev, stream: bool) -> str:
+    """The body that stream_conv (``stream``) or partitioned_conv runs at
+    this shape, as the wrappers pick it."""
+    from tinaural_torch.ops import _layout
+    from tinaural_torch.ops.conv_plan import (conv_launch, conv_plan,
+                                              stream_launch)
+
+    sms = _layout.sm_count(dev)
+    if stream:
+        G, threads, f2 = stream_launch(B, P, rows, sms)
+    else:
+        (threads, f2), G = conv_launch(B, P, rows, sms), 1
+    plan = conv_plan(B, P)
+    if not plan.register:
+        split = _layout.split_work(f2, 2 * B, _layout.max_shared_bytes(0))
+        return "radix-2 body" + (", split mode" if split else "")
+    return (f"register body, G {G}, {threads} threads a block, "
+            f"{plan.part_groups(G, threads)} partition groups")
+
+
+def check_stream_kernels(table, S: int, B: int, label: str, reps: int,
+                         profile: bool = True) -> dict:
     """assemble_partitions, and stream_conv as update and as hold step,
     against their plain versions on one random carried state (half the
-    streams started, half not)."""
+    streams started), stream_conv's output also against plain fp64; with
+    ``profile``, each stream_conv's device time a call in phase 5."""
     import numpy as np
     import torch
 
     from tinaural_torch.ops import partitioned_conv as pc
+    from tinaural_torch.ops._layout import sm_count
+    from tinaural_torch.ops.conv_plan import stream_forward_transforms
 
     dev = table.device
     rng = np.random.default_rng(S + B + table.taps)
@@ -540,6 +575,8 @@ def check_stream_kernels(table, S: int, B: int, label: str, reps: int) -> dict:
     ph_re, ph_im = pc.assemble_partitions_reference(*_rows(table, (S,), 2),
                                                     table, B, **PART_FLAGS)
     P = ph_re.shape[1]
+    mode = conv_mode(B, P, S, dev, True)
+    print(f"[{label}] stream_conv: P {P}, {mode}", flush=True)
     t32 = lambda *shape: torch.tensor(rng.standard_normal(shape),
                                       dtype=torch.float32, device=dev)
     xb, prev_in = t32(S, B), t32(S, B)
@@ -580,8 +617,16 @@ def check_stream_kernels(table, S: int, B: int, label: str, reps: int) -> dict:
         _report(res, name, got[0], ref[0], kern,
                 lambda: pc.stream_conv_reference(*args, crossfade=cf),
                 label, reps, stream_conv_work(S, B, P, cf))
-        KERNEL_PROFILES.append((f"{label} {name}", res[name], "device_ms",
-                                kern, None, "stream_conv"))
+        s64 = snr_db(pc.stream_conv_reference(
+            *(a.double() for a in args), crossfade=cf)[0], got[0])
+        print(f"[{label}] {name}: SNR {s64:.2f} dB vs plain fp64", flush=True)
+        require(s64 >= KERNEL_SNR_DB, f"{label} {name}: SNR {s64:.2f} vs "
+                "plain fp64")
+        res[name].update(snr_fp64_db=s64, mode=mode, forward_transforms=(
+            stream_forward_transforms(B, P, S, sm_count(dev))))
+        if profile:
+            KERNEL_PROFILES.append((f"{label} {name}", res[name],
+                                    "device_ms", kern, None, "stream_conv"))
     return res
 
 
@@ -784,14 +829,19 @@ def check_partition_edges(tables: dict) -> dict:
 
 
 def check_partitioned_kernels(table, nb: int, B: int, label: str,
-                              reps: int, dir_rate: int = 1) -> dict:
-    """assemble_partitions per group of ``dir_rate`` blocks and
-    partitioned_conv against their plain versions at the offline render's
-    shape."""
+                              reps: int, dir_rate: int = 1,
+                              profile: bool = True) -> dict:
+    """assemble_partitions per group of ``dir_rate`` blocks, frame_spectra
+    (the register body's, over all nb frames) and partitioned_conv (on
+    those spectra, as the render calls it) against their plain versions at
+    the offline render's shape, partitioned_conv also alone (its own
+    frames) against plain fp64; with ``profile``, each kernel's device
+    time a call in phase 5."""
     import numpy as np
     import torch
 
     from tinaural_torch.ops import partitioned_conv as pc
+    from tinaural_torch.ops.conv_plan import conv_plan, forward_transforms
 
     idx, w = _rows(table, (-(-nb // dir_rate),), seed=3)
     xb = torch.tensor(np.random.default_rng(4).standard_normal((nb, B)),
@@ -807,17 +857,80 @@ def check_partitioned_kernels(table, nb: int, B: int, label: str,
                                                      **PART_FLAGS),
             label, reps, partitions_work(table, idx, B))
     P = H[0].shape[1]
+    mode = conv_mode(B, P, nb, table.device, False)
+    print(f"[{label}] partitioned_conv: P {P}, {mode}", flush=True)
     conv = dict(crossfade=True, dir_rate=dir_rate)
-    _report(res, "partitioned_conv",
-            pc.partitioned_conv_cuda(xb, *H, **conv),
-            pc.partitioned_conv_reference(xb, *H, **conv),
-            lambda: pc.partitioned_conv_cuda(xb, *H, **conv),
-            lambda: pc.partitioned_conv_reference(xb, *H, **conv),
+    X = None
+    if conv_plan(B, P).register:
+        X = pc.frame_spectra_cuda(xb, 0, nb)
+        fs = lambda: pc.frame_spectra_cuda(xb, 0, nb)
+        # the library's one call: the STFT of frames 2B apart by B, padded
+        # by B zeros each side (one frame more than the kernel's)
+        flat, box = xb.reshape(-1), torch.ones(2 * B, device=xb.device)
+        stft = lambda: torch.stft(flat, 2 * B, hop_length=B, window=box,
+                                  center=True, pad_mode="constant",
+                                  return_complex=True)
+        _report(res, "frame_spectra", X,
+                pc.frame_spectra_reference(xb, 0, nb), fs,
+                lambda: pc.frame_spectra_reference(xb, 0, nb), label, reps,
+                bound(nb * B * 4 + nb * (B + 1) * 8,
+                      forward_transforms(nb) * fft_flops(2 * B)), stft)
+        res["frame_spectra"].update(forward_transforms=forward_transforms(nb),
+                                    frames=nb, mode=mode)
+        if profile:
+            KERNEL_PROFILES.append((f"{label} frame_spectra",
+                                    res["frame_spectra"], "device_ms", fs,
+                                    None, "frame_spectra"))
+    kern = lambda: pc.partitioned_conv_cuda(xb, *H, spectra=X, **conv)
+    _report(res, "partitioned_conv", kern(),
+            pc.partitioned_conv_reference(xb, *H, spectra=X, **conv), kern,
+            lambda: pc.partitioned_conv_reference(xb, *H, spectra=X, **conv),
             label, reps, bound(
-                nb * B * 4 + H[0].numel() * 8 + 2 * nb * B * 4,
-                nb * (-(-P // 2) * fft_flops(2 * B) + 2 * P * (B + 1) * 2 * 8
-                      + 2 * fft_flops(2 * B))))
+                (nb * B * 4 if X is None else X.numel() * 8)
+                + H[0].numel() * 8 + 2 * nb * B * 4,
+                nb * (2 * P * (B + 1) * 2 * 8 + 2 * fft_flops(2 * B))
+                + (-(-P // 2) * nb if X is None else 0) * fft_flops(2 * B)))
+    s64 = snr_db(pc.partitioned_conv_reference(
+        xb.double(), *(h.double() for h in H), **conv),
+        pc.partitioned_conv_cuda(xb, *H, **conv))
+    print(f"[{label}] partitioned_conv alone (its own frames): SNR "
+          f"{s64:.2f} dB vs plain fp64", flush=True)
+    require(s64 >= KERNEL_SNR_DB, f"{label}: SNR {s64:.2f} vs plain fp64")
+    res["partitioned_conv"].update(
+        snr_fp64_db=s64, mode=mode, forward_transforms=(
+            forward_transforms(nb) if X is not None
+            else nb * -(-P // 2)))
+    if profile:
+        KERNEL_PROFILES.append((f"{label} partitioned_conv",
+                                res["partitioned_conv"], "device_ms", kern,
+                                None, "partitioned_conv"))
     return res
+
+
+# (label, table's taps, streams, output blocks, B) of the further
+# stream_conv and partitioned_conv checks: the edges of the register body
+# (B 64 and 2048) and the radix-2 body outside it (B 32 in shared memory,
+# B 4096 in the split mode)
+CONV_EDGES = (("B 64", 2048, 7, 40, 64), ("B 2048", 128, 7, 40, 2048),
+              ("B 32, radix-2", 128, 7, 40, 32),
+              ("B 4096, radix-2", 128, 3, 12, 4096))
+
+
+def check_conv_edges(tables: dict) -> dict:
+    """stream_conv and partitioned_conv at CONV_EDGES against their plain
+    fp32 and fp64 versions, SNR ≥ KERNEL_SNR_DB."""
+    out = {}
+    for name, taps, S, nb, Bq in CONV_EDGES:
+        res = check_stream_kernels(tables[taps], S, Bq,
+                                   f"stream_conv {name}: {S} streams × "
+                                   f"{taps} taps", reps=2, profile=False)
+        res.update(check_partitioned_kernels(
+            tables[taps], nb, Bq, f"partitioned_conv {name}: {nb} blocks × "
+            f"{taps} taps", reps=2, profile=False))
+        out[name] = {k: {f: m[f] for f in ("ms", "snr_db", "snr_fp64_db",
+                                           "mode") if f in m}
+                     for k, m in res.items() if k != "assemble_partitions"}
+    return out
 
 
 def check_step_kernels(table, S: int, nb: int, label: str, reps: int) -> dict:
@@ -1277,8 +1390,7 @@ def check_streamed(table, N: int, launches_total: dict, reps: int,
     y, counts = _counts_after(
         lambda: _assembly_rows(lambda: r.render_streamed(x, dirs), name,
                                rows),
-        {"assemble_partitions": 1, "partitioned_conv": 1}, name,
-        launches_total, no_sync=False)
+        PART_COUNTS, name, launches_total, no_sync=False)
     require(bool(torch.isfinite(y).all()), f"render {name}: not finite")
     xb = torch.tensor(x.reshape(nb, B), device=table.device)
     dirs_t = torch.tensor(dirs, device=table.device)
@@ -1395,8 +1507,7 @@ def check_long(long_streamed, long_traj, N: int, launches_total: dict,
     return {"streamed_44100_taps": long_render(
                 "j streamed 44100 taps", long_streamed, 512, N, True,
                 _partitioned_core, pc.partitioned_render,
-                pc.partitioned_render_reference,
-                {"assemble_partitions": 1, "partitioned_conv": 1},
+                pc.partitioned_render_reference, PART_COUNTS,
                 launches_total, reps),
             "trajectory_16384_taps": long_render(
                 "j trajectory 16384 taps", long_traj, 1024, N, False,
@@ -1569,6 +1680,8 @@ def main() -> int:
     k_part4 = check_partitioned_kernels(
         brir, 2048, 512, "partitioned 2048 taps P=5 dir_rate 4", reps=5,
         dir_rate=4)
+    k_part_long = check_partitioned_kernels(
+        long_streamed, 256, 512, "partitioned 44100 taps P=87", reps=3)
     k_part_j = check_partition_assembly(long_streamed, 256, 512,
                                         "assemble_partitions 256 rows 44100 "
                                         "taps B=512", reps=5)
@@ -1584,6 +1697,7 @@ def main() -> int:
                                        ("g", brir, 2048, 512))}
     k_edges = check_partition_edges({128: table, 2048: brir, 8000: t8000,
                                      448: t448})
+    k_conv_edges = check_conv_edges({128: table, 2048: brir})
     for key, us in host_costs({128: table, 2048: brir}).items():
         k_asm[key]["host_us"] = us
     check_stream_chain(brir, 64, 256, 12, "stream 2048 taps P=9")
@@ -1727,8 +1841,7 @@ def main() -> int:
     renders["j4_streamed_44100_taps_dir_rate_4"] = long_render(
         "j4 streamed 44100 taps dir_rate 4", long_streamed, 512, 1 << 17,
         True, _partitioned_core, pc.partitioned_render,
-        pc.partitioned_render_reference,
-        {"assemble_partitions": 1, "partitioned_conv": 1}, launches, reps=2,
+        pc.partitioned_render_reference, PART_COUNTS, launches, reps=2,
         dir_rate=4)
     profile_renders()
     profile_kernels()
@@ -1745,6 +1858,7 @@ def main() -> int:
                  "block_spectra_mix_inverse":
                      k_traj4["block_spectra_mix_inverse"],
                  "assemble_partitions": k_part4["assemble_partitions"],
+                 "frame_spectra": k_part4["frame_spectra"],
                  "partitioned_conv": k_part4["partitioned_conv"],
                  "block_spectra": k_step4["block_spectra"],
                  "block_spectra_mix": k_step4["block_spectra_mix"]}
@@ -1770,7 +1884,15 @@ def main() -> int:
     # main shapes: the serving step (128 taps, S = 1024) and the offline
     # BRIR render; the BRIR serving step's times ride along
     main = {"assemble_partitions": k_serve, "stream_conv": k_serve,
-            "partitioned_conv": k_part}
+            "frame_spectra": k_part, "partitioned_conv": k_part}
+    # device ms a launch of a kernel in a profiled render
+    render_ms = lambda key, kernel: (
+        renders[key].get("device_ms_by_kernel", {}).get(
+            f"{kernel}_kernel", "not measured"))
+    long_stream = renders["j_long"]["streamed_44100_taps"]
+    part_fields = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                   "snr_db", "snr_fp64_db", "device_ms", "forward_transforms",
+                   "mode")
     shape_fields = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
                     "max_abs_err", "snr_db", "snr_fp64_db", "ranks",
                     "rows_per_block", "host_us")
@@ -1811,7 +1933,39 @@ def main() -> int:
                  "brir_hold_bound_ms": k_brir["stream_conv_hold"]["bound_ms"],
                  "f_bound_ms":
                      renders["f_latency"]["stream_conv_bound"]["bound_ms"],
-                 **serving_device_ms(renders, "stream_conv")}}
+                 "f_device_ms": renders["f_latency"].get(
+                     "stream_conv_device_ms", "not measured"),
+                 "mode": k_serve["stream_conv"]["mode"],
+                 "forward_transforms": k_serve["stream_conv"][
+                     "forward_transforms"],
+                 "brir_mode": k_brir["stream_conv"]["mode"],
+                 "edges": {k: m["stream_conv"]
+                           for k, m in k_conv_edges.items()},
+                 **serving_device_ms(renders, "stream_conv")},
+             "frame_spectra": {
+                 "device_ms": k_part["frame_spectra"]["device_ms"],
+                 "forward_transforms":
+                     k_part["frame_spectra"]["forward_transforms"],
+                 "frames": k_part["frame_spectra"]["frames"],
+                 "g_device_ms": render_ms("g_streamed", "frame_spectra"),
+                 "j_shape": {f: v for f, v in
+                             k_part_long["frame_spectra"].items()
+                             if f in part_fields},
+                 "j_device_ms": long_stream.get("device_ms_by_kernel", {}).get(
+                     "frame_spectra_kernel", "not measured")},
+             "partitioned_conv": {
+                 "device_ms": k_part["partitioned_conv"]["device_ms"],
+                 "forward_transforms":
+                     k_part["frame_spectra"]["forward_transforms"],
+                 "mode": k_part["partitioned_conv"]["mode"],
+                 "g_device_ms": render_ms("g_streamed", "partitioned_conv"),
+                 "j_shape": {f: v for f, v in
+                             k_part_long["partitioned_conv"].items()
+                             if f in part_fields},
+                 "j_device_ms": long_stream.get("device_ms_by_kernel", {}).get(
+                     "partitioned_conv_kernel", "not measured"),
+                 "edges": {k: m["partitioned_conv"]
+                           for k, m in k_conv_edges.items()}}}
     for name in pc.KERNELS:
         first, *also = PART_REPLACES[name]
         kernels.append(kernel_entry(

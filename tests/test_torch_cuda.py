@@ -43,6 +43,7 @@ from tinaural_torch.ops import assembly_mac as am
 from tinaural_torch.ops import block_render as br
 from tinaural_torch.ops import block_step as bs
 from tinaural_torch.ops import partitioned_conv as pc
+from tinaural_torch.ops.conv_plan import conv_plan, stream_launch
 from tinaural_torch.ops.mac_plan import mac_plan
 from tinaural_torch.ops.partitions_plan import partitions_plan
 from tinaural_torch.ops.render_plan import filters_plan, mix_plan
@@ -358,12 +359,20 @@ def test_assemble_partitions_register_refuses_another_plan(long_tables,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("taps,B,S", [(128, 256, 5), (2048, 512, 3),
-                                      (2048, 256, 1), (128, 128, 2)])
+                                      (2048, 256, 1), (128, 128, 2),
+                                      (128, 64, 3), (128, 2048, 2),
+                                      (128, 32, 2), (128, 4096, 1),
+                                      (128, 256, 301), (44100, 512, 1)])
 def test_stream_conv_chain_matches_plain(long_tables, taps, B, S):
     """Update, update, hold, update: every kernel output against the plain
     float64 step on the same carried state, over a chain that carries the
-    delay line and the previous filter."""
+    delay line and the previous filter. The register body at B 64 … 2048
+    (its edges, P = 1, 3, 9 and (j)'s 87, S = 1, odd S, and 301 streams in
+    blocks of G = 2 with one stream in the last), the radix-2 body at B
+    32 and 4096."""
     t = long_tables[taps]
+    G = stream_launch(B, -(-(taps + 64) // B), S, 132)[0]
+    assert (G > 0) == (64 <= B <= 2048) and (G == 2) == (S == 301)
     cfg = tinaural_torch.RenderConfig(stream_block=B)
     st = init_state(t, cfg, S)
     rng = np.random.default_rng(taps + B + S)
@@ -395,26 +404,109 @@ def test_stream_conv_chain_matches_plain(long_tables, taps, B, S):
 @pytest.mark.parametrize("taps,B,crossfade", [(2048, 512, True),
                                               (2048, 256, True),
                                               (128, 256, False),
-                                              (128, 128, True)])
+                                              (128, 128, True),
+                                              (128, 64, True),
+                                              (128, 2048, True),
+                                              (128, 32, True),
+                                              (128, 4096, False),
+                                              (44100, 512, True)])
 def test_partitioned_conv_matches_plain(long_tables, taps, B, crossfade,
                                         monkeypatch):
+    """`partitioned_conv` (with `frame_spectra` in the register range: B
+    64 … 2048, its edges, P = 1, 3, 5, 9 and (j)'s 87; the radix-2 body
+    at B 32, the split mode at B 4096) against its float64 plain version;
+    `partitioned_render` whole and in chunks of 3 blocks, equal in bits,
+    against the float64 plain render; then at dir_rate 4, whole and in
+    chunks of two groups, equal in bits, against the float64 plain
+    `partitioned_conv` on the render's own partitions (the float32
+    assembly of 10 rows alone may cost a few dB against float64)."""
     t = long_tables[taps]
     nb = 40
     idx, w = _rows(t, (nb,), seed=nb + B)
     xb = torch.from_numpy(np.random.default_rng(B).standard_normal(
         (nb, B)).astype(np.float32)).to(t.device)
     hr, hi = pc.assemble_partitions_cuda(idx, w, t, B, **FLAGS)
+    register = conv_plan(B, hr.shape[1]).register
+    if register:  # frames 6 … 39; transforms pair frames 2m and 2m + 1
+        X = pc.frame_spectra_cuda(xb, 6, nb)
+        X64 = pc.frame_spectra_reference(xb.double(), 6, nb)
+        assert X.shape == X64.shape and _snr_db(X64, X) >= 100
+        with pytest.raises(ValueError):
+            pc.frame_spectra_cuda(xb, 7, nb)
+    before = dict(pc.launches)
     y = pc.partitioned_conv_cuda(xb, hr, hi, crossfade=crossfade)
+    assert pc.launches["partitioned_conv"] == before["partitioned_conv"] + 1
+    assert (pc.launches["frame_spectra"]
+            == before["frame_spectra"] + int(register))
     y64 = pc.partitioned_conv_reference(xb.double(), hr.double(), hi.double(),
                                         crossfade=crossfade)
     assert _snr_db(y64, y) >= 100
     kw = dict(crossfade=crossfade, **FLAGS)
     whole = pc.partitioned_render(xb, idx, w, t, **kw)
-    monkeypatch.setattr(pc, "CHUNK_BYTES", 3 * hr[0].numel() * 8)  # 3 blocks
-    chunked = pc.partitioned_render(xb, idx, w, t, **kw)
+    with monkeypatch.context() as m:
+        m.setattr(pc, "CHUNK_BYTES", 3 * hr[0].numel() * 8)  # 3 blocks
+        chunked = pc.partitioned_render(xb, idx, w, t, **kw)
     assert torch.equal(whole, chunked)
     ref = pc.partitioned_render_reference(xb.double(), idx, w, t, **kw)
     assert _snr_db(ref, whole) >= 100
+    idx4, w4 = idx[::4].contiguous(), w[::4].contiguous()
+    whole = pc.partitioned_render(xb, idx4, w4, t, dir_rate=4, **kw)
+    monkeypatch.setattr(pc, "CHUNK_BYTES", 2 * hr[0].numel() * 8)
+    assert torch.equal(whole, pc.partitioned_render(xb, idx4, w4, t,
+                                                    dir_rate=4, **kw))
+    h4 = pc.assemble_partitions_cuda(idx4, w4, t, B, **FLAGS)
+    ref = pc.partitioned_conv_reference(xb.double(), h4[0].double(),
+                                        h4[1].double(), crossfade=crossfade,
+                                        dir_rate=4)
+    assert _snr_db(ref, whole) >= 100
+
+
+@pytest.mark.gpu
+def test_partitioned_register_kernels_refuse_another_plan(long_tables,
+                                                          monkeypatch):
+    """`stream_conv`, `frame_spectra` and `partitioned_conv` take only the
+    plan they were compiled for: other G, threads or shared figures
+    raise, and the kernel with the wrong plan is not launched."""
+    t = long_tables[2048]
+    S, B = 5, 256
+    P = -(-(2048 + 64) // B)
+    st = init_state(t, tinaural_torch.RenderConfig(stream_block=B), S)
+    xb = torch.zeros((S, B), device=t.device)
+    args = (xb, st.prev_in, st.fdl_re, st.fdl_im, st.prev_h_re,
+            st.prev_h_im, st.started)
+    plan = conv_plan(B, P)
+    G = plan.streams_per_block(S, 132)
+    good = (G, plan.threads(G), plan.shared_f2(G, plan.threads(G), True))
+    for bad in ((G, good[1] + 32, good[2]), (3, *good[1:]),
+                (4, plan.threads(4), good[2]), (G, good[1], good[2] + 1),
+                (0, *good[1:])):
+        with monkeypatch.context() as m:
+            m.setattr(pc, "stream_launch", lambda *a, bad=bad: bad)
+            before = pc.launches["stream_conv"]
+            with pytest.raises(RuntimeError):
+                pc.stream_hold(*args)
+            assert pc.launches["stream_conv"] == before
+    nb = 12
+    xb = torch.zeros((nb, B), device=t.device)
+    hr = torch.zeros((nb, P, 2, B + 1), device=t.device)
+    threads = plan.part_threads(nb, 132)
+    f2 = plan.shared_f2(1, threads, False)
+    for bad in ((threads + 32, f2), (threads, f2 + 1), (0, f2), (32, f2)):
+        with monkeypatch.context() as m:
+            m.setattr(pc, "conv_launch", lambda *a, bad=bad: bad)
+            before = pc.launches["partitioned_conv"]
+            with pytest.raises(RuntimeError):
+                pc.partitioned_conv_cuda(xb, hr, hr, crossfade=True)
+            assert pc.launches["partitioned_conv"] == before
+    Gf = plan.frame_groups(nb // 2, 132)
+    for bad in ((Gf, Gf * 32 + 32, Gf * 544), (Gf, Gf * 32, Gf * 544 + 1),
+                (3, 96, 3 * 544)):
+        with monkeypatch.context() as m:
+            m.setattr(pc, "frames_launch", lambda *a, bad=bad: bad)
+            before = dict(pc.launches)
+            with pytest.raises(RuntimeError):
+                pc.partitioned_conv_cuda(xb, hr, hr, crossfade=True)
+            assert pc.launches == before
 
 
 @pytest.mark.gpu

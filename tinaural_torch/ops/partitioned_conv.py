@@ -16,10 +16,11 @@ and ``F2 = B + 1`` bins of the 2B frame:
 - `stream_hold`: `stream_conv` under the carried partitions, no blend;
 - `partitioned_render`: the same map with every block of one signal
   batched: H for each group of k = ``dir_rate`` blocks (⌈nb/k⌉ rows, the
-  JAX kernel's unique-filter path), then kernel `partitioned_conv`, block
-  b under row ⌊b/k⌋ with row ⌊(b−1)/k⌋ as the previous filter (block 0:
-  its own). On the track `RenderConfig.dir_rate` snaps, that is the map
-  of k = 1 with every block's filter, at k× fewer assemblies.
+  JAX kernel's unique-filter path), kernel `frame_spectra` (each frame
+  spectrum once for the render), then per chunk kernel
+  `partitioned_conv`, block b under row ⌊b/k⌋ with row ⌊(b−1)/k⌋ as the
+  previous filter (block 0: its own). On the track `RenderConfig.dir_rate` snaps, that is
+  the map of k = 1 with every block's filter, at k× fewer assemblies.
 
 Partition spectra travel as float32 re/im planes (..., P, 2, F2), the
 layout of `StreamState.prev_h`, and the delay line as (..., P, F2) planes.
@@ -32,8 +33,12 @@ The kernels take every filter length and block: above shared memory they
 run with their buffers in a device scratch (``ops/_layout.py``), except
 `assemble_partitions` at L = 16384 … 131072, which spreads each row over a
 thread-block cluster; below, at blocks 64 … 2048, it runs G rows per CUDA
-block as register FFTs (``ops/partitions_plan.py``).
-``launches`` counts each kernel's launches.
+block as register FFTs (``ops/partitions_plan.py``), and `stream_conv`,
+`frame_spectra` and `partitioned_conv` run as register FFTs too
+(``ops/conv_plan.py``; at other blocks, and in the split mode, the
+radix-2 `partitioned_conv` computes its frame spectra itself and
+`frame_spectra` is not launched). ``launches`` counts each kernel's
+launches.
 """
 
 from __future__ import annotations
@@ -42,10 +47,12 @@ import torch
 
 from ..data.table import (ALIGN_GUARD, MAX_RENDER_SHIFT, TAPER_HI,
                           TAPER_LO, TorchTable)
-from ._layout import layout, sm_count
+from ._layout import layout, max_shared_bytes, sm_count, split_work
 from .block_render import _cuda_inputs, filter_rows
 from .filters import (effective_filter, filter_partitions, n_parts,
                       partition_spectra)
+from .conv_plan import (chunk_frames, conv_launch, conv_plan, frames_launch,
+                        pair_start, stream_launch)
 from .interp import gather_rows
 from .mac_plan import ramp_taper
 from .partitioned import (crossfade_tails, delayed, frame_spectra,
@@ -53,7 +60,8 @@ from .partitioned import (crossfade_tails, delayed, frame_spectra,
 from .partitions_plan import RANK_SAMPLES, launch, partitions_plan
 from .spectra_inverse import twiddles
 
-KERNELS = ("assemble_partitions", "stream_conv", "partitioned_conv")
+KERNELS = ("assemble_partitions", "stream_conv", "frame_spectra",
+           "partitioned_conv")
 launches = dict.fromkeys(KERNELS, 0)
 
 # The CUDA route of `partitioned_render` assembles the partition planes of
@@ -149,25 +157,44 @@ def partitioned_render(xb: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     if xb.dtype != torch.float32:  # before the first launch
         raise TypeError(f"the CUDA route takes float32 blocks, got {xb.dtype}")
     return chunked_render(assemble_partitions_cuda, partitioned_conv_cuda,
-                          xb, idx, w, table, **kw)
+                          xb, idx, w, table, frames=_render_spectra, **kw)
 
 
 def chunked_render(assemble, conv, xb, idx, w, table: TorchTable, *,
                    crossfade: bool, apply_itd: bool, apply_ild: bool,
-                   dir_rate: int) -> torch.Tensor:
+                   dir_rate: int, frames=None) -> torch.Tensor:
     """`partitioned_render`'s CUDA route over `render_chunks`, with
     ``assemble`` and ``conv`` the two kernels' wrappers or their plain
-    versions."""
+    versions. ``frames(xb, P)``, where given, returns the frame spectra of
+    all nb blocks (kernel `frame_spectra`, each frame once for the whole
+    render) or None, and every chunk's ``conv`` reads them."""
     nb, B = xb.shape
-    row_bytes = n_parts(table.taps, B) * 2 * (B + 1) * 8
+    P = n_parts(table.taps, B)
+    row_bytes = P * 2 * (B + 1) * 8
     chunk = max(1, CHUNK_BYTES // row_bytes) * dir_rate
     out = xb.new_empty((2, nb * B))
+    spectra = frames(xb, P) if frames is not None else None
     for b0, b1, r0, r1 in render_chunks(nb, dir_rate, chunk):
         h_re, h_im = assemble(idx[r0:r1], w[r0:r1].to(xb.dtype), table, B,
                               apply_itd=apply_itd, apply_ild=apply_ild)
         conv(xb, h_re, h_im, crossfade=crossfade, start=b0, stop=b1,
-             dir_rate=dir_rate, out=out)
+             dir_rate=dir_rate, out=out, spectra=spectra)
     return out
+
+
+def _render_spectra(xb: torch.Tensor, parts: int) -> torch.Tensor | None:
+    """The frame spectra of every block of a CUDA render whose
+    `partitioned_conv` launches take the register body; else None."""
+    nb, B = xb.shape
+    plan = conv_plan(B, parts)
+    if not plan.register:
+        return None
+    _, shared_f2 = conv_launch(B, parts, nb, sm_count(xb.device))
+    index = (xb.device.index if xb.device.index is not None
+             else torch.cuda.current_device())
+    if split_work(shared_f2, 2 * B, max_shared_bytes(index)):
+        return None
+    return frame_spectra_cuda(xb, 0, nb)
 
 
 def render_chunks(nb: int, dir_rate: int, chunk: int
@@ -324,24 +351,66 @@ def stream_conv_cuda(xb, prev_in, fdl_re, fdl_im, h_re, h_im, hp_re, hp_im,
     pin = torch.empty_like(xb)
     fr = torch.empty_like(fdl_re)
     fi = torch.empty_like(fdl_im)
-    *split, _keep = layout(xb.device, 7 * B, 6 * B, S, 2 * B)
+    plan = conv_plan(B, P)
+    G, threads, shared_f2 = stream_launch(B, P, S, sm_count(xb.device))
+    *split, _keep = layout(xb.device, shared_f2, plan.stream_scratch_f2, S,
+                           2 * B)
+    # the split mode and the radix-2 body take no table and no plan
+    tw, reg = 0, (0, 0, 0)
+    if plan.register and not split[1]:
+        tw = twiddles(2 * B, xb.device).data_ptr()
+        reg = (G, threads, shared_f2)
     _build.check(_build.library().tt_stream_conv(
         *(t.data_ptr() for t in ins), y.data_ptr(), pin.data_ptr(),
-        fr.data_ptr(), fi.data_ptr(), S, B, P, int(crossfade), *split,
-        stream), "stream_conv")
+        fr.data_ptr(), fi.data_ptr(), tw, S, B, P, int(crossfade), *reg,
+        *split, stream), "stream_conv")
     launches["stream_conv"] += 1
     return y, pin, fr, fi
+
+
+def frame_spectra_cuda(xb: torch.Tensor, start: int,
+                       stop: int) -> torch.Tensor:
+    """Kernel `frame_spectra`: xb (nb, B) f32 → the overlap-save frame
+    spectra of frames start … stop − 1 as (stop − start, B+1) complex64,
+    frame c = [xb[c−1] | xb[c]] (xb[−1] = 0). Its transforms pair frames
+    2m and 2m + 1, so ``start`` is even. Blocks 64 … 2048 only (the
+    register range)."""
+    from . import _build
+
+    stream = _cuda_inputs(xb)
+    if xb.dtype != torch.float32:
+        raise TypeError("frame_spectra takes float32 blocks")
+    nb, B = xb.shape
+    _check_block(B)
+    if not 0 <= start < stop <= nb or start % 2:
+        raise ValueError(f"frames {start}…{stop - 1} must lie in 0…{nb - 1} "
+                         "and start on an even frame")
+    frames = stop - start
+    G, threads, shared_f2 = frames_launch(B, -(-frames // 2),
+                                          sm_count(xb.device))
+    X = torch.empty((frames, B + 1), dtype=torch.complex64, device=xb.device)
+    _build.check(_build.library().tt_frame_spectra(
+        xb.data_ptr(), X.data_ptr(), twiddles(2 * B, xb.device).data_ptr(),
+        start, frames, nb, B, G, threads, shared_f2, stream),
+        "frame_spectra")
+    launches["frame_spectra"] += 1
+    return X
 
 
 def partitioned_conv_cuda(xb: torch.Tensor, h_re: torch.Tensor,
                           h_im: torch.Tensor, *, crossfade: bool,
                           start: int = 0, stop: int | None = None,
                           dir_rate: int = 1,
-                          out: torch.Tensor | None = None) -> torch.Tensor:
+                          out: torch.Tensor | None = None,
+                          spectra: torch.Tensor | None = None
+                          ) -> torch.Tensor:
     """Kernel `partitioned_conv`: xb (nb, B) f32; h_* (rows, P, 2, F2) f32
     the partitions of the filter rows ⌊start/k⌋ − (start > 0) …
     ⌊(stop − 1)/k⌋ (`conv_rows`), k = ``dir_rate`` and start a multiple of
-    k → out (2, nb·B), of which blocks start … stop − 1 are written."""
+    k → out (2, nb·B), of which blocks start … stop − 1 are written. At
+    blocks 64 … 2048 it reads the frame spectra ``spectra`` (nb, F2)
+    complex64 of every block (`frame_spectra_cuda`), or, where None,
+    computes those of its own frames first."""
     from . import _build
 
     stream = _cuda_inputs(xb, h_re, h_im)
@@ -359,12 +428,31 @@ def partitioned_conv_cuda(xb: torch.Tensor, h_re: torch.Tensor,
     _cuda_inputs(out)
     if tuple(out.shape) != (2, nb * B) or out.dtype != torch.float32:
         raise ValueError(f"out must be float32 (2, {nb * B})")
-    *split, _keep = layout(xb.device, 5 * B + 4 * (B + 1),
-                           4 * B + 4 * (B + 1), stop - start, 2 * B)
+    P = h_re.shape[1]
+    plan = conv_plan(B, P)
+    threads, shared_f2 = conv_launch(B, P, stop - start, sm_count(xb.device))
+    *split, _keep = layout(xb.device, shared_f2, plan.conv_scratch_f2,
+                           stop - start, 2 * B)
+    # the split mode and the radix-2 body take no spectra, table or plan
+    f0, tw, reg = 0, 0, (0, 0)
+    if plan.register and not split[1]:
+        if spectra is None:
+            f0 = pair_start(chunk_frames(start, stop, P)[0])
+            spectra = frame_spectra_cuda(xb, f0, stop)
+        else:
+            _cuda_inputs(spectra)
+            if (tuple(spectra.shape) != (nb, B + 1)
+                    or spectra.dtype != torch.complex64):
+                raise ValueError(f"spectra must be complex64 ({nb}, {B + 1})")
+        tw = twiddles(2 * B, xb.device).data_ptr()
+        reg = (threads, shared_f2)
+    else:
+        spectra = None
     _build.check(_build.library().tt_partitioned_conv(
-        xb.data_ptr(), h_re.data_ptr(), h_im.data_ptr(), out.data_ptr(), nb,
-        start, stop - start, int(start > 0), dir_rate, B, h_re.shape[1],
-        int(crossfade), *split, stream), "partitioned_conv")
+        xb.data_ptr(), 0 if spectra is None else spectra.data_ptr(),
+        h_re.data_ptr(), h_im.data_ptr(), out.data_ptr(), tw, nb, start,
+        stop - start, int(start > 0), dir_rate, f0, B, P, int(crossfade),
+        *reg, *split, stream), "partitioned_conv")
     launches["partitioned_conv"] += 1
     return out
 
@@ -399,20 +487,28 @@ def stream_conv_reference(xb, prev_in, fdl_re, fdl_im, h_re, h_im, hp_re,
             fdl.real.contiguous(), fdl.imag.contiguous())
 
 
+def frame_spectra_reference(xb: torch.Tensor, start: int,
+                            stop: int) -> torch.Tensor:
+    """Plain version of `frame_spectra`, in xb's precision."""
+    return frame_spectra(xb)[start:stop]
+
+
 def partitioned_conv_reference(xb, h_re, h_im, *, crossfade: bool,
                                start: int = 0, stop: int | None = None,
                                dir_rate: int = 1,
-                               out: torch.Tensor | None = None
+                               out: torch.Tensor | None = None,
+                               spectra: torch.Tensor | None = None
                                ) -> torch.Tensor:
     """Plain version of `partitioned_conv`, in xb's precision, with its
-    arguments; blocks outside start … stop − 1 of a new ``out`` are
-    zero."""
+    arguments (``spectra``, where given, the frame spectra of every block);
+    blocks outside start … stop − 1 of a new ``out`` are zero."""
     nb, B = xb.shape
     stop = _conv_span(nb, h_re.shape[0], start, stop, dir_rate)
     row, prow = conv_rows(start, stop, dir_rate, xb.device)
     H = torch.complex(h_re, h_im)
+    X = frame_spectra(xb) if spectra is None else spectra
     # (P, n, F2): the delay line of blocks start … stop − 1
-    Xs = shifted_stack(frame_spectra(xb), H.shape[1])[:, start:stop]
+    Xs = shifted_stack(X, H.shape[1])[:, start:stop]
     Yn = partitioned_mac(Xs, H[row])
     Yp = partitioned_mac(Xs, H[prow]) if crossfade else None
     y = crossfade_tails(Yn, Yp, B)  # (n, 2, B)
