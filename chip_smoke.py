@@ -36,12 +36,17 @@ Phases, each of which fails the run on any error (nothing is caught):
      nb = 128 and at S = 32, nb = 1 (B = 1024, 128 taps), SNR ≥ 100 dB
      (≥ 130 dB for `spectra_inverse`); `block_spectra` and
      `block_spectra_mix` at dir_rate 4 (S = 64, nb = 128, 32 filters a
-     source); then `spectra_inverse` alone, timed
+     source), `block_spectra` at render (h)'s shape (4096 rows of one
+     source, one filter, no crossfade) and both at the register bodies'
+     edges (n_fft 128: 64 × 128 blocks of 64; n_fft 16384: 8 × 16 blocks
+     of 8192), each block-step check also ≥ 100 dB against plain fp64 and
+     naming the body it ran; then `spectra_inverse` alone, timed
      beside `torch.fft.irfft`, at 8192 rows × n_fft 4096, 2048 × 16384
      (the largest shared-mode FFT), 128 × 32768 and 64 × 65536 (cluster
      mode, 2 and 4 blocks per row);
   3d. the scene mixdown's `block_spectra_mix` (crossfade on and off, and one
-     filter per source) with the summing `spectra_inverse` at S = 64,
+     filter per source; each also against plain fp64, naming its body)
+     with the summing `spectra_inverse` at S = 64,
      nb = 128, and the natural-order `assembly_mac` at 8192 rows (64 sources
      × 128 blocks, `first` at each source's block 0; 2048 taps, B = 1024,
      n_fft = 4096) and at render (l)'s 4096 rows (one source, 128 taps,
@@ -81,15 +86,17 @@ Phases, each of which fails the run on any error (nothing is caught):
      at most half its device time at dir_rate 1 ((a4) against (a), (g4)
      against (g), (j4) against (j)'s stream); then one per
      `assemble_partitions` check of 3b, per `stream_conv` check (with
-     blend and as the hold step) and per `frame_spectra` and
-     `partitioned_conv` check: its device time a call.
+     blend and as the hold step), per `frame_spectra` and
+     `partitioned_conv` check and per block-step check of 3c and 3d: its
+     device time a call.
 Every render reads every kernel's launch count, all set to 0 just before
 it. The line before the last is the kernels' JSON record (each k-path
 kernel with its dir_rate 4 check and launches under ``dir_rate_4``; each
 kernel's bound: the larger of its bytes over 3.35 TB/s and its FLOPs,
 FFTs counted as 5·n·log2 n, over 67 TFLOP/s fp32; the partitioned
 convolution's kernels with their device ms, body and forward
-transforms); the last line is
+transforms; the block step's two with their device ms and body, and
+`block_spectra` at (h)'s shape with its bound); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -933,6 +940,70 @@ def check_conv_edges(tables: dict) -> dict:
     return out
 
 
+def step_body(n_fft: int, mix: bool, rows: int, dev, chunk: int = 1) -> str:
+    """The body that block_spectra (``mix`` False, over ``rows`` rows) or
+    block_spectra_mix (``rows`` CUDA blocks of chunks of ``chunk``
+    sources) runs at this shape, as the wrappers pick it."""
+    from tinaural_torch.ops import _layout
+    from tinaural_torch.ops.step_plan import (mix_groups, spectra_rows,
+                                              step_plan)
+
+    plan = step_plan(n_fft, mix)
+    sms = _layout.sm_count(dev)
+    per = (mix_groups(plan, chunk, rows, sms) if mix
+           else spectra_rows(plan, rows, sms))
+    split = _layout.split_work(plan.shared_f2(per), n_fft,
+                               _layout.max_shared_bytes(0))
+    if split or not plan.register:
+        return "radix-2 body" + (", split mode" if split else "")
+    what = "groups" if mix else "rows"
+    return (f"register body, {per} {what} of {plan.threads} threads a block, "
+            f"{plan.resident_blocks(per)} blocks an SM"
+            + (f", chunks of {chunk} sources" if mix else ""))
+
+
+def check_step(res: dict, name: str, xbs, H, n_fft: int, label: str,
+               reps: int, chunk: int | None = None, profile: bool = True,
+               **kw) -> dict:
+    """block_spectra (or, with ``chunk``, block_spectra_mix) against its
+    plain fp32 version (SNR ≥ KERNEL_SNR_DB, timed beside its bound) and
+    its plain fp64 version (≥ KERNEL_SNR_DB), naming the body it ran;
+    with ``profile``, its device time a call in phase 5."""
+    import torch
+
+    from tinaural_torch.ops import block_step as bs
+
+    S, nb, B_ = xbs.shape
+    F = n_fft // 2 + 1
+    mix = chunk is not None
+    if mix:
+        kw["chunk"] = chunk
+    kern_fn = bs.block_spectra_mix_cuda if mix else bs.block_spectra_cuda
+    plain_fn = (bs.block_spectra_mix_reference if mix
+                else bs.block_spectra_reference)
+    kern = lambda: kern_fn(xbs, H, n_fft, **kw)
+    plain = lambda: plain_fn(xbs, H, n_fft, **kw)
+    got = kern()
+    out_rows = got.shape[0] * nb
+    body = step_body(n_fft, mix, out_rows if mix else S * nb, xbs.device,
+                     chunk or 1)
+    print(f"[{label}] {name}: {body}", flush=True)
+    _report(res, name, got, plain(), kern, plain, label, reps, bound(
+        S * nb * B_ * 4 + H.numel() * 8 + out_rows * 2 * F * 8,
+        S * nb * (fft_flops(n_fft) + 2 * F * (16 if kw["crossfade"] else 8))))
+    s64 = snr_db(plain_fn(xbs.double(), H.to(torch.complex128), n_fft,
+                          **kw), got)
+    print(f"[{label}] {name}: SNR {s64:.2f} dB vs plain fp64", flush=True)
+    require(s64 >= KERNEL_SNR_DB, f"{label} {name}: SNR {s64:.2f} vs plain "
+            "fp64")
+    res[name].update(snr_fp64_db=s64, body=body, device_ms="not measured")
+    if profile:
+        KERNEL_PROFILES.append((f"{label} {name}", res[name], "device_ms",
+                                kern, None, "block_spectra_mix" if mix
+                                else "block_spectra"))
+    return res[name]
+
+
 def check_step_kernels(table, S: int, nb: int, label: str, reps: int) -> dict:
     """block_spectra, spectra_inverse and the per-source overlap_add
     against their plain fp32 versions on one set of inputs, with S − 1
@@ -949,16 +1020,11 @@ def check_step_kernels(table, S: int, nb: int, label: str, reps: int) -> dict:
     xbs = torch.tensor(np.random.default_rng(nb).standard_normal((S, nb, B)),
                        dtype=torch.float32, device=table.device)
     H = br.assemble_filters_cuda(idx, w, table, n_fft, **PART_FLAGS)
+    res = {}
+    check_step(res, "block_spectra", xbs, H, n_fft, label, reps,
+               crossfade=True)
     Y = bs.block_spectra_cuda(xbs, H, n_fft, crossfade=True)
     frames = bs.spectra_inverse_cuda(Y, n_fft)
-    res = {}
-    _report(res, "block_spectra", Y,
-            bs.block_spectra_reference(xbs, H, n_fft, crossfade=True),
-            lambda: bs.block_spectra_cuda(xbs, H, n_fft, crossfade=True),
-            lambda: bs.block_spectra_reference(xbs, H, n_fft, crossfade=True),
-            label, reps, bound(
-                S * nb * (B * 4 + 2 * 2 * F * 8),
-                S * nb * (fft_flops(n_fft) + 2 * F * 14)))
     _report(res, "spectra_inverse", frames,
             bs.spectra_inverse_reference(Y, n_fft),
             lambda: bs.spectra_inverse_cuda(Y, n_fft),
@@ -976,6 +1042,53 @@ def check_step_kernels(table, S: int, nb: int, label: str, reps: int) -> dict:
     print(f"[{label}] overlap_add library (fold) "
           f"{res['overlap_add']['library_ms']:.4f} ms", flush=True)
     return res
+
+
+# (label, n_fft, S, nb, B, one filter a source, crossfade) of the further
+# block-step checks: render (h)'s shape (4096 rows of one source, one
+# filter, no crossfade) and the register bodies' edges, n_fft 128 and 16384
+STEP_SHAPES = (("h", 2048, 1, 4096, 1024, True, False),
+               ("n_fft 128", 128, 64, 128, 64, False, True),
+               ("n_fft 16384", 16384, 8, 16, 8192, False, True))
+
+
+def check_step_shapes(table, reps: int) -> dict:
+    """block_spectra at STEP_SHAPES, and block_spectra_mix on the scene
+    route's chunk at the edges, against their plain fp32 and fp64
+    versions, each naming its body; the filters made by assemble_filters
+    from the synthetic table at (h)'s shape, seeded random spectra at the
+    edges (n_fft 128 is below the table's taps + 64 + B)."""
+    import numpy as np
+    import torch
+
+    from tinaural_torch.ops import block_render as br
+    from tinaural_torch.ops import block_step as bs
+    from tinaural_torch.ops._layout import sm_count
+
+    dev = table.device
+    out = {}
+    for key, n_fft, S, nb, B_, one, cf in STEP_SHAPES:
+        rng = np.random.default_rng(n_fft + nb)
+        xbs = torch.tensor(rng.standard_normal((S, nb, B_)),
+                           dtype=torch.float32, device=dev)
+        F, k = n_fft // 2 + 1, nb if one else 1
+        if key == "h":
+            idx, w = _rows(table, (S, 1), seed=3)
+            H = br.assemble_filters_cuda(idx, w, table, n_fft, **PART_FLAGS)
+        else:
+            H = torch.tensor(rng.standard_normal((S, nb, 2, F))
+                             + 1j * rng.standard_normal((S, nb, 2, F)),
+                             dtype=torch.complex64, device=dev)
+        label = f"block step {key}: {S} × {nb} blocks of {B_}, n_fft {n_fft}"
+        res = {}
+        check_step(res, "block_spectra", xbs, H, n_fft, label, reps,
+                   crossfade=cf, dir_rate=k)
+        if key != "h":
+            check_step(res, "block_spectra_mix", xbs, H, n_fft, label, reps,
+                       chunk=bs.mix_chunk(S, nb, n_fft, sm_count(dev)),
+                       crossfade=cf, dir_rate=k)
+        out[key] = res
+    return out
 
 
 # rows × n_fft of the further spectra_inverse checks: (k)'s shape, the
@@ -1027,7 +1140,7 @@ def check_mix_kernels(table, S: int, nb: int, label: str, reps: int) -> dict:
     idx, w = _rows(table, (S, nb), seed=S + nb + 1)
     xbs = torch.tensor(np.random.default_rng(nb + 1).standard_normal(
         (S, nb, B)), dtype=torch.float32, device=table.device)
-    chunk = bs.mix_chunk(S, nb, sm_count(table.device))
+    chunk = bs.mix_chunk(S, nb, n_fft, sm_count(table.device))
     C = -(-S // chunk)
     print(f"[{label}] {C} chunks of {chunk} sources: {C * nb} CUDA blocks",
           flush=True)
@@ -1038,14 +1151,8 @@ def check_mix_kernels(table, S: int, nb: int, label: str, reps: int) -> dict:
         i, ww = (idx[:, :1].contiguous(), w[:, :1].contiguous()) if one \
             else (idx, w)
         H = br.assemble_filters_cuda(i, ww, table, n_fft, **PART_FLAGS)
-        kw = dict(crossfade=cf, chunk=chunk, dir_rate=nb if one else 1)
-        kern = lambda H=H, kw=kw: bs.block_spectra_mix_cuda(xbs, H, n_fft,
-                                                            **kw)
-        plain = lambda H=H, kw=kw: bs.block_spectra_mix_reference(
-            xbs, H, n_fft, **kw)
-        _report(res, name, kern(), plain(), kern, plain, label, reps, bound(
-            S * nb * B * 4 + H.numel() * 8 + C * nb * 2 * F * 8,
-            S * nb * (fft_flops(n_fft) + 2 * F * (16 if cf else 8))))
+        check_step(res, name, xbs, H, n_fft, label, reps, chunk=chunk,
+                   crossfade=cf, dir_rate=nb if one else 1)
     H = br.assemble_filters_cuda(idx, w, table, n_fft, **PART_FLAGS)
     P = bs.block_spectra_mix_cuda(xbs, H, n_fft, crossfade=True, chunk=chunk)
     _report(res, "spectra_inverse_summed",
@@ -1063,7 +1170,7 @@ def check_group_step_kernels(table, S: int, nb: int, dir_rate: int,
                              label: str, reps: int) -> dict:
     """block_spectra and block_spectra_mix (the scene renders' source
     chunk) with one filter per group of ``dir_rate`` blocks, block b under
-    row ⌊b/k⌋, against their plain fp32 versions."""
+    row ⌊b/k⌋, against their plain fp32 and fp64 versions."""
     import numpy as np
     import torch
 
@@ -1072,28 +1179,16 @@ def check_group_step_kernels(table, S: int, nb: int, dir_rate: int,
     from tinaural_torch.ops._layout import sm_count
 
     n_fft = 2048
-    F = n_fft // 2 + 1
     idx, w = _rows(table, (S, -(-nb // dir_rate)), seed=S + nb + dir_rate)
     xbs = torch.tensor(np.random.default_rng(nb + dir_rate).standard_normal(
         (S, nb, B)), dtype=torch.float32, device=table.device)
     H = br.assemble_filters_cuda(idx, w, table, n_fft, **PART_FLAGS)
-    chunk = bs.mix_chunk(S, nb, sm_count(table.device))
-    C = -(-S // chunk)
+    chunk = bs.mix_chunk(S, nb, n_fft, sm_count(table.device))
     kw = dict(crossfade=True, dir_rate=dir_rate)
     res = {}
-    for name, kern, plain, out_rows in (
-            ("block_spectra",
-             lambda: bs.block_spectra_cuda(xbs, H, n_fft, **kw),
-             lambda: bs.block_spectra_reference(xbs, H, n_fft, **kw), S * nb),
-            ("block_spectra_mix",
-             lambda: bs.block_spectra_mix_cuda(xbs, H, n_fft, chunk=chunk,
-                                               **kw),
-             lambda: bs.block_spectra_mix_reference(xbs, H, n_fft,
-                                                    chunk=chunk, **kw),
-             C * nb)):
-        _report(res, name, kern(), plain(), kern, plain, label, reps, bound(
-            S * nb * B * 4 + H.numel() * 8 + out_rows * 2 * F * 8,
-            S * nb * (fft_flops(n_fft) + 2 * F * 16)))
+    check_step(res, "block_spectra", xbs, H, n_fft, label, reps, **kw)
+    check_step(res, "block_spectra_mix", xbs, H, n_fft, label, reps,
+               chunk=chunk, **kw)
     return res
 
 
@@ -1588,6 +1683,16 @@ def kernel_entry(name: str, source: str, replaces: int, launches: int,
             **extra}
 
 
+def step_extra(m: dict, timed: bool = False) -> dict:
+    """A block-step check's body, device ms a call and SNR against plain
+    fp64 (``timed``: its CUDA-event ms, plain ms and bound too), for the
+    kernels line."""
+    keys = ("body", "device_ms", "snr_fp64_db") + (
+        ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "snr_db")
+        if timed else ())
+    return {k: m[k] for k in keys}
+
+
 def serving_device_ms(renders: dict, kernel: str) -> dict:
     """Device ms per launch of a streaming kernel in the profiled bursts
     of (d) and (e) at update rate 1 (the wrapper times above are bound by
@@ -1710,6 +1815,8 @@ def main() -> int:
     k_step4 = check_group_step_kernels(
         table, 64, 128, 4, "block step and mix S=64 nb=128 dir_rate 4",
         reps=5)
+    # render (h)'s shape, and the register bodies' edges
+    k_step_shapes = check_step_shapes(table, reps=5)
     k_inverse = check_inverse_shapes(dev, reps=5)
 
     # 3d. the scene mixdown's and the natural-order route's kernels
@@ -1867,7 +1974,8 @@ def main() -> int:
               if key.endswith("dir_rate_4")),
               **{f: m.get(f) for f in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "max_abs_err", "snr_db",
-                                       "library_ms")}}
+                                       "library_ms")},
+              **{f: m[f] for f in ("device_ms", "body") if f in m}}
           for name, m in k4_checks.items()}
     kernels = [kernel_entry(
         name, B1_SOURCES[name], FUSED_BLOCK_RENDER,
@@ -1975,7 +2083,13 @@ def main() -> int:
             **extra.get(name, {})))
     kernels += [
         kernel_entry("block_spectra", STEP_SOURCE, FUSED_BLOCK_STEP,
-                     launches["block_spectra"], k_step["block_spectra"]),
+                     launches["block_spectra"], k_step["block_spectra"],
+                     **step_extra(k_step["block_spectra"]),
+                     h_shape=step_extra(
+                         k_step_shapes["h"]["block_spectra"], True),
+                     edges={key: step_extra(m["block_spectra"], True)
+                            for key, m in k_step_shapes.items()
+                            if key != "h"}),
         kernel_entry("spectra_inverse", INVERSE_SOURCE, FUSED_EPILOGUE,
                      launches["spectra_inverse"], k_step["spectra_inverse"],
                      summed_ms=k_mix["spectra_inverse_summed"]["ms"],
@@ -1989,8 +2103,13 @@ def main() -> int:
                      k_step["overlap_add"], sources=64),
         kernel_entry("block_spectra_mix", STEP_SOURCE, FUSED_BLOCK_STEP_MIX,
                      launches["block_spectra_mix"], k_mix["block_spectra_mix"],
-                     **{f"{k}_ms": k_mix[f"block_spectra_mix_{k}"]["ms"]
-                        for k in ("no_crossfade", "one_filter")}),
+                     **step_extra(k_mix["block_spectra_mix"]),
+                     **{f"{k}_{f}": k_mix[f"block_spectra_mix_{k}"][f]
+                        for k in ("no_crossfade", "one_filter")
+                        for f in ("ms", "device_ms", "bound_ms", "bound_by")},
+                     edges={key: step_extra(m["block_spectra_mix"], True)
+                            for key, m in k_step_shapes.items()
+                            if key != "h"}),
         kernel_entry("assembly_mac", MAC_SOURCE, FUSED_ASSEMBLY_MAC,
                      launches["assembly_mac"], k_mac["assembly_mac"],
                      run=k_mac["assembly_mac"]["run"],

@@ -2,7 +2,9 @@
 render's three, the partitioned convolution's three (the streaming step
 with its hold step at P = 1, 5 and 9, S = 1 and block 128, a batched
 stream's offline render, and the partitioned offline render, chunked and
-whole), the block step's two with the per-source overlap-add, the scene
+whole), the block step's two with the per-source overlap-add (their
+register bodies at every n_fft 128 … 16384, at the mode boundaries and
+under a refused plan), the scene
 mixdown's `block_spectra_mix` with the summing `spectra_inverse`, the
 natural-order `assembly_mac`, `spectra_inverse` alone at every FFT
 size, and `assemble_partitions`' register body at every (L, B) pair with
@@ -48,6 +50,7 @@ from tinaural_torch.ops.mac_plan import mac_plan
 from tinaural_torch.ops.partitions_plan import partitions_plan
 from tinaural_torch.ops.render_plan import filters_plan, mix_plan
 from tinaural_torch.ops.spectra_inverse import inverse_plan
+from tinaural_torch.ops.step_plan import step_plan
 
 from test_torch_mac_plan import _inputs as _random_inputs
 from test_torch_mac_plan import _table as _random_table
@@ -674,6 +677,122 @@ def test_scene_mix_route_is_deterministic(table):
     assert bs.launches["block_spectra_mix"] == before["block_spectra_mix"] + 1
     assert torch.equal(first, bs.scene_step_render(xbs, idx, w, table, n_fft,
                                                    **kw))
+
+
+# ----------------------------------------- the block step's register bodies
+
+
+def _step_inputs(S, nb, n, k, seed, dev):
+    """Blocks of B = n/2 samples and the filters `assemble_filters` makes
+    on the card from `_exact_delay_inputs`' table and rows (⌈nb/k⌉ a
+    source)."""
+    fnb = -(-nb // k)
+    t, idx, w = _exact_delay_inputs(n // 4, S * fnb, seed, dev)
+    H = br.assemble_filters_cuda(idx.reshape(S, fnb, 4),
+                                 w.reshape(S, fnb, 4), t, n, **FLAGS)
+    xbs = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (S, nb, n // 2)).astype(np.float32)).to(dev)
+    return xbs, H
+
+
+def _check_step_kernels(xbs, H, n, crossfade, k, chunk, min_db=100):
+    """Both kernels against their plain float32 and float64 versions (≥
+    min_db), the mix kernel's partials equal in bits over two calls."""
+    kw = dict(crossfade=crossfade, dir_rate=k)
+    H64 = H.to(torch.complex128)
+    Y = bs.block_spectra_cuda(xbs, H, n, **kw)
+    for ref in (bs.block_spectra_reference(xbs, H, n, **kw),
+                bs.block_spectra_reference(xbs.double(), H64, n, **kw)):
+        assert _snr_db(ref, Y) >= min_db, (n, crossfade, k)
+    P = bs.block_spectra_mix_cuda(xbs, H, n, chunk=chunk, **kw)
+    for ref in (bs.block_spectra_mix_reference(xbs, H, n, chunk=chunk, **kw),
+                bs.block_spectra_mix_reference(xbs.double(), H64, n,
+                                               chunk=chunk, **kw)):
+        assert _snr_db(ref, P) >= min_db, (n, crossfade, k, chunk)
+    assert torch.equal(P, bs.block_spectra_mix_cuda(xbs, H, n, chunk=chunk,
+                                                    **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("log2n", range(7, 15))
+def test_block_step_register_kernels_every_size(cuda, log2n):
+    """`block_spectra` and `block_spectra_mix` against their plain float32
+    and float64 versions at every n_fft 128 … 16384 of the register
+    bodies, B = n/2: 3 sources × 5 blocks (a partial last CUDA block of
+    rows), crossfade on and off, dir_rate 1, 2 (nb no multiple of k) and
+    ≥ nb, the mix on the scene route's chunk and in chunks of 2 (the last
+    of one source); ≥ 100 dB, equal bits over two calls."""
+    n = 1 << log2n
+    assert step_plan(n, False).register and step_plan(n, True).register
+    S, nb = 3, 5
+    for k in (1, 2, 8):
+        xbs, H = _step_inputs(S, nb, n, k, seed=log2n * 10 + k, dev=cuda)
+        for crossfade in (True, False):
+            for chunk in {bs.mix_chunk(S, nb, n, _layout.sm_count(cuda)), 2}:
+                _check_step_kernels(xbs, H, n, crossfade, k, chunk)
+
+
+@pytest.mark.gpu
+def test_block_step_at_the_mode_boundaries(cuda, monkeypatch):
+    """n_fft 16384 (the largest register plan), 32768 (the split mode's
+    radix-2 body) and a forced split mode at 2048, on both kernels
+    against their plain versions; and B < 128 (n_fft 64) on the radix-2
+    body in shared memory."""
+    for n, force in ((16384, 0), (32768, 0), (2048, 64), (64, 0)):
+        monkeypatch.setattr(_layout, "force_work", force)
+        assert step_plan(n, True).register == (128 <= n <= 16384)
+        rng = np.random.default_rng(n)
+        S, nb, F = 3, 4, n // 2 + 1
+        xbs = torch.from_numpy(rng.standard_normal((S, nb, n // 2)).astype(
+            np.float32)).to(cuda)
+        H = torch.from_numpy((rng.standard_normal((S, nb, 2, F))
+                              + 1j * rng.standard_normal((S, nb, 2, F))
+                              ).astype(np.complex64)).to(cuda)
+        _check_step_kernels(xbs, H, n, True, 1, 2)
+
+
+@pytest.mark.gpu
+def test_block_spectra_refuses_another_plan(table, monkeypatch):
+    """`block_spectra`'s entry point takes only the plan it was compiled
+    for: another thread count, more rows per block than the compiled most
+    or other blocks per SM raises, and nothing is launched."""
+    xbs, idx, w = _inputs(table, 2, 9, seed=14)
+    n_fft = _n_fft(table, B)
+    H = br.assemble_filters_cuda(idx, w, table, n_fft, **FLAGS)
+    plan = step_plan(n_fft, False)
+    for wrong, rows in ((dict(threads=2 * plan.threads), None),
+                        (dict(blocks_per_sm=plan.blocks_per_sm + 1), None),
+                        ({}, plan.max_per_block + 1)):
+        monkeypatch.setattr(bs, "step_plan", lambda n, mix, wrong=wrong:
+                            dataclasses.replace(step_plan(n, mix), **wrong))
+        if rows:
+            monkeypatch.setattr(bs, "spectra_rows", lambda *a, g=rows: g)
+        before = bs.launches["block_spectra"]
+        with pytest.raises(RuntimeError):
+            bs.block_spectra_cuda(xbs, H, n_fft, crossfade=True)
+        assert bs.launches["block_spectra"] == before
+
+
+@pytest.mark.gpu
+def test_block_spectra_mix_refuses_another_plan(table, monkeypatch):
+    """`block_spectra_mix`'s entry point likewise: another thread count,
+    more groups than the compiled most, or other blocks per SM raises,
+    and nothing is launched."""
+    xbs, idx, w = _inputs(table, 8, 9, seed=15)
+    n_fft = _n_fft(table, B)
+    H = br.assemble_filters_cuda(idx, w, table, n_fft, **FLAGS)
+    plan = step_plan(n_fft, True)
+    for wrong, groups in ((dict(threads=2 * plan.threads), None),
+                          (dict(blocks_per_sm=plan.blocks_per_sm + 1), None),
+                          ({}, plan.max_per_block + 1)):
+        monkeypatch.setattr(bs, "step_plan", lambda n, mix, wrong=wrong:
+                            dataclasses.replace(step_plan(n, mix), **wrong))
+        if groups:
+            monkeypatch.setattr(bs, "mix_groups", lambda *a, g=groups: g)
+        before = bs.launches["block_spectra_mix"]
+        with pytest.raises(RuntimeError):
+            bs.block_spectra_mix_cuda(xbs, H, n_fft, crossfade=True, chunk=8)
+        assert bs.launches["block_spectra_mix"] == before
 
 
 def _mac_inputs(t, rows, n_fft, seed):

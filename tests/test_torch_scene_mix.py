@@ -21,6 +21,7 @@ from tinaural_torch.models.renderer import (_n_fft, _neighbours,
 from tinaural_torch.ops import _layout
 from tinaural_torch.ops import block_render as br
 from tinaural_torch.ops import block_step as bs
+from tinaural_torch.ops.step_plan import mix_launch, step_plan
 
 torch.set_num_threads(1)
 
@@ -176,27 +177,38 @@ def test_scene_route_rule():
 
 
 def test_mix_chunk_rule():
-    """Enough chunks of sources that the (chunk, block) grid holds
-    MIX_BLOCKS_PER_SM CUDA blocks per SM, sources spread evenly."""
-    assert bs.MIX_BLOCKS_PER_SM == 8
-    assert bs.mix_chunk(64, 128, 132) == 8     # (b), (c): 8 chunks, 1024 blocks
-    assert bs.mix_chunk(64, 16, 132) == 1      # 64 chunks of one source
-    assert bs.mix_chunk(3, 5, 132) == 1
-    assert bs.mix_chunk(64, 4096, 132) == 64   # one chunk: 4096 blocks
-    assert bs.mix_chunk(10, 300, 132) == 3     # 4 chunks (3, 3, 3, 1)
-    assert bs.mix_chunk(64, 128, 0) == 64
+    """The chunk (and the groups per CUDA block) of fewest rounds of
+    sources on the busiest group slot, counting the blocks an SM holds at
+    once, a partial counted as one more round, then the fewest chunks;
+    the radix-2 body's rule below n_fft 128 and above 16384; one chunk
+    with no card."""
+    assert bs.mix_chunk(64, 128, 2048, 132) == 22  # (b), (c): 3 chunks
+    assert mix_launch(64, 128, 2048, 132) == (22, 2)  # 384 blocks, 6 a SM
+    assert mix_launch(64, 16, 2048, 132) == (8, 4)
+    assert bs.mix_chunk(3, 5, 2048, 132) == 2
+    assert bs.mix_chunk(64, 4096, 2048, 132) == 32
+    assert bs.mix_chunk(10, 300, 2048, 132) == 10  # 300 blocks of 2 groups
+    assert mix_launch(64, 128, 16384, 132) == (64, 1)  # 1024 threads a block
+    assert mix_launch(64, 128, 64, 132) == (8, 1)  # radix-2: 8 chunks
+    assert mix_launch(64, 128, 32768, 132) == (8, 1)
+    assert bs.mix_chunk(64, 128, 2048, 0) == 64
 
 
 def test_mix_buffer_mode():
-    """block_spectra_mix holds the twiddles, the FFT buffer and two ears'
-    accumulators (n_fft/2 + n_fft + 2F complex64): shared memory up to
-    n_fft 8192, the split mode above."""
+    """block_spectra_mix holds a group's exchange buffer and its threads'
+    sums (n + n/16 + 18·n/16 complex64 a group; at 16384 the sums stay in
+    registers) in shared memory at n_fft 128 … 16384, the radix-2 body's
+    twiddles, buffer and sums (n/2 + n + 2F) below; the split mode above."""
     limit = 232448
-
-    def shared(n_fft):
-        return n_fft // 2 + n_fft + 2 * (n_fft // 2 + 1)
-
-    assert _layout.split_work(shared(2048), 2048, limit) == 0
-    assert _layout.split_work(shared(8192), 8192, limit) == 0
-    assert _layout.split_work(shared(16384), 16384,
+    for n_fft in (2048, 8192, 16384):
+        plan = step_plan(n_fft, True)
+        groups = mix_launch(64, 128, n_fft, 132)[1]
+        assert plan.register
+        assert _layout.split_work(plan.shared_f2(groups), n_fft, limit) == 0
+    assert step_plan(64, True).shared_f2(1) == 32 + 64 + 2 * 33
+    assert _layout.split_work(step_plan(64, True).shared_f2(1), 64,
+                              limit) == 0
+    plan = step_plan(32768, True)
+    assert not plan.register
+    assert _layout.split_work(plan.shared_f2(1), 32768,
                               limit) == _layout.SPLIT_WORK

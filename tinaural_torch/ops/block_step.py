@@ -30,8 +30,10 @@ before its inverse; step 4 then has one source. It is the port of
 kernels of ``csrc/assemble_filters.cu``, ``csrc/block_step.cu``,
 ``csrc/spectra_inverse.cu`` and ``csrc/block_render.cu`` on CUDA tensors
 and run the plain versions on CPU tensors; any other device raises. The
-kernels take every FFT size (``ops/_layout.py``). ``launches`` counts the
-three kernels of this module.
+kernels take every FFT size (``ops/_layout.py``): `block_spectra` and
+`block_spectra_mix` run register bodies at n_fft 128 … 16384 and radix-2
+bodies elsewhere, their launches planned by ``ops/step_plan.py``.
+``launches`` counts the three kernels of this module.
 """
 
 from __future__ import annotations
@@ -45,12 +47,10 @@ from .block_render import (_check_inputs, _cuda_inputs,
                            overlap_add_cuda)
 from .ola import overlap_add
 from .spectra_inverse import MAX_REGISTER_N, inverse_plan, twiddles
+from .step_plan import (mix_groups, mix_launch, radix2_plan, spectra_rows,
+                        step_plan)
 
 KERNELS = ("block_spectra", "spectra_inverse", "block_spectra_mix")
-# `block_spectra_mix` takes as many source chunks as give its grid this
-# many CUDA blocks per SM (the mix kernel holds ~41 KB of shared memory at
-# n_fft 2048, so five fit an SM at once), at most one per source.
-MIX_BLOCKS_PER_SM = 8
 launches = dict.fromkeys(KERNELS, 0)
 
 
@@ -115,9 +115,10 @@ def scene_step_render(xbs: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     S, nb, B = xbs.shape
     H = assemble_filters_cuda(idx, w, table, n_fft, apply_itd=apply_itd,
                               apply_ild=apply_ild)
-    P = block_spectra_mix_cuda(xbs, H, n_fft, crossfade=crossfade,
-                               chunk=mix_chunk(S, nb, sm_count(xbs.device)),
-                               dir_rate=dir_rate)
+    P = block_spectra_mix_cuda(
+        xbs, H, n_fft, crossfade=crossfade,
+        chunk=mix_chunk(S, nb, n_fft, sm_count(xbs.device)),
+        dir_rate=dir_rate)
     frames = spectra_inverse_cuda(P, n_fft, summed=True)
     return overlap_add_cuda(frames[None], B)[0]
 
@@ -128,12 +129,12 @@ def scene_step_render(xbs: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
 scene_step_render_reference = block_render_reference
 
 
-def mix_chunk(S: int, nb: int, sms: int) -> int:
-    """Sources per CUDA block of `block_spectra_mix`: the fewest chunks C
-    whose grid of C·nb blocks gives every SM ``MIX_BLOCKS_PER_SM``, at
-    most S, then the sources spread evenly over them (C = ⌈S/chunk⌉)."""
-    chunks = min(S, max(1, -(-MIX_BLOCKS_PER_SM * sms // nb)))
-    return -(-S // chunks)
+def mix_chunk(S: int, nb: int, n_fft: int, sms: int) -> int:
+    """Sources per chunk of `block_spectra_mix` (C = ⌈S/chunk⌉ partials):
+    the chunk of ``ops/step_plan.py`` `mix_launch`, which picks it with
+    the groups per CUDA block from the kernel's occupancy on a card of
+    ``sms`` SMs (one chunk with no card)."""
+    return mix_launch(S, nb, n_fft, sms)[0]
 
 
 def _check_spectra_inputs(xbs: torch.Tensor, H: torch.Tensor, n_fft: int,
@@ -159,17 +160,23 @@ def block_spectra_cuda(xbs: torch.Tensor, H: torch.Tensor, n_fft: int, *,
                        crossfade: bool, dir_rate: int = 1) -> torch.Tensor:
     """Kernel `block_spectra`: xbs (S, nb, B) f32, H (S, ⌈nb/k⌉, 2, F)
     complex64, block b's filter row ⌊b/k⌋ with k = ``dir_rate`` → Y (S,
-    nb, 2, F) complex64."""
+    nb, 2, F) complex64. Its launch: ``ops/step_plan.py``."""
     from . import _build
 
     stream = _cuda_inputs(xbs, H)
     S, nb, B, F = _check_spectra_inputs(xbs, H, n_fft, dir_rate)
     Y = torch.empty((S, nb, 2, F), dtype=torch.complex64, device=xbs.device)
-    *split, _keep = layout(xbs.device, n_fft // 2 + n_fft, n_fft, S * nb,
-                           n_fft)
+    plan = step_plan(n_fft, False)
+    G = spectra_rows(plan, S * nb, sm_count(xbs.device))
+    *split, _keep = layout(xbs.device, plan.shared_f2(G), plan.scratch_f2,
+                           S * nb, n_fft)
+    if split[1]:
+        plan, G = radix2_plan(n_fft, False), 1
+    tw = twiddles(n_fft, xbs.device).data_ptr() if plan.register else 0
     _build.check(_build.library().tt_block_spectra(
-        xbs.data_ptr(), H.data_ptr(), Y.data_ptr(), S, nb, B, n_fft,
-        dir_rate, int(crossfade), *split, stream), "block_spectra")
+        xbs.data_ptr(), H.data_ptr(), Y.data_ptr(), tw, S, nb, B, n_fft,
+        dir_rate, int(crossfade), plan.threads, G, plan.blocks_per_sm,
+        *split, stream), "block_spectra")
     launches["block_spectra"] += 1
     return Y
 
@@ -180,21 +187,26 @@ def block_spectra_mix_cuda(xbs: torch.Tensor, H: torch.Tensor, n_fft: int,
     """Kernel `block_spectra_mix`: xbs (S, nb, B) f32, H (S, ⌈nb/k⌉, 2,
     F) complex64 as in `block_spectra_cuda` → partials P (⌈S/chunk⌉, nb, 2,
     F) complex64, P[c] the block spectra of sources c·chunk … (c+1)·chunk
-    − 1 summed."""
+    − 1 summed. Its launch (groups per block): ``ops/step_plan.py``."""
     from . import _build
 
     stream = _cuda_inputs(xbs, H)
     S, nb, B, F = _check_spectra_inputs(xbs, H, n_fft, dir_rate)
     if chunk < 1:
         raise ValueError(f"chunk={chunk} must be positive")
-    P = torch.empty((-(-S // chunk), nb, 2, F), dtype=torch.complex64,
-                    device=xbs.device)
-    *split, _keep = layout(xbs.device, n_fft // 2 + n_fft + 2 * F,
-                           n_fft + 2 * F, P.shape[0] * nb, n_fft)
+    C = -(-S // chunk)
+    P = torch.empty((C, nb, 2, F), dtype=torch.complex64, device=xbs.device)
+    plan = step_plan(n_fft, True)
+    groups = mix_groups(plan, chunk, C * nb, sm_count(xbs.device))
+    *split, _keep = layout(xbs.device, plan.shared_f2(groups),
+                           plan.scratch_f2, C * nb, n_fft)
+    if split[1]:
+        plan, groups = radix2_plan(n_fft, True), 1
+    tw = twiddles(n_fft, xbs.device).data_ptr() if plan.register else 0
     _build.check(_build.library().tt_block_spectra_mix(
-        xbs.data_ptr(), H.data_ptr(), P.data_ptr(), S, nb, B, n_fft,
-        dir_rate, chunk, int(crossfade), *split, stream),
-        "block_spectra_mix")
+        xbs.data_ptr(), H.data_ptr(), P.data_ptr(), tw, S, nb, B, n_fft,
+        dir_rate, chunk, int(crossfade), plan.threads, groups,
+        plan.blocks_per_sm, *split, stream), "block_spectra_mix")
     launches["block_spectra_mix"] += 1
     return P
 
