@@ -12,8 +12,9 @@ Phases, each of which fails the run on any error (nothing is caught):
      crossfade, render (m)'s 16 sources × 1024 blocks) and in the split
      mode at n_fft 32768, then at dir_rate 4 (one filter per group of 4
      blocks: 2048 filters for the 8192-block trajectory, 8 for 30 blocks
-     in the split mode): SNR ≥ 100 dB, each FFT kernel's SNR against
-     plain fp64 printed;
+     in the split mode): SNR ≥ 100 dB, `overlap_add` equal in bits and
+     naming the body it ran, each FFT kernel's SNR against plain fp64
+     printed;
   3b. each partitioned-convolution kernel against its plain version, SNR
      ≥ 100 dB, each line naming the body it ran: the streaming step at
      128 taps (S = 1024, B = 256, P = 1) and 2048 taps (S = 64, B = 256,
@@ -34,8 +35,9 @@ Phases, each of which fails the run on any error (nothing is caught):
   3c. the block-step kernels (`block_spectra`, `spectra_inverse`, the
      per-source `overlap_add`) against their plain versions at S = 64,
      nb = 128 and at S = 32, nb = 1 (B = 1024, 128 taps), SNR ≥ 100 dB
-     (≥ 130 dB for `spectra_inverse`); `block_spectra` and
-     `block_spectra_mix` at dir_rate 4 (S = 64, nb = 128, 32 filters a
+     (≥ 130 dB for `spectra_inverse`, `overlap_add` equal in bits and
+     timed after an L2 flush);
+     `block_spectra` and `block_spectra_mix` at dir_rate 4 (S = 64, nb = 128, 32 filters a
      source), `block_spectra` at render (h)'s shape (4096 rows of one
      source, one filter, no crossfade) and both at the register bodies'
      edges (n_fft 128: 64 × 128 blocks of 64; n_fft 16384: 8 × 16 blocks
@@ -51,7 +53,12 @@ Phases, each of which fails the run on any error (nothing is caught):
      × 128 blocks, `first` at each source's block 0; 2048 taps, B = 1024,
      n_fft = 4096) and at render (l)'s 4096 rows (one source, 128 taps,
      B = 2048, n_fft = 4096), against their plain versions, SNR ≥ 100 dB
-     (≥ 110 dB against plain fp64 for `assembly_mac`);
+     (≥ 110 dB against plain fp64 for `assembly_mac`); then `overlap_add`
+     alone, equal in bits to its plain version and timed beside its
+     bound and `fold`, naming its body, at (k)'s 64 × 128 frames of n_fft
+     4096 (k = 4), (l)'s 4096 × 4096 at B 2048, (j) trajectory's 128 ×
+     32768 (k = 32) and (a)'s frames one float past 16-byte alignment
+     (the scalar body), each timed call after an L2 flush, as in 3c;
   4. the renders through the public entry points — (a) a 2^23-sample
      trajectory and (a4) the same at dir_rate 4, (b) a 64-source moving
      scene, (b4) the same at dir_rate 4, and (c) a 64-source static
@@ -87,8 +94,8 @@ Phases, each of which fails the run on any error (nothing is caught):
      against (g), (j4) against (j)'s stream); then one per
      `assemble_partitions` check of 3b, per `stream_conv` check (with
      blend and as the hold step), per `frame_spectra` and
-     `partitioned_conv` check and per block-step check of 3c and 3d: its
-     device time a call.
+     `partitioned_conv` check, per block-step check of 3c and 3d and
+     per `overlap_add` shape of 3d: its device time a call.
 Every render reads every kernel's launch count, all set to 0 just before
 it. The line before the last is the kernels' JSON record (each k-path
 kernel with its dir_rate 4 check and launches under ``dir_rate_4``; each
@@ -96,8 +103,9 @@ kernel's bound: the larger of its bytes over 3.35 TB/s and its FLOPs,
 FFTs counted as 5·n·log2 n, over 67 TFLOP/s fp32; the partitioned
 convolution's kernels with their device ms, body and forward
 transforms; the block step's two with their device ms and body, and
-`block_spectra` at (h)'s shape with its bound); the last line is
-``{"ok": true, "device": {...}}``.
+`block_spectra` at (h)'s shape with its bound; `overlap_add` with its
+body, and at 3d's shapes with their bounds and device ms); the last line
+is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -206,20 +214,49 @@ def max_abs(ref, test) -> float:
     return float((ref - test.to(ref.dtype)).abs().max())
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of one call, by CUDA events, after one warm-up."""
+def cuda_ms(fn, reps: int, flush=None) -> float:
+    """Mean device time of one call, by CUDA events, after one warm-up;
+    with ``flush``, each call timed on its own after flush() (`l2_flush`)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
+    if flush is None:
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+    total = 0.0
     for _ in range(reps):
+        flush()
+        start.record()
         fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+L2_FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
+
+
+def l2_flush(dev):
+    """A call that writes L2_FLUSH_BYTES on ``dev``, evicting from L2 what
+    the call timed after it reads, so its inputs come from device memory
+    as its byte bound assumes (a kernel whose inputs fit in L2 would
+    otherwise read them from there on every repeat after the first)."""
+    import torch
+
+    if dev not in _L2_SCRATCH:
+        _L2_SCRATCH[dev] = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
+    return _L2_SCRATCH[dev].zero_
+
+
+_L2_SCRATCH = {}  # device → l2_flush's buffer, one a card
 
 
 def require(cond: bool, what: str) -> None:
@@ -312,19 +349,22 @@ def check_kernels(table, S: int, nb: int, crossfade: bool, label: str,
     res["block_spectra_mix_inverse"].update(bound(
         S * nb * B * 4 + H.numel() * 8 + nb * 2 * n_fft * 4,
         S * nb * (fft_flops(n_fft) + 2 * F * mac) + nb * fft_flops(n_fft)))
-    res["overlap_add"].update(ola_work(1, nb, B, n_fft))
+    require(torch.equal(out, out_ref), f"[{label}] overlap_add differs "
+            "in bits from the plain version")
+    res["overlap_add"].update(ola_work(1, nb, B, n_fft),
+                              body=ola_body(frames[None], B))
     res["overlap_add"]["library_ms"] = fold_ms(frames[None], B, reps)
     print(f"[{label}] bounds: " + ", ".join(
         f"{k} {v['bound_ms']:.4f} ms ({v['bound_by']})" for k, v in res.items())
         + f"; overlap_add library (fold) {res['overlap_add']['library_ms']:.4f}"
-        " ms", flush=True)
+        f" ms, body {res['overlap_add']['body']}, equal in bits", flush=True)
     return res
 
 
-def fold_ms(frames, hop: int, reps: int) -> float:
+def fold_ms(frames, hop: int, reps: int, flush=None) -> float:
     """Time of `torch.nn.functional.fold`, one PyTorch call that
     overlap-adds (S, nb, 2, n) frames laid out as (S·2, n, nb), checked
-    against the plain version first."""
+    against the plain version first (``flush`` as in `cuda_ms`)."""
     import torch
     import torch.nn.functional as F
 
@@ -337,7 +377,7 @@ def fold_ms(frames, hop: int, reps: int) -> float:
     ref = overlap_add(frames.transpose(1, 2), hop)
     require(torch.allclose(call().reshape(S, 2, out), ref, atol=1e-5),
             "fold is not the overlap-add")
-    return cuda_ms(call, reps)
+    return cuda_ms(call, reps, flush)
 
 
 B1_COUNTS = {"assemble_filters": 1, "block_spectra_mix_inverse": 1,
@@ -505,18 +545,19 @@ PART_FLAGS = dict(apply_itd=True, apply_ild=True)
 
 def _report(res: dict, name: str, got, ref, kern, plain, label: str,
             reps: int, work: dict | None = None, library=None,
-            min_snr: float = KERNEL_SNR_DB) -> None:
+            min_snr: float = KERNEL_SNR_DB, flush=None) -> None:
     """Hold one kernel output against its plain version (SNR ≥
-    ``min_snr``), time both (and the library call, where there is one);
-    ``work`` is its bound."""
+    ``min_snr``), time both (and the library call, where there is one;
+    ``flush`` as in `cuda_ms`); ``work`` is its bound."""
     import torch
 
     require(bool(torch.isfinite(torch.view_as_real(got) if got.is_complex()
                                 else got).all()), f"{name} not finite")
     s = snr_db(ref, got)
     r = {"snr_db": s, "max_abs_err": max_abs(ref, got),
-         "ms": cuda_ms(kern, reps), "plain_ms": cuda_ms(plain, reps),
-         "library_ms": cuda_ms(library, reps) if library else None,
+         "ms": cuda_ms(kern, reps, flush),
+         "plain_ms": cuda_ms(plain, reps, flush),
+         "library_ms": cuda_ms(library, reps, flush) if library else None,
          **(work or {})}
     res[name] = r
     print(f"[{label}] {name}: SNR {s:.2f} dB vs plain fp32, max abs err "
@@ -1033,14 +1074,71 @@ def check_step_kernels(table, S: int, nb: int, label: str, reps: int) -> dict:
                   S * nb * fft_flops(n_fft)),
             library=lambda: torch.fft.irfft(Y, n=n_fft),
             min_snr=INVERSE_SNR_DB)
-    _report(res, "overlap_add", br.overlap_add_cuda(frames, B),
-            br.overlap_add(frames.transpose(1, 2), B),
-            lambda: br.overlap_add_cuda(frames, B),
-            lambda: br.overlap_add(frames.transpose(1, 2), B), label, reps,
-            ola_work(S, nb, B, n_fft))
-    res["overlap_add"]["library_ms"] = fold_ms(frames, B, reps)
-    print(f"[{label}] overlap_add library (fold) "
-          f"{res['overlap_add']['library_ms']:.4f} ms", flush=True)
+    check_ola(res, "overlap_add", frames, B, label, reps)
+    return res
+
+
+def ola_body(frames, hop: int) -> str:
+    """The body of `overlap_add` that its plan takes for these frames
+    (the wrapper's out is allocated 16-byte aligned)."""
+    from tinaural_torch.ops.ola_plan import ALIGN_BYTES, ola_plan
+
+    S, nb, _, n = frames.shape
+    return ola_plan(S, nb, hop, n, frames.data_ptr() % ALIGN_BYTES == 0).body
+
+
+def check_ola(res: dict, name: str, frames, hop: int, label: str, reps: int,
+              profile: bool = False) -> None:
+    """`overlap_add` on (S, nb, 2, n) frames: equal in bits to its plain
+    float32 version, timed beside its bound and `fold`, naming its body;
+    with ``profile`` its device time a call is taken in phase 5. Every
+    timed call follows an L2 flush (`l2_flush`): the frames of the smaller
+    shapes fit in L2, and read from there they would beat the byte
+    bound."""
+    import torch
+
+    from tinaural_torch.ops import block_render as br
+
+    kern = lambda: br.overlap_add_cuda(frames, hop)
+    plain = lambda: br.overlap_add(frames.transpose(1, 2), hop)
+    flush = l2_flush(frames.device)
+    got, ref = kern(), plain()
+    S, nb, _, n = frames.shape
+    _report(res, name, got, ref, kern, plain, label, reps,
+            ola_work(S, nb, hop, n), flush=flush)
+    require(torch.equal(got, ref), f"[{label}] {name} differs in bits from "
+            "the plain version")
+    res[name].update(body=ola_body(frames, hop), l2_flushed=True,
+                     library_ms=fold_ms(frames, hop, reps, flush))
+    print(f"[{label}] {name}: body {res[name]['body']}, equal in bits; "
+          f"library (fold) {res[name]['library_ms']:.4f} ms", flush=True)
+    if profile:
+        KERNEL_PROFILES.append((f"{label} {name}", res[name], "device_ms",
+                                lambda: (flush(), kern()), None,
+                                "overlap_add"))
+
+
+# (label, S, nb, B, n_fft, frames offset in floats) of the further
+# overlap_add checks: (k)'s 64 × 128 frames at n_fft 4096 (k = 4), (l)'s
+# 4096 × 4096 at B 2048, (j) trajectory's 128 × 32768 (k = 32), and (a)'s
+# frames from a pointer one float past 16-byte alignment (the scalar body)
+OLA_SHAPES = (("k", 64, 128, 1024, 4096, 0), ("l", 1, 4096, 2048, 4096, 0),
+              ("j", 1, 128, 1024, 32768, 0),
+              ("a off alignment", 1, 8192, 1024, 2048, 1))
+
+
+def check_ola_shapes(dev, reps: int) -> dict:
+    """`overlap_add` alone at OLA_SHAPES on seeded random frames."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(14)
+    res = {}
+    for key, S, nb, hop, n, offset in OLA_SHAPES:
+        flat = torch.randn(offset + S * nb * 2 * n, generator=g, device=dev)
+        frames = flat[offset:].view(S, nb, 2, n)
+        check_ola(res, key, frames, hop, f"overlap_add {key}: {S} × {nb} "
+                  f"frames, B {hop}, n_fft {n}", reps, profile=True)
     return res
 
 
@@ -1827,6 +1925,8 @@ def main() -> int:
     k_mac_l = check_assembly_mac(table, 1, 4096,
                                  "assembly_mac 4096 rows n_fft 4096 128 taps",
                                  reps=5, block=2048)
+    # overlap_add at (k)'s, (l)'s and (j)'s shapes and off alignment
+    k_ola = check_ola_shapes(dev, reps=5)
 
     # 4. the renders
     r = tt.BinauralRenderer(table, cfg)
@@ -1987,7 +2087,13 @@ def main() -> int:
             + (("snr_fp64_db",) if "snr_fp64_db" in k_m[name] else ())},
         **({"also_replaces": [f"{PALLAS}:{FUSED_BLOCK_STEP}",
                               f"{PALLAS}:{FUSED_BLOCK_STEP_MIX}"]}
-           if name == "assemble_filters" else {}))
+           if name == "assemble_filters" else {}),
+        **({"body": k_traj[name]["body"],
+            "shapes": {key: {f: m.get(f) for f in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "max_abs_err", "body", "device_ms", "l2_flushed")}
+                for key, m in k_ola.items()}}
+           if name == "overlap_add" else {}))
         for name in br.KERNELS]
     # main shapes: the serving step (128 taps, S = 1024) and the offline
     # BRIR render; the BRIR serving step's times ride along
@@ -2100,7 +2206,8 @@ def main() -> int:
                              for k, m in k_inverse.items()},
                      also_replaces=[f"{PALLAS}:{FUSED_BLOCK_STEP_MIX}"]),
         kernel_entry("overlap_add", SOURCE, FUSED_EPILOGUE, ola_b2,
-                     k_step["overlap_add"], sources=64),
+                     k_step["overlap_add"], sources=64,
+                     body=k_step["overlap_add"]["body"]),
         kernel_entry("block_spectra_mix", STEP_SOURCE, FUSED_BLOCK_STEP_MIX,
                      launches["block_spectra_mix"], k_mix["block_spectra_mix"],
                      **step_extra(k_mix["block_spectra_mix"]),

@@ -4,7 +4,9 @@ with its hold step at P = 1, 5 and 9, S = 1 and block 128, a batched
 stream's offline render, and the partitioned offline render, chunked and
 whole), the block step's two with the per-source overlap-add (their
 register bodies at every n_fft 128 … 16384, at the mode boundaries and
-under a refused plan), the scene
+under a refused plan), `overlap_add` alone equal in bits to its plain
+version at B 1 … 2048 and k 2, 4 and 32 on its vector and scalar bodies
+(a frames view off alignment) and under a refused plan, the scene
 mixdown's `block_spectra_mix` with the summing `spectra_inverse`, the
 natural-order `assembly_mac`, `spectra_inverse` alone at every FFT
 size, and `assemble_partitions`' register body at every (L, B) pair with
@@ -47,6 +49,7 @@ from tinaural_torch.ops import block_step as bs
 from tinaural_torch.ops import partitioned_conv as pc
 from tinaural_torch.ops.conv_plan import conv_plan, stream_launch
 from tinaural_torch.ops.mac_plan import mac_plan
+from tinaural_torch.ops.ola_plan import ola_plan
 from tinaural_torch.ops.partitions_plan import partitions_plan
 from tinaural_torch.ops.render_plan import filters_plan, mix_plan
 from tinaural_torch.ops.spectra_inverse import inverse_plan
@@ -581,7 +584,7 @@ def test_block_step_kernels_match_plain(table, S, nb, crossfade, one_filter):
     out = br.overlap_add_cuda(frames, B)
     ref = br.overlap_add(frames.transpose(1, 2), B)
     assert out.shape == (S, 2, (nb - 1) * B + n_fft)
-    assert torch.allclose(out, ref, rtol=0, atol=1e-6)
+    assert torch.equal(out, ref)
     before = (dict(br.launches), dict(bs.launches))
     y = bs.block_step_render(xbs, idx, w, table, n_fft, crossfade=crossfade,
                              dir_rate=k, **FLAGS)
@@ -1262,3 +1265,59 @@ def test_forced_split_mode_at_cluster_sizes(long_tables, monkeypatch):
         r64, i64 = pc.assemble_partitions_reference(idx, w.double(), t, 512,
                                                     **FLAGS)
         assert _snr_db(torch.complex(r64, i64), torch.complex(hr, hi)) >= 100
+
+
+# (S, nb, B, k) of the overlap_add checks: B 1, 2, 4, 1024 and 2048, k 2,
+# 4 and 32, S 1 and 64; (a)'s 8192 frames and the scene mixdown's 128
+OLA_CASES = ((1, 7, 1, 2), (64, 3, 1, 4), (64, 3, 2, 4), (1, 9, 2, 32),
+             (3, 9, 4, 32), (64, 5, 4, 2), (1, 8192, 1024, 2),
+             (1, 128, 1024, 2), (64, 5, 1024, 4), (1, 9, 1024, 32),
+             (1, 300, 2048, 2), (64, 3, 2048, 4), (1, 3, 2048, 32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("S,nb,hop,k", OLA_CASES)
+def test_overlap_add_equals_plain_in_bits(cuda, S, nb, hop, k, offset):
+    """`overlap_add_cuda` against the plain float32 version on the same
+    frames: max abs err 0, on its vector bodies and, at B < 4 or from a
+    frames view one float past 16-byte alignment, its scalar body."""
+    n = k * hop
+    g = torch.Generator(device=cuda)
+    g.manual_seed(S * 1000 + nb + hop + k + offset)
+    flat = torch.randn(offset + S * nb * 2 * n, generator=g, device=cuda)
+    frames = flat[offset:].view(S, nb, 2, n)
+    plan = ola_plan(S, nb, hop, n, offset == 0)
+    assert (plan.vec == 1) == (offset == 1 or hop < 4)
+    before = br.launches["overlap_add"]
+    out = br.overlap_add_cuda(frames, hop)
+    ref = br.overlap_add(frames.transpose(1, 2), hop)
+    torch.cuda.synchronize()
+    assert br.launches["overlap_add"] == before + 1
+    assert out.shape == ref.shape == (S, 2, (nb - 1) * hop + n)
+    assert float((out - ref).abs().max()) == 0 and torch.equal(out, ref)
+
+
+@pytest.mark.gpu
+def test_overlap_add_refuses_another_plan(cuda, monkeypatch):
+    """The entry point takes only its own plan: another vector width or
+    grid raises, and nothing is launched;
+    a row of 2^31 frame values or more (checked from the shape, nothing
+    allocated) and a hop that is no power of two raise too."""
+    frames = torch.randn(2, 9, 2, 2048, device=cuda)
+    plan = ola_plan(2, 9, 1024, 2048, True)
+    for wrong in (dict(vec=1), dict(vec=8),
+                  dict(grid=(plan.grid[0] + 1, plan.grid[1])),
+                  dict(grid=(plan.grid[0] - 1, plan.grid[1]))):
+        monkeypatch.setattr(br, "ola_plan", lambda *a, wrong=wrong:
+                            dataclasses.replace(plan, **wrong))
+        before = br.launches["overlap_add"]
+        with pytest.raises(RuntimeError):
+            br.overlap_add_cuda(frames, 1024)
+        assert br.launches["overlap_add"] == before
+    monkeypatch.undo()
+    huge = torch.empty((1, 1, 1, 1), device=cuda).expand(1, 2**18, 2, 4096)
+    with pytest.raises(ValueError, match="32-bit"):
+        br.overlap_add_cuda(huge, 2048)
+    with pytest.raises(ValueError, match="power of two"):
+        br.overlap_add_cuda(torch.zeros((1, 3, 2, 12), device=cuda), 3)

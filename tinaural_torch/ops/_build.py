@@ -32,7 +32,7 @@ _SIGNATURES = {
     "tt_max_shared_bytes": [_I],
     "tt_assemble_filters": [_P] * 9 + [_I] * 9 + [_F] * 4 + _SPLIT,
     "tt_block_spectra_mix_inverse": [_P] * 4 + [_I] * 9 + _SPLIT,
-    "tt_overlap_add": [_P] * 2 + [_I] * 4 + [_P],
+    "tt_overlap_add": [_P] * 2 + [_I] * 6 + [_P],
     "tt_assemble_partitions": [_P] * 11 + [_I] * 10 + [_F] * 4 + _SPLIT,
     "tt_stream_conv": [_P] * 14 + [_I] * 7 + _SPLIT,
     "tt_frame_spectra": [_P] * 3 + [_I] * 7 + [_P],

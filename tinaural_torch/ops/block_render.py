@@ -26,8 +26,9 @@ at k as every row at k = 1, with k× fewer assemblies.
 first two kernels have two buffer modes (``ops/_layout.py``): up to n_fft
 16384 the shared mode, register-resident FFTs with one exchange buffer in
 shared memory (their launch plans are ``ops/render_plan.py``); above, the
-split mode, radix-2 FFTs over a device scratch. ``launches`` counts each
-kernel's launches.
+split mode, radix-2 FFTs over a device scratch. The third, `overlap_add`,
+streams V outputs a thread (its plan is ``ops/ola_plan.py``).
+``launches`` counts each kernel's launches.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from .filters import effective_filter
 from .interp import gather_rows
 from .mac_plan import ramp_taper
 from .ola import overlap_add
+from .ola_plan import ALIGN_BYTES, check_rows, ola_plan
 from .render_plan import MIN_MIX_N, filters_plan, mix_groups, mix_plan
 from .spectra_inverse import twiddles
 
@@ -201,21 +203,27 @@ def block_spectra_mix_inverse_cuda(xbs: torch.Tensor, H: torch.Tensor,
 
 def overlap_add_cuda(frames: torch.Tensor, hop: int) -> torch.Tensor:
     """Kernel `overlap_add`: frames (S, nb, 2, n_fft) f32 → (S, 2,
-    (nb−1)·hop + n_fft) f32, each source's frames added on their own."""
+    (nb−1)·hop + n_fft) f32, each source's frames added on their own, equal
+    in bits to the plain `overlap_add`. hop is a power of two dividing
+    n_fft; a row of 2^31 samples or more raises (``ops/ola_plan.py``)."""
     from . import _build
 
-    stream = _cuda_inputs(frames)
     if (frames.dim() != 4 or frames.dtype != torch.float32
             or frames.shape[2] != 2 or frames.shape[3] % hop):
         raise ValueError(f"frames must be float32 (S, nb, 2, n_fft) with "
                          f"n_fft a multiple of {hop}, got "
                          f"{tuple(frames.shape)}")
     S, nb, _, n_fft = frames.shape
-    out = torch.empty((S, 2, (nb - 1) * hop + n_fft), dtype=torch.float32,
+    out_len = check_rows(S, nb, hop, n_fft)  # from the shape alone
+    stream = _cuda_inputs(frames)
+    out = torch.empty((S, 2, out_len), dtype=torch.float32,
                       device=frames.device)
+    aligned = (frames.data_ptr() % ALIGN_BYTES == 0
+               and out.data_ptr() % ALIGN_BYTES == 0)
+    plan = ola_plan(S, nb, hop, n_fft, aligned)
     _build.check(_build.library().tt_overlap_add(
-        frames.data_ptr(), out.data_ptr(), S, nb, hop, n_fft, stream),
-        "overlap_add")
+        frames.data_ptr(), out.data_ptr(), S, nb, hop, n_fft, plan.vec,
+        plan.grid[0], stream), "overlap_add")
     launches["overlap_add"] += 1
     return out
 
