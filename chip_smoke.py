@@ -5,12 +5,14 @@
 
 Phases, each of which fails the run on any error (nothing is caught):
   1. device: require CUDA, print the card, its power limit and the toolchain;
-  2. build the kernels of tinaural_torch/csrc/ (timed);
+  2. build the kernels of tinaural_torch/csrc/ (timed), printing every
+     instance's ptxas registers and spills (the cluster instances marked
+     "cluster");
   3. each block-render kernel against its plain torch version at the main
      path's shapes (128-tap synthetic table, B = 1024, n_fft = 2048: one
      8192-block trajectory, 64 sources × 128 blocks with and without
      crossfade, render (m)'s 16 sources × 1024 blocks) and in the split
-     mode at n_fft 32768, then at dir_rate 4 (one filter per group of 4
+     mode at n_fft 32768 ((j)'s 128 rows), then at dir_rate 4 (one filter per group of 4
      blocks: 2048 filters for the 8192-block trajectory, 8 for 30 blocks
      in the split mode): SNR ≥ 100 dB, `overlap_add` equal in bits and
      naming the body it ran, each FFT kernel's SNR against plain fp64
@@ -52,8 +54,13 @@ Phases, each of which fails the run on any error (nothing is caught):
      nb = 128, and the natural-order `assembly_mac` at 8192 rows (64 sources
      × 128 blocks, `first` at each source's block 0; 2048 taps, B = 1024,
      n_fft = 4096) and at render (l)'s 4096 rows (one source, 128 taps,
-     B = 2048, n_fft = 4096), against their plain versions, SNR ≥ 100 dB
-     (≥ 110 dB against plain fp64 for `assembly_mac`); then `overlap_add`
+     B = 2048, n_fft = 4096) on its register kernel, then in its cluster
+     mode at (j)'s trajectory shape (128 rows × 16,384 taps, n_fft 32768,
+     clusters of 2) and at 128 rows × 44,100 taps (n_fft 65536, clusters
+     of 4), and at (j)'s shape with the split mode forced (the radix-2
+     body), these three timed after an L2 flush, each naming its mode,
+     against their plain versions, SNR ≥ 100 dB (≥ 110 dB against plain
+     fp64 for `assembly_mac`, equal in bits over two calls); then `overlap_add`
      alone, equal in bits to its plain version and timed beside its
      bound and `fold`, naming its body, at (k)'s 64 × 128 frames of n_fft
      4096 (k = 4), (l)'s 4096 × 4096 at B 2048, (j) trajectory's 128 ×
@@ -83,9 +90,10 @@ Phases, each of which fails the run on any error (nothing is caught):
      natural-order route); (l) a 2^23-sample trajectory at block 2048
      (n_fft 4096, natural order); (j) the sizes above shared memory:
      `render_streamed` at 44,100 taps (L = 65536, P = 87) and a trajectory
-     at 16,384 taps (n_fft = 32768, natural order), and (j4) the stream
-     at dir_rate 4 — each against the float64 plain path (SNR ≥ 100 dB)
-     with its exact launch counts;
+     at 16,384 taps (n_fft = 32768, natural order: `assembly_mac`'s
+     cluster mode; B1's split mode timed and profiled beside it), and
+     (j4) the stream at dir_rate 4 — each against the float64 plain path
+     (SNR ≥ 100 dB) with its exact launch counts;
   5. one torch.profiler window per block render, per burst of (d) and of
      (e) at update rate 1 and for (g), after every timing: device busy
      time, idle share and the largest kernels ((f)'s pushes are profiled
@@ -94,8 +102,9 @@ Phases, each of which fails the run on any error (nothing is caught):
      against (g), (j4) against (j)'s stream); then one per
      `assemble_partitions` check of 3b, per `stream_conv` check (with
      blend and as the hold step), per `frame_spectra` and
-     `partitioned_conv` check, per block-step check of 3c and 3d and
-     per `overlap_add` shape of 3d: its device time a call.
+     `partitioned_conv` check, per block-step check of 3c and 3d, per
+     `assembly_mac` check of 3d and per `overlap_add` shape of 3d: its
+     device time a call; (j)'s trajectory is profiled on B1's route too.
 Every render reads every kernel's launch count, all set to 0 just before
 it. The line before the last is the kernels' JSON record (each k-path
 kernel with its dir_rate 4 check and launches under ``dir_rate_4``; each
@@ -104,7 +113,10 @@ FFTs counted as 5·n·log2 n, over 67 TFLOP/s fp32; the partitioned
 convolution's kernels with their device ms, body and forward
 transforms; the block step's two with their device ms and body, and
 `block_spectra` at (h)'s shape with its bound; `overlap_add` with its
-body, and at 3d's shapes with their bounds and device ms); the last line
+body, and at 3d's shapes with their bounds and device ms; B1's two FFT
+kernels with their split mode at n_fft 32768; `assembly_mac` with its
+mode and device ms, and at (l)'s and the cluster and forced split shapes
+with their bounds); the last line
 is ``{"ok": true, "device": {...}}``.
 """
 
@@ -387,6 +399,10 @@ STEP_COUNTS = {"assemble_filters": 1, "block_spectra": 1,
 MIX_COUNTS = {"assemble_filters": 1, "block_spectra_mix": 1,
               "spectra_inverse": 1, "overlap_add": 1}
 MAC_COUNTS = {"assembly_mac": 1, "spectra_inverse": 1, "overlap_add": 1}
+# an assembly_mac check's fields in the kernels line
+MAC_FIELDS = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+              "snr_db", "snr_fp64_db", "run", "mode", "device_ms", "rows",
+              "n_fft", "taps", "ranks", "concurrent", "l2_flushed")
 
 
 def check_render(name: str, public_call, core_call, audio_sec: float,
@@ -394,7 +410,8 @@ def check_render(name: str, public_call, core_call, audio_sec: float,
                  min_snr: float = RENDER_SNR_DB, no_sync: bool = False,
                  other_routes: dict | None = None,
                  same_bits: bool = False, ref=None,
-                 assembly_rows: tuple | None = None) -> dict:
+                 assembly_rows: tuple | None = None,
+                 profile_routes: bool = False) -> dict:
     """One render through the public entry point with every launch count
     at 0 before it and exactly ``expect`` after, then the float64 plain
     check and the kernel / plain fp32 timings, both on the render core
@@ -403,7 +420,9 @@ def check_render(name: str, public_call, core_call, audio_sec: float,
     the same float64 output and timed; ``same_bits``: two core calls must
     give equal bits; ``ref``: the float64 output's call, by default
     core_call(True, float64); ``assembly_rows``: the shape of idx less its
-    last axis that each assembly launch of the public call must take."""
+    last axis that each assembly launch of the public call must take;
+    ``profile_routes``: each other route is profiled in phase 5 too, its
+    launches counted on one call."""
     import torch
 
     y, counts = _counts_after(
@@ -444,6 +463,10 @@ def check_render(name: str, public_call, core_call, audio_sec: float,
         print(f"[render {name}] on {route}'s route: SNR {s_r:.2f} dB vs plain"
               f" fp64, kernel {ms_r:.3f} ms = {audio_sec / (ms_r / 1e3):.1f} "
               f"audio-s/s", flush=True)
+        if profile_routes:
+            res[f"{route}_route"]["launches"] = _launches_of(call)
+            TO_PROFILE.append((f"{name} on {route}", res[f"{route}_route"],
+                               call))
     TO_PROFILE.append((name, res, lambda: core_call(False, torch.float32)))
     return res
 
@@ -1291,16 +1314,21 @@ def check_group_step_kernels(table, S: int, nb: int, dir_rate: int,
 
 
 def check_assembly_mac(table, S: int, nb: int, label: str, reps: int,
-                       block: int = B) -> dict:
+                       block: int = B, flush: bool = False,
+                       forced: bool = False) -> dict:
     """assembly_mac against its plain fp32 version on S sources of nb
     blocks of ``block`` samples flattened to rows, `first` at each
-    source's block 0, on the input spectra of the natural-order route."""
+    source's block 0, on the input spectra of the natural-order route;
+    with crossfade also against plain fp64 (≥ MAC_FP64_SNR_DB) and equal
+    in bits over two calls, its device ms a call taken in phase 5.
+    ``flush``: each timed call after `l2_flush`; ``forced``: the split
+    mode forced at any shape."""
     import numpy as np
     import torch
 
     from tinaural_torch.models.renderer import _n_fft
+    from tinaural_torch.ops import _layout
     from tinaural_torch.ops import assembly_mac as am
-    from tinaural_torch.ops._layout import sm_count
     from tinaural_torch.ops.mac_plan import mac_plan
 
     n_fft = _n_fft(table, block)
@@ -1312,33 +1340,56 @@ def check_assembly_mac(table, S: int, nb: int, label: str, reps: int,
     Xu, Xd = am._input_spectra(xbs, n_fft, True)
     first = am._first_rows(S, nb, table.device)
     plan = mac_plan(table.taps, n_fft)
-    run = am.run_length(rows, sm_count(table.device) * plan.blocks_per_sm)
-    print(f"[{label}] n_fft {n_fft}, L {plan.L}, {plan.threads} threads × "
-          f"{plan.blocks_per_sm} blocks per SM, {rows} rows in runs of {run}: "
-          f"{1 + 1 / run:.3f} assemblies per row", flush=True)
+    mode = ("split" if forced or not (plan.register or plan.cluster)
+            else "register" if plan.register else "cluster")
+    slots = (am.cluster_slots(table.device, n_fft) if mode == "cluster"
+             else _layout.sm_count(table.device) * plan.blocks_per_sm)
+    run = am.run_length(rows, slots)
+    shape = (f"clusters of {plan.ranks} × {plan.threads} threads, {slots} "
+             "at once" if mode == "cluster" else
+             f"{plan.threads} threads × {plan.blocks_per_sm} blocks per SM")
+    print(f"[{label}] n_fft {n_fft}, L {plan.L}, {mode} mode, {shape}, "
+          f"{rows} rows in runs of {run}: {1 + 1 / run:.3f} assemblies per "
+          "row", flush=True)
     res = {}
+    fl = l2_flush(table.device) if flush else None
+
+    def kern(cf: bool = True):
+        _layout.force_work = _layout.SPLIT_WORK if forced else 0
+        try:
+            return am.assembly_mac_cuda(idx, w, table, Xu, Xd, first, n_fft,
+                                        crossfade=cf, **PART_FLAGS)
+        finally:
+            _layout.force_work = 0
+
     for name, cf in (("assembly_mac", True),
                      ("assembly_mac_no_crossfade", False)):
-        kern = lambda cf=cf: am.assembly_mac_cuda(
-            idx, w, table, Xu, Xd, first, n_fft, crossfade=cf, **PART_FLAGS)
         plain = lambda cf=cf: am.assembly_mac_reference(
             idx, w, table, Xu, Xd, first, n_fft, crossfade=cf, **PART_FLAGS)
-        _report(res, name, kern(), plain(), kern, plain, label, reps, bound(
-            rows * (32 + 4) + table_bytes(table, idx)
-            + rows * F * 8 * (2 if cf else 1) + rows * 2 * F * 8,
-            rows * (assembly_flops(table, n_fft) + 2 * F * (14 if cf else 6))))
-    Y = am.assembly_mac_cuda(idx, w, table, Xu, Xd, first, n_fft,
-                             crossfade=True, **PART_FLAGS)
+        _report(res, name, kern(cf), plain(), lambda cf=cf: kern(cf), plain,
+                label, reps, bound(
+                    rows * (32 + 4) + table_bytes(table, idx)
+                    + rows * F * 8 * (2 if cf else 1) + rows * 2 * F * 8,
+                    rows * (assembly_flops(table, n_fft)
+                            + 2 * F * (14 if cf else 6))), flush=fl)
+    Y = kern()
+    require(torch.equal(Y, kern()), f"{label} assembly_mac: two calls differ")
     Y64 = am.assembly_mac_reference(idx, w.double(), table,
                                     Xu.to(torch.complex128),
                                     Xd.to(torch.complex128), first, n_fft,
                                     crossfade=True, **PART_FLAGS)
     s64 = snr_db(Y64, Y)
-    print(f"[{label}] assembly_mac: SNR {s64:.2f} dB vs plain fp64",
-          flush=True)
+    print(f"[{label}] assembly_mac: SNR {s64:.2f} dB vs plain fp64, equal in "
+          "bits over two calls", flush=True)
     require(s64 >= MAC_FP64_SNR_DB,
             f"{label} assembly_mac: SNR {s64:.2f} < {MAC_FP64_SNR_DB} dB vs fp64")
-    res["assembly_mac"].update(run=run, snr_fp64_db=s64)
+    out = res["assembly_mac"]
+    out.update(run=run, snr_fp64_db=s64, mode=mode, rows=rows, n_fft=n_fft,
+               taps=table.taps, ranks=plan.ranks if mode == "cluster" else 0,
+               concurrent=slots, l2_flushed=flush, device_ms="not measured")
+    KERNEL_PROFILES.append((label, out, "device_ms",
+                            (lambda: (fl(), kern())) if flush else kern,
+                            None, "assembly_mac"))
     return res
 
 
@@ -1406,6 +1457,24 @@ def _assembly_rows(fn, name: str, want: tuple | None):
             f"{tuple(want)}")
     print(f"[render {name}] assembly launches took rows {seen}", flush=True)
     return out
+
+
+def _launches_of(fn) -> dict:
+    """The port's kernel launches of one call of fn (counted apart from
+    the renders' totals)."""
+    import torch
+
+    from tinaural_torch.ops import assembly_mac as am
+    from tinaural_torch.ops import block_render as br
+    from tinaural_torch.ops import block_step as bs
+    from tinaural_torch.ops import partitioned_conv as pc
+
+    for m in (br, bs, pc, am):
+        m.reset_launches()
+    fn()
+    torch.cuda.synchronize()
+    return {k: v for m in (br, bs, pc, am) for k, v in m.launches.items()
+            if v}
 
 
 def _counts_after(fn, expect: dict, name: str, launches_total: dict,
@@ -1706,14 +1775,17 @@ def check_long(long_streamed, long_traj, N: int, launches_total: dict,
                 "j trajectory 16384 taps", long_traj, 1024, N, False,
                 _trajectory_core, am.assembly_mac_render,
                 am.assembly_mac_render_reference, MAC_COUNTS,
-                launches_total, reps, other=br.block_render)}
+                launches_total, reps, other=br.block_render,
+                profile_other=True)}
 
 
 def long_render(name: str, table, Bj: int, N: int, streamed: bool, core,
                 kern, plain_fn, expect: dict, launches_total: dict,
-                reps: int, other=None, dir_rate: int = 1) -> dict:
+                reps: int, other=None, dir_rate: int = 1,
+                profile_other: bool = False) -> dict:
     """One render of (j) or (l) on bench.py's BRIR direction track;
-    ``other`` another route timed beside it. Above ``dir_rate`` 1 the
+    ``other`` another route timed beside it (and profiled in phase 5 with
+    ``profile_other``). Above ``dir_rate`` 1 the
     float64 check is the plain path at dir_rate 1 on the snapped track,
     and each assembly launch must take ⌈nb/dir_rate⌉ rows."""
     import numpy as np
@@ -1742,7 +1814,8 @@ def long_render(name: str, table, Bj: int, N: int, streamed: bool, core,
             table, xb, dirs_t, cfg, render=other)},
         ref=lambda: core(table, xb.double(), _snap_dirs(dirs_t, dir_rate),
                          cfg.replace(dir_rate=1), render=plain_fn),
-        assembly_rows=rows if dir_rate > 1 else None)
+        assembly_rows=rows if dir_rate > 1 else None,
+        profile_routes=profile_other)
 
 
 def ptxas_summary(log: str) -> list[str]:
@@ -1758,7 +1831,8 @@ def ptxas_summary(log: str) -> list[str]:
             base = re.search(r"\d+([a-z_]+_kernel)", sym)
             args = re.findall(r"L(b[01]|i\d+)E", sym)
             name = (base.group(1) if base else sym) + (
-                "<" + ",".join(a[1:] for a in args) + ">" if args else "")
+                "<" + ("cluster " if "ClusterPlan" in sym else "")
+                + ",".join(a[1:] for a in args) + ">" if args else "")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and name:
@@ -1864,8 +1938,10 @@ def main() -> int:
     check_kernels(table, 64, 128, False, "static scene", reps=5)
     # render (m)'s shape: 16 sources × 1024 blocks
     k_m = check_kernels(table, 16, 1024, True, "m scene", reps=5)
-    # B1's split mode, at the 16,384-tap table's n_fft 32768
-    check_kernels(long_traj, 1, 32, True, "split n_fft 32768", reps=2)
+    # B1's split mode, at the 16,384-tap table's n_fft 32768: (j)'s 128
+    # rows
+    k_split = check_kernels(long_traj, 1, 128, True, "split n_fft 32768",
+                            reps=2)
     # the dir_rate path: one filter per group of 4 blocks, at (a4)'s shape
     # and in the split mode (8 filters for 30 blocks)
     k_traj4 = check_kernels(table, 1, 8192, True, "trajectory dir_rate 4",
@@ -1925,6 +2001,26 @@ def main() -> int:
     k_mac_l = check_assembly_mac(table, 1, 4096,
                                  "assembly_mac 4096 rows n_fft 4096 128 taps",
                                  reps=5, block=2048)
+    # (j)'s trajectory shape, 128 rows × 16,384 taps at n_fft 32768 (the
+    # cluster mode, clusters of 2), 128 rows × 44,100 taps at 65536
+    # (clusters of 4), and (j)'s shape with the split mode forced (the
+    # radix-2 body), each timed call after an L2 flush
+    k_mac_j = check_assembly_mac(long_traj, 1, 128,
+                                 "assembly_mac 128 rows n_fft 32768 16384 "
+                                 "taps", reps=5, flush=True)
+    k_mac_j65 = check_assembly_mac(long_streamed, 1, 128,
+                                   "assembly_mac 128 rows n_fft 65536 44100 "
+                                   "taps", reps=5, flush=True)
+    k_mac_split = check_assembly_mac(long_traj, 1, 128,
+                                     "assembly_mac 128 rows n_fft 32768 "
+                                     "split mode forced", reps=2, flush=True,
+                                     forced=True)
+    for res, want in ((k_mac, "register"), (k_mac_l, "register"),
+                      (k_mac_j, "cluster"), (k_mac_j65, "cluster"),
+                      (k_mac_split, "split")):
+        require(res["assembly_mac"]["mode"] == want,
+                f"assembly_mac ran the {res['assembly_mac']['mode']} mode, "
+                f"want {want}")
     # overlap_add at (k)'s, (l)'s and (j)'s shapes and off alignment
     k_ola = check_ola_shapes(dev, reps=5)
 
@@ -2077,6 +2173,13 @@ def main() -> int:
                                        "library_ms")},
               **{f: m[f] for f in ("device_ms", "body") if f in m}}
           for name, m in k4_checks.items()}
+    # device ms a launch of a kernel in a profiled render
+    def render_ms(key, kernel: str):
+        res = renders
+        for k in (key,) if isinstance(key, str) else key:
+            res = res[k]
+        return res.get("device_ms_by_kernel", {}).get(f"{kernel}_kernel",
+                                                      "not measured")
     kernels = [kernel_entry(
         name, B1_SOURCES[name], FUSED_BLOCK_RENDER,
         launches[name] - (ola_b2 if name == "overlap_add" else 0),
@@ -2088,6 +2191,15 @@ def main() -> int:
         **({"also_replaces": [f"{PALLAS}:{FUSED_BLOCK_STEP}",
                               f"{PALLAS}:{FUSED_BLOCK_STEP_MIX}"]}
            if name == "assemble_filters" else {}),
+        **({"split_n_fft_32768": {
+                **{f: k_split[name][f] for f in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                    "snr_db", "snr_fp64_db")},
+                "rows": 128,
+                "j_route_device_ms": render_ms(
+                    ("j_long", "trajectory_16384_taps", "block_render_route"),
+                    name)}}
+           if name != "overlap_add" else {}),
         **({"body": k_traj[name]["body"],
             "shapes": {key: {f: m.get(f) for f in (
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
@@ -2099,10 +2211,6 @@ def main() -> int:
     # BRIR render; the BRIR serving step's times ride along
     main = {"assemble_partitions": k_serve, "stream_conv": k_serve,
             "frame_spectra": k_part, "partitioned_conv": k_part}
-    # device ms a launch of a kernel in a profiled render
-    render_ms = lambda key, kernel: (
-        renders[key].get("device_ms_by_kernel", {}).get(
-            f"{kernel}_kernel", "not measured"))
     long_stream = renders["j_long"]["streamed_44100_taps"]
     part_fields = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
                    "snr_db", "snr_fp64_db", "device_ms", "forward_transforms",
@@ -2220,11 +2328,20 @@ def main() -> int:
         kernel_entry("assembly_mac", MAC_SOURCE, FUSED_ASSEMBLY_MAC,
                      launches["assembly_mac"], k_mac["assembly_mac"],
                      run=k_mac["assembly_mac"]["run"],
+                     mode=k_mac["assembly_mac"]["mode"],
+                     device_ms=k_mac["assembly_mac"]["device_ms"],
                      snr_fp64_db=k_mac["assembly_mac"]["snr_fp64_db"],
                      no_crossfade_ms=k_mac["assembly_mac_no_crossfade"]["ms"],
-                     l_shape={f: k_mac_l["assembly_mac"][f] for f in (
-                         "ms", "plain_ms", "bound_ms", "bound_by",
-                         "max_abs_err", "snr_db", "snr_fp64_db", "run")})]
+                     shapes={key: {
+                         **{f: m["assembly_mac"][f] for f in MAC_FIELDS},
+                         "no_crossfade_ms":
+                             m["assembly_mac_no_crossfade"]["ms"]}
+                         for key, m in (("l", k_mac_l), ("j", k_mac_j),
+                                        ("j_65536", k_mac_j65),
+                                        ("j_split_forced", k_mac_split))},
+                     j_render_device_ms=render_ms(
+                         ("j_long", "trajectory_16384_taps"),
+                         "assembly_mac"))]
     for k in kernels:
         require(k["launches"] > 0, f"kernel {k['name']} was not launched")
         if k["name"] in k4:

@@ -201,15 +201,26 @@ def test_run_length_rule():
     assert am.run_length(100, 0) == 100       # no SM count: one slot
 
 
-def test_assembly_mac_buffer_mode():
+def test_assembly_mac_buffer_mode(monkeypatch):
     """The register plan's exchange buffer and carried H_prev fit 227 KB
-    up to n_fft 16384 at any filter length; n_fft 32768 (the 16,384-tap
-    table) takes the split mode."""
+    up to n_fft 16384 at any filter length; n_fft 32768 at the 16,384-tap
+    table (L == n) takes the cluster mode, whose share fits too, and the
+    split mode where forced; L < n above 16384 (128 taps at 32768) and
+    n_fft above 131072 take the split mode."""
     limit = 232448
     for taps, n_fft in ((2048, 4096), (128, 4096), (4096, 8192),
                         (8192, 16384), (128, 16384)):
         p = mac_plan(taps, n_fft)
         assert _layout.split_work(p.shared_f2, n_fft, limit) == 0
+    p = mac_plan(16384, 32768)
+    assert p.cluster and p.ranks == 2
+    assert _layout.split_work(p.shared_f2, 32768, limit) == 0
+    for taps, n_fft in ((128, 32768), (200000, 1 << 18)):
+        p = mac_plan(taps, n_fft)
+        assert not p.cluster
+        assert _layout.split_work(p.shared_f2, n_fft,
+                                  limit) == _layout.SPLIT_WORK
+    monkeypatch.setattr(_layout, "force_work", _layout.SPLIT_WORK)
     p = mac_plan(16384, 32768)
     assert _layout.split_work(p.shared_f2, 32768, limit) == _layout.SPLIT_WORK
 

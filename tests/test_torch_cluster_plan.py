@@ -231,6 +231,93 @@ def test_cluster_inverse_model_matches_irfft(log2n, terms):
     assert _snr_db(ref, got) >= 120, _snr_db(ref, got)
 
 
+def _model_filter(r: int, arrays, taps: int, L: int) -> np.ndarray:
+    """`cluster_filter` (``csrc/assembly_stages.cuh``) for row r: the
+    gather, rfft_L, the ramp exchange, the ramp, irfft_L in the reverse
+    order → (C, 1024, 16): L·h_eff, both ears packed, at t = M·(m % C) +
+    c·M/C + tid + (m // C)·1024 of rank c, thread tid, register m."""
+    idx, w, h, delays, gains = arrays
+    C = L // SHARE
+    M, span = SHARE, SHARE // C
+    f32 = np.float32
+    twL = twiddles(L, CPU).numpy()
+    taper = ramp_taper(L, CPU).numpy()
+    c, tid, m = _threads(C)
+    t2_out = tid + THREADS * _local_out(m)  # after a local transform
+    rw, wk = idx[r], w[r]
+    d, gn = [], []
+    for e in range(2):  # clipped delays and gains, in the kernel's order
+        dv, gv = f32(0), f32(0)
+        for k in range(4):
+            dv = f32(dv + wk[k] * delays[rw[k], e])
+            gv = f32(gv + wk[k] * gains[rw[k], e])
+        d.append(f32(min(max(dv - f32(ALIGN_GUARD), f32(-ALIGN_GUARD)),
+                         f32(MAX_RENDER_SHIFT))))
+        gn.append(gv)
+    # gather conj(h0 + i·h1) at t = M·k1 + k2 straight into registers
+    t = M * (m % C) + c * span + tid + (m // C) * THREADS
+    t = np.broadcast_to(t, (C, THREADS, 16))
+    z = np.zeros((2, C, THREADS, 16), np.float32)
+    live = t < taps
+    for k in range(4):
+        z[:, live] += wk[k] * h[rw[k]][:, t[live]]
+    v = _spread((z[0] - 1j * z[1]).astype(np.complex64), L, twL)
+    S = np.conj(v)  # rfft_L at bins c + C·t2_out
+    q = c + C * t2_out
+    assert (np.sort(q.ravel()) == np.arange(L)).all()
+    # the lo bins q < L/2 (local_out < 8), the hi ones; L/2 (rank 0,
+    # t2 = M/2) is its own mirror, as bin 0 is
+    lo = np.broadcast_to(_local_out(m) < 8, q.shape)
+    half = q == L // 2
+    assert (lo == (q < L // 2)).all()
+    partner = np.broadcast_to((C - c) % C, q.shape)
+    cf, t2f = np.broadcast_to(c, q.shape), np.broadcast_to(t2_out, q.shape)
+    t2m = np.where(c > 0, M - 1 - t2f, (M - t2f) & (M - 1))
+    # each hi S[q] to its mirror's rank, at the mirror's (lo) slot
+    cl = Cluster(C)
+    send = ~lo & ~half
+    cl.write(partner[send], t2m[send], S[send])
+    # each lo pair (q, L − q), and L/2, ramped once
+    own = lo & (q > 0)
+    Sm = S.copy()  # bins 0 and L/2 pair with themselves
+    Sm[own] = cl.read(cf[own], t2f[own], cf[own])
+    done = lo | half
+    qd = q[done]
+    G0, G1 = _unpack(S[done], Sm[done])
+    G0 = (G0 * _ramp(qd, L, d[0], twL, taper)) * gn[0]
+    G1 = (G1 * _ramp(qd, L, d[1], twL, taper)) * gn[1]
+    edge = (qd == 0) | (qd == L // 2)
+    G0 = np.where(edge, G0.real, G0)
+    G1 = np.where(edge, G1.real, G1)
+    Z = np.full(q.shape, NAN)
+    Z[done] = (G0.real - G1.imag) + 1j * (G0.imag + G1.real)
+    # Z[L − q] back to the mirror's rank, at its hi slot, unwritten
+    back = own[done]
+    zm = ((G0.real + G1.imag) + 1j * (G1.real - G0.imag))[back]
+    rk, at = partner[own], t2m[own]
+    assert np.isnan(cl.buf[rk, at]).all()
+    cl.write(rk, at, zm)
+    Z[send] = cl.read(cf[send], t2f[send], cf[send])
+    assert not np.isnan(Z).any()
+    # into the inverse's first-pass order: Z[c + C·k2] at u[k2 / 1024]
+    u = np.empty((C, THREADS, 16), np.complex64)
+    u[:, :, _local_out(np.arange(16))] = Z
+    u = _dft(u, 16)
+    local = inverse_plan(SHARE)
+    twM = twiddles(SHARE, CPU).numpy()
+    u = np.stack([_reg_passes(u[i], local.radices, M, twM)
+                  for i in range(C)])
+    u = u * twL[c * t2_out]  # e^{2πi·c·t2/L}
+    # to the rank that owns t2's span, then the C-point DFT there
+    cl = Cluster(C)
+    cl.write(t2_out // span, c * span + t2_out % span, u)
+    x = cl.read(c, (m % C) * span + tid + (m // C) * THREADS, c)
+    x = x.reshape(C, THREADS, 16 // C, C)
+    if C > 1:
+        x = _dft(x, C)
+    return x.reshape(C, THREADS, 16)
+
+
 def _model_partitions(idx, w, table, B: int):
     """The cluster kernel of `assemble_partitions`: → H (rows, P, 2, B+1)
     complex64, one cluster per row."""
@@ -238,8 +325,7 @@ def _model_partitions(idx, w, table, B: int):
     L, C, P, t_pad = plan.L, plan.ranks, plan.parts, plan.t_pad
     M, span = SHARE, SHARE // C
     f32 = np.float32
-    twL, tw2 = twiddles(L, CPU).numpy(), twiddles(2 * B, CPU).numpy()
-    taper = ramp_taper(L, CPU).numpy()
+    tw2 = twiddles(2 * B, CPU).numpy()
     h = table.h.reshape(-1, 2, table.taps).numpy()
     delays = table.delays.reshape(-1, 2).numpy()
     gains = table.gains.reshape(-1, 2).numpy()
@@ -248,81 +334,10 @@ def _model_partitions(idx, w, table, B: int):
     H = np.full((rows, P, 2, B + 1), NAN)
     writes = np.zeros(H.shape, int)
     c, tid, m = _threads(C)
-    t2_out = tid + THREADS * _local_out(m)  # after a local transform
+    arrays = (idx, w, h, delays, gains)
     for r in range(rows):
-        rw, wk = idx[r], w[r]
-        d, gn = [], []
-        for e in range(2):  # clipped delays and gains, in the kernel's order
-            dv, gv = f32(0), f32(0)
-            for k in range(4):
-                dv = f32(dv + wk[k] * delays[rw[k], e])
-                gv = f32(gv + wk[k] * gains[rw[k], e])
-            d.append(f32(min(max(dv - f32(ALIGN_GUARD), f32(-ALIGN_GUARD)),
-                             f32(MAX_RENDER_SHIFT))))
-            gn.append(gv)
-        # gather conj(h0 + i·h1) at t = M·k1 + k2 straight into registers
-        t = M * (m % C) + c * span + tid + (m // C) * THREADS
-        t = np.broadcast_to(t, (C, THREADS, 16))
-        z = np.zeros((2, C, THREADS, 16), np.float32)
-        live = t < table.taps
-        for k in range(4):
-            z[:, live] += wk[k] * h[rw[k]][:, t[live]]
-        v = _spread((z[0] - 1j * z[1]).astype(np.complex64), L, twL)
-        S = np.conj(v)  # rfft_L at bins c + C·t2_out
-        q = c + C * t2_out
-        assert (np.sort(q.ravel()) == np.arange(L)).all()
-        # the lo bins q < L/2 (local_out < 8), the hi ones; L/2 (rank 0,
-        # t2 = M/2) is its own mirror, as bin 0 is
-        lo = np.broadcast_to(_local_out(m) < 8, q.shape)
-        half = q == L // 2
-        assert (lo == (q < L // 2)).all()
-        partner = np.broadcast_to((C - c) % C, q.shape)
-        cf, t2f = np.broadcast_to(c, q.shape), np.broadcast_to(t2_out, q.shape)
-        t2m = np.where(c > 0, M - 1 - t2f, (M - t2f) & (M - 1))
-        # each hi S[q] to its mirror's rank, at the mirror's (lo) slot
-        cl = Cluster(C)
-        send = ~lo & ~half
-        cl.write(partner[send], t2m[send], S[send])
-        # each lo pair (q, L − q), and L/2, ramped once
-        own = lo & (q > 0)
-        Sm = S.copy()  # bins 0 and L/2 pair with themselves
-        Sm[own] = cl.read(cf[own], t2f[own], cf[own])
-        done = lo | half
-        qd = q[done]
-        G0, G1 = _unpack(S[done], Sm[done])
-        G0 = (G0 * _ramp(qd, L, d[0], twL, taper)) * gn[0]
-        G1 = (G1 * _ramp(qd, L, d[1], twL, taper)) * gn[1]
-        edge = (qd == 0) | (qd == L // 2)
-        G0 = np.where(edge, G0.real, G0)
-        G1 = np.where(edge, G1.real, G1)
-        Z = np.full(q.shape, NAN)
-        Z[done] = (G0.real - G1.imag) + 1j * (G0.imag + G1.real)
-        # Z[L − q] back to the mirror's rank, at its hi slot, unwritten
-        back = own[done]
-        zm = ((G0.real + G1.imag) + 1j * (G1.real - G0.imag))[back]
-        rk, at = partner[own], t2m[own]
-        assert np.isnan(cl.buf[rk, at]).all()
-        cl.write(rk, at, zm)
-        Z[send] = cl.read(cf[send], t2f[send], cf[send])
-        assert not np.isnan(Z).any()
-        # into the inverse's first-pass order: Z[c + C·k2] at u[k2 / 1024]
-        u = np.empty((C, THREADS, 16), np.complex64)
-        u[:, :, _local_out(np.arange(16))] = Z
-        u = _dft(u, 16)
-        local = inverse_plan(SHARE)
-        twM = twiddles(SHARE, CPU).numpy()
-        u = np.stack([_reg_passes(u[i], local.radices, M, twM)
-                      for i in range(C)])
-        u = u * twL[c * t2_out]  # e^{2πi·c·t2/L}
-        # to the rank that owns t2's span, then the C-point DFT there
-        cl = Cluster(C)
-        cl.write(t2_out // span, c * span + t2_out % span, u)
+        x = _model_filter(r, arrays, table.taps, L)
         t2 = c * span + tid + (m // C) * THREADS
-        x = cl.read(c, (m % C) * span + tid + (m // C) * THREADS, c)
-        x = x.reshape(C, THREADS, 16 // C, C)
-        if C > 1:
-            x = _dft(x, C)
-        x = x.reshape(C, THREADS, 16)
         # conj(h_eff) truncated and scaled: sample M·t1 + t2 at rank t1,
         # local t2 xor 8192
         t1 = np.broadcast_to(m % C, x.shape)

@@ -8,7 +8,8 @@ under a refused plan), `overlap_add` alone equal in bits to its plain
 version at B 1 … 2048 and k 2, 4 and 32 on its vector and scalar bodies
 (a frames view off alignment) and under a refused plan, the scene
 mixdown's `block_spectra_mix` with the summing `spectra_inverse`, the
-natural-order `assembly_mac`, `spectra_inverse` alone at every FFT
+natural-order `assembly_mac` (its register plans, and its cluster mode at
+n_fft 32768, 65536 and 131072), `spectra_inverse` alone at every FFT
 size, and `assemble_partitions`' register body at every (L, B) pair with
 its refusal of another plan; each family again in the split buffer mode, forced at small shapes,
 and at the sizes that need it (a 44,100-tap `render_streamed`, a
@@ -816,7 +817,10 @@ def _mac_inputs(t, rows, n_fft, seed):
     (2048, 4096, 1001, (399, 401), True),
     (2048, 8192, 300, (150,), True), (6000, 8192, 301, (99, 100), True),
     (6000, 8192, 64, (), False), (128, 16384, 100, (50,), True),
-    (12000, 16384, 101, (33, 34), True)])
+    (12000, 16384, 101, (33, 34), True),
+    (16384, 32768, 128, (37,), True), (16384, 32768, 131, (64, 65, 130), True),
+    (16384, 32768, 70, (), False), (44100, 65536, 67, (1, 40, 41), True),
+    (44100, 65536, 30, (7,), False), (70000, 131072, 21, (5, 6), True)])
 def test_assembly_mac_matches_plain(long_tables, taps, n_fft, rows, firsts,
                                     crossfade):
     """Against the plain float64 version at every register plan shape the
@@ -824,15 +828,25 @@ def test_assembly_mac_matches_plain(long_tables, taps, n_fft, rows, firsts,
     and off), with `first` at run boundaries and inside runs, row 0 passed
     as 0 where firsts omit it, and rows that are no multiple of the run
     (3001 rows run 8 at a time on 132 SMs × 3 blocks; 1001 rows 3 at a
-    time, so 399 starts a run and 401 falls inside one)."""
+    time, so 399 starts a run and 401 falls inside one); then the cluster
+    mode (L == n): (j)'s 128 rows × 16,384 taps at n_fft 32768 (clusters
+    of 2, runs of 2 on the H100's 66), 131 rows (65 starts a run's second
+    row, 130 the last run), crossfade off; 44,100 taps at 65536 (clusters
+    of 4) with `first` inside runs and crossfade off; 70,000 taps at
+    131072 (clusters of 8, a random table with its delays exact in
+    float32). Each also equal in bits over two calls."""
     dev = long_tables[128].device
-    if taps in long_tables:
+    if taps in (128, 2048, 16384, 44100):  # synthetic tables
         t = long_tables[taps]
         idx, w, Xu, Xd = _mac_inputs(t, rows, n_fft, seed=rows + taps)
+    elif n_fft > 16384:  # the cluster mode at 131072
+        t, idx, w = _exact_delay_inputs(taps, rows, taps, dev)
+        Xu, Xd = _mac_inputs(long_tables[128], rows, n_fft, seed=rows)[2:]
     else:  # L == n at 8192 and 16384
         t = _random_table(taps, seed=taps, device=dev)
         idx, w, Xu, Xd = (x.to(dev) for x in _random_inputs(t, rows, n_fft,
                                                             seed=rows))
+    assert mac_plan(t.taps, n_fft).cluster == (n_fft > 16384)
     first = torch.zeros(rows, device=dev)
     first[list(firsts)] = 1.0
     kw = dict(crossfade=crossfade, **FLAGS)
@@ -848,12 +862,23 @@ def test_assembly_mac_matches_plain(long_tables, taps, n_fft, rows, firsts,
 
 
 @pytest.mark.gpu
-def test_assembly_mac_at_the_mode_boundary(long_tables):
-    """n_fft 16384, the largest register plan, and 32768, the split mode,
-    on the same table and rows, each against the float64 plain version."""
-    t = long_tables[128]
-    for n_fft in (16384, 32768):
-        assert mac_plan(t.taps, n_fft).register == (n_fft == 16384)
+def test_assembly_mac_at_the_mode_boundary(long_tables, monkeypatch):
+    """Each side of the register plan's upper edge on 40 rows, each against
+    the float64 plain version: n_fft 16384 at 128 taps (the largest
+    register plan), 32768 at 16,384 taps (L == n: the cluster mode, a
+    cluster of 2), 32768 at 128 taps (L = 256 < n: the split mode), and the
+    16,384-tap shape again with the split mode forced."""
+    for taps, n_fft, mode, force in ((128, 16384, "register", 0),
+                                     (16384, 32768, "cluster", 0),
+                                     (128, 32768, "split", 0),
+                                     (16384, 32768, "split",
+                                      _layout.SPLIT_WORK)):
+        t = long_tables[taps]
+        plan = mac_plan(t.taps, n_fft)
+        assert (plan.register, plan.cluster) == (mode == "register",
+                                                 mode == "cluster" or
+                                                 bool(force))
+        monkeypatch.setattr(_layout, "force_work", force)
         idx, w, Xu, Xd = _mac_inputs(t, 40, n_fft, seed=9)
         first = torch.zeros(40, device=t.device)
         first[[0, 17]] = 1.0
@@ -863,26 +888,34 @@ def test_assembly_mac_at_the_mode_boundary(long_tables):
                                         Xu.to(torch.complex128),
                                         Xd.to(torch.complex128), first,
                                         n_fft, **kw)
-        assert _snr_db(Y64, Y) >= 100, n_fft
+        assert _snr_db(Y64, Y) >= 100, (taps, n_fft, mode)
 
 
 @pytest.mark.gpu
 def test_assembly_mac_refuses_another_plan(long_tables, monkeypatch):
     """The entry point takes only the plan it was compiled for: another
-    thread count or blocks per SM raises, and nothing is launched."""
-    t = long_tables[128]
-    idx, w, Xu, Xd = _mac_inputs(t, 8, 4096, seed=3)
-    first = torch.zeros(8, device=t.device)
-    plan = mac_plan(t.taps, 4096)
-    for wrong in (dict(threads=2 * plan.threads),
-                  dict(blocks_per_sm=plan.blocks_per_sm + 1)):
-        monkeypatch.setattr(am, "mac_plan", lambda taps, n, wrong=wrong:
-                            dataclasses.replace(plan, **wrong))
-        before = am.launches["assembly_mac"]
-        with pytest.raises(RuntimeError):
-            am.assembly_mac_cuda(idx, w, t, Xu, Xd, first, 4096,
-                                 crossfade=True, **FLAGS)
-        assert am.launches["assembly_mac"] == before
+    thread count or blocks per SM raises, and so do a cluster plan with
+    other ranks or threads and a register plan with ranks at n_fft 4096;
+    nothing is launched."""
+    for taps, n_fft, wrongs in (
+            (128, 4096, lambda p: (dict(threads=2 * p.threads),
+                                   dict(blocks_per_sm=p.blocks_per_sm + 1),
+                                   dict(ranks=2))),
+            (16384, 32768, lambda p: (dict(ranks=4), dict(ranks=0),
+                                      dict(threads=512),
+                                      dict(blocks_per_sm=2)))):
+        t = long_tables[taps]
+        idx, w, Xu, Xd = _mac_inputs(t, 8, n_fft, seed=3)
+        first = torch.zeros(8, device=t.device)
+        plan = mac_plan(t.taps, n_fft)
+        for wrong in wrongs(plan):
+            monkeypatch.setattr(am, "mac_plan", lambda taps, n, wrong=wrong:
+                                dataclasses.replace(plan, **wrong))
+            before = am.launches["assembly_mac"]
+            with pytest.raises(RuntimeError):
+                am.assembly_mac_cuda(idx, w, t, Xu, Xd, first, n_fft,
+                                     crossfade=True, **FLAGS)
+            assert am.launches["assembly_mac"] == before, (n_fft, wrong)
 
 
 @pytest.mark.gpu

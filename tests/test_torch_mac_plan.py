@@ -59,7 +59,9 @@ def _compiled_plan(n: int) -> tuple[tuple[int, ...], int, int]:
 def test_mac_plan(log2n):
     """The register plan matches the compiled constants and fits the
     H100's shared memory exactly up to n_fft 16384, where the layout takes
-    the shared mode; above, the split mode with 1024 threads."""
+    the shared mode; at 32768 … 131072 with L == n the cluster plan (n/16384
+    blocks of 1024 threads, one block's share) fits too; every other shape
+    above 16384 takes the split mode with 1024 threads."""
     n = 1 << log2n
     for taps in {1, n // 2 - DELAY_PAD + 1, n - DELAY_PAD}:
         p = mac_plan(taps, n)
@@ -68,10 +70,13 @@ def test_mac_plan(log2n):
         assert math.prod(p.radices_L) == p.L and math.prod(p.radices_n) == n
         register = n <= MAX_REGISTER_N
         assert p.register == register
+        cluster = MAX_REGISTER_N < n <= 1 << 17 and p.L == n
+        assert p.cluster == cluster
+        assert p.ranks == (n // MAX_REGISTER_N if cluster else 0)
         fits = p.shared_f2 * 8 + _layout._STATIC_SMEM <= H100_SHARED_BYTES
-        assert fits == register
+        assert fits == (register or cluster)
         work = _layout.split_work(p.shared_f2, n, H100_SHARED_BYTES)
-        assert work == (0 if register else _layout.SPLIT_WORK)
+        assert work == (0 if register or cluster else _layout.SPLIT_WORK)
         assert p.scratch_f2 == n + 2 * p.L + 4 * (n // 2 + 1)
         if register:
             radices, threads, blocks = _compiled_plan(n)
@@ -86,6 +91,10 @@ def test_mac_plan(log2n):
             assert p.blocks_per_sm * (p.shared_f2 * 8 + 1024) <= 228 * 1024
             assert 65536 // (p.threads * p.blocks_per_sm) >= min(
                 80, 65536 // p.threads)
+        elif cluster:
+            assert (p.threads, p.blocks_per_sm) == (1024, 1)
+            assert p.radices_n == p.radices_L == (p.ranks, 16, 16, 16, 4)
+            assert p.shared_f2 == 16384 + 1024
         else:
             assert (p.threads, p.blocks_per_sm) == (SPLIT_THREADS, 1)
 
@@ -98,13 +107,18 @@ def test_mac_plan_rejects_bad_sizes():
 
 def test_run_length_fills_the_concurrent_blocks():
     """At most RUN_WAVES · slots runs of equal length, the shortest that
-    do: (k)'s 8192 rows and (l)'s 4096 on 132 SMs × 3 blocks."""
+    do: (k)'s 8192 rows and (l)'s 4096 on 132 SMs × 3 blocks; in the
+    cluster mode, where a slot is a cluster, (j)'s 128 rows on the H100's
+    66 clusters of 2 run 2 at a time (64 clusters, 192 assemblies in one
+    wave, where runs of 1 take 256 in two), and 128 rows on 30 clusters
+    of 4 run 5 at a time."""
     for rows, slots in ((8192, 396), (4096, 396), (3001, 396), (128, 132),
-                        (7, 396), (100, 1)):
+                        (7, 396), (100, 1), (128, 66), (128, 30), (131, 66)):
         run = am.run_length(rows, slots)
         runs = -(-rows // run)
         assert runs <= am.RUN_WAVES * slots
         assert run == 1 or -(-rows // (run - 1)) > am.RUN_WAVES * slots
+    assert am.run_length(128, 66) == 2 and am.run_length(128, 30) == 5
 
 
 def test_ramp_taper_table():

@@ -279,156 +279,10 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
   const int tid = threadIdx.x;
   cluster_arrive<C>();  // this block runs: the others may store into it
 
-  // gather: conj(h0 + i·h1) at t = M·k1 + k2, k2 = rank·span + tid +
-  // s·1024, into v[s·C + k1]; one table row at a time, half the slots at a
-  // time, so 16 loads are in flight
+  // h_eff·L in registers: sample M·(m % C) + rank·span + tid + (m/C)·1024
+  // in v[m], with an arrive outstanding (assembly_stages.cuh)
   float2 v[16];
-#pragma unroll
-  for (int m = 0; m < 16; ++m) v[m] = make_float2(0.f, 0.f);
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-#pragma unroll 1
-    for (int k = 0; k < 4; ++k) {
-      const float wkk = __ldg(a.w + 4 * r + k);
-      const float* row = a.h_table + static_cast<size_t>(__ldg(
-                                         a.idx + 4 * r + k)) * 2 * p.taps;
-#pragma unroll
-      for (int m = 8 * h; m < 8 * h + 8; ++m) {
-        const int t = M * (m % C) + rank * span + tid +
-                      (m / C) * kClusterThreads;
-        if (t < p.taps) {
-          v[m].x += wkk * __ldg(row + t);
-          v[m].y += wkk * __ldg(row + p.taps + t);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int m = 0; m < 16; ++m) v[m] = conj(v[m]);
-
-  // rfft_L as the conjugate of the inverse, in four steps: rank c ends
-  // with conj(S[q]) for its bins q = c + C·t2, t2 = tid + 1024·local_out(m)
-  cluster_spread<PL>(v, smem, rank, tid, a.twL);
-  cluster_local_fft(v, smem, tid, a.twM);
-
-  // The ramp pairs bin q with L − q, which lies at rank (C − c) mod C,
-  // index t2' = M − 1 − t2 (c > 0) or (M − t2) mod M (c = 0). A thread's
-  // bins q < L/2 are those of local_out(m) < 8 (lo), the rest hi; a hi
-  // bin's mirror is a lo bin. Each hi S[q] goes to the slot t2' of its
-  // mirror's rank; every thread then ramps its lo pairs and sends Z[L − q]
-  // back to the hi slot t2' of the mirror's rank, which nobody reads until
-  // the next barrier. So each pair's ramp runs once, all reads local.
-  cluster_arrive<C>();  // this block's passes have read smem
-  cluster_wait<C>();
-  const int partner = (C - rank) % C;
-  auto mirror = [&](int t2) {
-    return rank ? M - 1 - t2 : (M - t2) & (M - 1);
-  };
-#pragma unroll
-  for (int m = 0; m < 16; ++m) {
-    if (local_out(m) < 8) continue;
-    const int t2 = tid + kClusterThreads * local_out(m);
-    if (rank == 0 && t2 == M / 2) continue;  // L/2, its own mirror
-    st_rank<C>(smem, partner, rank, mirror(t2), conj(v[m]));
-  }
-  cluster_arrive<C>();
-  cluster_wait<C>();
-
-  // clipped delays and gains, as effective_filter_L
-  float d[2], gn[2];
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    float dv = p.align_guard, gv = 1.f;
-    if (p.apply_itd) {
-      dv = 0.f;
-      for (int k = 0; k < 4; ++k)
-        dv += __ldg(a.w + 4 * r + k) *
-              __ldg(a.delays + 2 * __ldg(a.idx + 4 * r + k) + e);
-    }
-    if (p.apply_ild) {
-      gv = 0.f;
-      for (int k = 0; k < 4; ++k)
-        gv += __ldg(a.w + 4 * r + k) *
-              __ldg(a.gains + 2 * __ldg(a.idx + 4 * r + k) + e);
-    }
-    d[e] = fminf(fmaxf(dv - p.align_guard, -p.align_guard), p.max_shift);
-    gn[e] = gv;
-  }
-
-  // unpack, ramp, gain and pack the pair (q, L − q) of each lo bin, and of
-  // L/2 on its thread; Z[q] into the inverse's first-pass order (Z[c +
-  // C·k2] at u[k2 / 1024], k2 = t2), Z[L − q] to the mirror's hi slot
-  float2 u[16];
-  auto ramp = [&](int q, float2 Sq, float2 Sm, float2& zq, float2& zm) {
-    float2 G0, G1;
-    unpack_pair(Sq, Sm, &G0, &G1);
-    G0 = cscale(cmul(G0, ramp_bin(q, L, d[0], a.twL, a.taper)), gn[0]);
-    G1 = cscale(cmul(G1, ramp_bin(q, L, d[1], a.twL, a.taper)), gn[1]);
-    if (q == 0 || q == L / 2) {
-      G0.y = 0.f;
-      G1.y = 0.f;
-    }
-    zq = make_float2(G0.x - G1.y, G0.y + G1.x);
-    zm = make_float2(G0.x + G1.y, G1.x - G0.y);
-  };
-#pragma unroll
-  for (int m = 0; m < 16; ++m) {
-    const int o = local_out(m);
-    if (o >= 8) continue;
-    const int t2 = tid + kClusterThreads * o;
-    const int q = rank + C * t2;
-    const float2 Sq = conj(v[m]);
-    float2 zm;
-    ramp(q, Sq, q ? smem[t2] : Sq, u[o], zm);
-    if (q) st_rank<C>(smem, partner, rank, mirror(t2), zm);
-  }
-  if (rank == 0 && tid == 0) {  // L/2: u[8], from v[2] (local_out(2) = 8)
-    float2 unused;
-    ramp(L / 2, conj(v[2]), conj(v[2]), u[8], unused);
-  }
-  cluster_arrive<C>();
-  cluster_wait<C>();  // every Z[L − q] has landed
-#pragma unroll
-  for (int o = 8; o < 16; ++o)
-    if (!(rank == 0 && tid == 0 && o == 8))
-      u[o] = smem[tid + kClusterThreads * o];
-  __syncthreads();  // every hi slot is read before the passes reuse smem
-
-  // irfft_L in four steps, reversed: this rank's local M-point inverse of
-  // Z[c + C·k2], the twiddle e^{2πi·c·t2/L}, then the C-point DFT across
-  // the cluster for each t2, on the rank that owns t2's span
-  dft<16>(u);
-  reg_passes<kRegMaxLog2N, 1>(u, smem, tid, a.twM);
-  cluster_arrive<C>();  // this block's passes have read smem
-#pragma unroll
-  for (int m = 0; m < 16; ++m) {
-    const int t2 = tid + kClusterThreads * local_out(m);
-    if (rank) u[m] = cmul(u[m], __ldg(a.twL + rank * t2));
-  }
-  cluster_wait<C>();
-#pragma unroll
-  for (int m = 0; m < 16; ++m) {
-    const int t2 = tid + kClusterThreads * local_out(m);
-    st_rank<C>(smem, t2 / span, rank, rank * span + t2 % span, u[m]);
-  }
-  cluster_arrive<C>();
-  cluster_wait<C>();
-  // t2 = rank·span + tid + s·1024: x[k1] from local k1·span + tid + s·1024
-#pragma unroll
-  for (int m = 0; m < 16; ++m)
-    v[m] = smem[(m % C) * span + tid + (m / C) * kClusterThreads];
-  cluster_arrive<C>();  // the spans are read
-  if constexpr (C > 1) {
-#pragma unroll
-    for (int s = 0; s < 16 / C; ++s) {
-      float2 x[C];
-#pragma unroll
-      for (int k1 = 0; k1 < C; ++k1) x[k1] = v[s * C + k1];
-      dft<C>(x);
-#pragma unroll
-      for (int t1 = 0; t1 < C; ++t1) v[s * C + t1] = x[t1];
-    }
-  }
+  cluster_filter<PL>(v, smem, a, r, rank, tid);
 
   // conj(h_eff) truncated to t_pad and scaled by 1/L: sample M·t1 + t2 at
   // rank t1, local t2 xor 8192, unpadded

@@ -58,12 +58,48 @@
 // (ops/spectra_inverse.py `twiddles`): no block computes a twiddle.
 // 17 barriers a row at n_fft 4096 with L == n, 15 with L = 256.
 //
-// The split buffer mode (n_fft above 16384: H and H_prev alone are 512 KB
-// at 32768) keeps the radix-2 body: the effective-filter chain of
-// common.cuh and fft_run over the block's device scratch slice, 1024
-// threads, the blocks walking the runs.
+// The cluster buffer mode (n_fft 32768 … 131072 with L == n, ops/mac_plan.py):
+// one row's filter pair is 2·F complex64, 262 KB at 32768, more than one
+// block's shared memory, and the split mode's radix-2 body took 40× its
+// byte bound at render (j)'s 128 rows × 16,384 taps. Here one thread-block
+// cluster of C = n/16384 blocks (ranks) of 1024 threads takes a run of
+// rows (fft_reg.cuh ClusterPlan; ops/_layout.py):
+//   chain      assembly_stages.cuh cluster_filter, assemble_partitions'
+//              cluster chain: the gather straight into registers, rfft_L,
+//              the ramp exchange of bins q and L − q across ranks, the
+//              table-driven ramp and gain, irfft_L, which leaves L·h_eff in
+//              registers in cluster_spread's input order;
+//   rfft_n     h_eff truncated to t_pad, scaled by 1/L and conjugated in
+//              registers, then one cluster transform: the radix-C step, one
+//              DSMEM exchange, each rank's 16384-point register FFT; rank c
+//              holds bins c + C·t2;
+//   pairs      one exchange sends each bin k to the rank that runs the MAC
+//              of min(k, n − k): rank c takes bins c·8192 … c·8192 + 8191
+//              (the last rank also n/2), Z[q] and Z[n − q] side by side, so
+//              a thread reads its pair as one float4;
+//   MAC        thread tid unpacks H0, H1 at bins q = c·8192 + tid + 1024·i
+//              (i < 8) and reads Xu, Xd and writes Y coalesced. H_prev
+//              cannot stay on chip (two ears of F complex64 are 131 KB a
+//              rank beside its 139 KB share, and 16 points take 32 of the 64
+//              registers a thread), so the carry goes through Y: row r
+//              writes Y[r + 1] = Xd[r + 1]·H[r] where row r + 1 is in the run
+//              and not `first`, and row r + 1 adds Xu·H[r + 1] to what it
+//              reads back, on the same thread and bins, with no barrier and
+//              no scratch: the same bytes as a carried H slice, and Y's
+//              round trip stays in L2.
+// The host takes runs from the clusters that run at once
+// (cudaOccupancyMaxActiveClusters, tt_assembly_mac_clusters), not from
+// the SMs: at (j), 66 clusters of 2 give runs of 2, 64 clusters and 192
+// assemblies in one wave. Twiddles come from host tables at n and 16384,
+// the taper at L. Where L < n the chain's L-point cluster does not match
+// the row's, and the split mode keeps that (L, n).
+//
+// The split buffer mode (n_fft above 131072, any L < n above 16384, or
+// forced) keeps the radix-2 body: the effective-filter chain of common.cuh
+// and fft_run over the block's device scratch slice, 1024 threads, the
+// blocks walking the runs.
 
-#include "fft_reg.cuh"
+#include "assembly_stages.cuh"
 
 namespace {
 
@@ -102,6 +138,7 @@ struct MacArgs {
   float2* Y;             // (rows, 2, F)
   const float2* twL;     // exp(+2πi·m/L), m < L
   const float2* twN;     // exp(+2πi·m/n), m < n
+  const float2* twM;     // exp(+2πi·m/16384), m < 16384 (cluster mode)
   const float* taper;    // the ramp's taper w at bins 0 … L/2
   AssemblyParams p;
   int rows, run, crossfade;
@@ -307,6 +344,128 @@ __global__ void __launch_bounds__(RegPlan<kLog2N>::threads,
   }
 }
 
+// complex64 of shared memory per rank of the cluster mode: the cluster
+// chain's share, which the pair exchange's 16386 slots (8192 pairs and
+// n/2 on the last rank) reuse. ops/mac_plan.py `mac_plan` computes the
+// same.
+constexpr int kMacClusterShared = ClusterPlan<kRegMaxLog2N + 1>::share_f2;
+constexpr int kMacPairs = (1 << kRegMaxLog2N) / 2;  // MAC bins a rank: 8192
+static_assert(2 * kMacPairs + 2 <= kMacClusterShared,
+              "the pair exchange fits the share");
+
+// This thread's index and its block's rank in the cluster, read anew on
+// every row of the cluster kernel: the addresses and exchange slots
+// derived from them are then computed on each row, not hoisted out of the
+// row loop into registers, where at 64 a thread they spilled: 1140 B of
+// spill stores against 540 B, and 0.520 ms against 0.436 at (j)'s shape
+// on an H100 (scripts/torch_mac_ab.py; PERF.md).
+__device__ __forceinline__ int fresh_tid() {
+  int v;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(v));
+  return v;
+}
+
+__device__ __forceinline__ int fresh_rank() {
+  int v;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(v));
+  return v;
+}
+
+// The cluster mode: one cluster of PN::ranks blocks per run of rows; see
+// the header comment. L == n.
+template <class PN>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+    assembly_mac_kernel(const MacArgs a) {
+  constexpr int n = PN::n, C = PN::ranks, M = PN::M, span = PN::span;
+  constexpr int F = n / 2 + 1;
+  extern __shared__ __align__(16) float2 share[];
+  const int r0 = static_cast<int>(blockIdx.x) / C * a.run;
+  const int r1 = min(a.rows, r0 + a.run);
+  // the run's predecessor, unless the run starts a track
+  const bool prev = a.crossfade && r0 > 0 && __ldg(a.first + r0) < 0.5f;
+  const float inv_n = 1.0f / n;
+  cluster_arrive<C>();  // this block runs: the others may store into it
+
+  for (int r = prev ? r0 - 1 : r0; r < r1; ++r) {
+    const int rank = fresh_rank();  // blockIdx.x % C
+    const int tid = fresh_tid();
+    float2 v[16];
+    cluster_filter<PN>(v, share, a, r, rank, tid);
+    // rfft_n of conj(h_eff), truncated to t_pad and scaled by 1/n, as the
+    // conjugate of the inverse: rank c ends with conj(Z[c + C·t2]),
+    // t2 = tid + 1024·local_out(m)
+#pragma unroll
+    for (int m = 0; m < 16; ++m) {
+      const int t = M * (m % C) + rank * span + tid + (m / C) * kClusterThreads;
+      v[m] = t < a.p.t_pad ? conj(cscale(v[m], inv_n)) : make_float2(0.f, 0.f);
+    }
+    cluster_spread<PN>(v, share, rank, tid, a.twN);
+    cluster_local_fft(v, share, tid, a.twM);
+
+    // each Z[k] to the rank of bin q = min(k, n − k), slot 2·(q mod 8192)
+    // (+1 for the mirror); bins 0 and n/2 are their own mirrors, and n/2
+    // goes to the last rank at pair 8192
+    cluster_arrive<C>();  // this block's passes have read share
+    cluster_wait<C>();
+#pragma unroll
+    for (int m = 0; m < 16; ++m) {
+      const int k = rank + C * (tid + kClusterThreads * local_out(m));
+      const bool lo = k <= n / 2;
+      const int q = lo ? k : n - k;
+      const int o = min(q / kMacPairs, C - 1);
+      const int at = 2 * (q - o * kMacPairs);
+      const float2 z = conj(v[m]);
+      st_rank<C>(share, o, rank, at + (lo ? 0 : 1), z);
+      if (k == 0 || k == n / 2) st_rank<C>(share, o, rank, at + 1, z);
+    }
+    cluster_arrive<C>();
+    cluster_wait<C>();  // every pair has landed
+
+    // unpack H and the MAC on this thread's bins; the carry through Y
+    const bool mac = r >= r0;
+    const bool own = r == 0 || __ldg(a.first + r) > 0.5f;
+    const bool carry = a.crossfade && r + 1 < r1 &&
+                       __ldg(a.first + r + 1) < 0.5f;
+    const float2* xu = a.Xu + static_cast<size_t>(r) * F;
+    const float2* xd = a.Xd + static_cast<size_t>(r) * F;
+    const float2* xn = xd + F;           // Xd[r + 1]
+    float2* Y0 = a.Y + static_cast<size_t>(r) * 2 * F;
+    float2* Yn = Y0 + 2 * F;             // Y[r + 1]
+    auto bin = [&](int pair) {
+      const int q = rank * kMacPairs + pair;
+      const float4 z = reinterpret_cast<const float4*>(share)[pair];
+      float2 A, B;
+      unpack_pair(make_float2(z.x, z.y), make_float2(z.z, z.w), &A, &B);
+      if (mac) {
+        const float2 x = __ldg(xu + q);
+        float2 y0 = cmul(x, A), y1 = cmul(x, B);
+        if (a.crossfade) {
+          if (own) {
+            const float2 xdq = __ldg(xd + q);
+            y0 = cadd(y0, cmul(xdq, A));
+            y1 = cadd(y1, cmul(xdq, B));
+          } else {  // Xd·H_prev, written by this thread for the row before
+            y0 = cadd(y0, Y0[q]);
+            y1 = cadd(y1, Y0[F + q]);
+          }
+        }
+        Y0[q] = y0;
+        Y0[F + q] = y1;
+      }
+      if (carry) {
+        const float2 xdn = __ldg(xn + q);
+        Yn[q] = cmul(xdn, A);
+        Yn[F + q] = cmul(xdn, B);
+      }
+    };
+#pragma unroll 1
+    for (int i = 0; i < 8; ++i) bin(tid + i * kClusterThreads);
+    if (rank == C - 1 && tid == 0) bin(kMacPairs);  // n/2
+    cluster_arrive<C>();  // the pairs are read
+  }
+  cluster_wait<C>();
+}
+
 // The split buffer mode: the radix-2 body over the block's device scratch
 // slice (n_fft + 2L + 4F complex64), the blocks walking the runs. It
 // shares the register kernel's name, so a profile names both alike.
@@ -434,27 +593,84 @@ int launch_register(int log2n, int log2L, int threads, int blocks_per_sm,
   }
 }
 
+// The cluster kernel for n = 2^kLog2N.
+template <int kLog2N>
+auto mac_cluster_kernel() {
+  return static_cast<void (*)(const MacArgs)>(
+      assembly_mac_kernel<ClusterPlan<kLog2N>>);
+}
+
+// The cluster kernel for n = 2^log2n with L == n, checked against the
+// caller's plan.
+template <int kLog2N>
+int launch_mac_cluster(int log2n, int log2L, int ranks, int threads,
+                       int blocks_per_sm, const MacArgs& a,
+                       cudaStream_t stream) {
+  if constexpr (kLog2N > kClusterMaxLog2N) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (log2n != kLog2N)
+      return launch_mac_cluster<kLog2N + 1>(log2n, log2L, ranks, threads,
+                                            blocks_per_sm, a, stream);
+    using PN = ClusterPlan<kLog2N>;
+    if (log2L != kLog2N || ranks != PN::ranks || threads != kClusterThreads ||
+        blocks_per_sm != 1 || a.twL == nullptr || a.twN == nullptr ||
+        a.twM == nullptr || a.taper == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_cluster(mac_cluster_kernel<kLog2N>(),
+                          (a.rows + a.run - 1) / a.run, PN::ranks,
+                          kMacClusterShared * static_cast<int>(sizeof(float2)),
+                          stream, a);
+  }
+}
+
+// The clusters of the cluster kernel at n = 2^log2n that the current
+// device runs at once.
+template <int kLog2N>
+int mac_cluster_slots(int log2n) {
+  if constexpr (kLog2N > kClusterMaxLog2N) {
+    return -static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (log2n != kLog2N) return mac_cluster_slots<kLog2N + 1>(log2n);
+    return cluster_slots(mac_cluster_kernel<kLog2N>(),
+                         ClusterPlan<kLog2N>::ranks,
+                         kMacClusterShared * static_cast<int>(sizeof(float2)));
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
+// The clusters of assembly_mac's cluster mode at n_fft (32768 … 131072)
+// that the current device runs at once, read once per device and kept: the
+// host's runs (ops/assembly_mac.py `cluster_slots`). ≥ 0, or a CUDA error
+// negated.
+int tt_assembly_mac_clusters(int n_fft) {
+  return mac_cluster_slots<kRegMaxLog2N + 1>(ilog2(n_fft));
+}
+
 // idx, w: (rows, 4) int32 / f32; h_table: (R, 2, taps) f32; delays, gains:
 // (R, 2) f32; Xu, Xd: (rows, F) complex64; first: (rows,) f32; Y: (rows, 2,
 // F) complex64. slices > 0: split mode, scratch holds slices ·
-// (n_fft + 2L + 4F) complex64, and twL, twN, taper, threads and
-// blocks_per_sm are unused. Otherwise the register kernel: twL and twN the
-// tables of exp(+2πi·m/L) and exp(+2πi·m/n), taper the ramp's taper at
-// bins 0 … L/2, and threads and blocks_per_sm must be the plan's
-// (ops/mac_plan.py `mac_plan`).
+// (n_fft + 2L + 4F) complex64, and twL, twN, twM, taper, ranks, threads
+// and blocks_per_sm are unused. Otherwise the register kernel (n_fft ≤
+// 16384, ranks 0) or the cluster kernel (n_fft 32768 … 131072 with L ==
+// n_fft, ranks n_fft/16384, each cluster a run): twL and twN the tables of
+// exp(+2πi·m/L) and exp(+2πi·m/n), twM (cluster only) that of
+// exp(+2πi·m/16384), taper the ramp's taper at bins 0 … L/2, and ranks,
+// threads and blocks_per_sm must be the plan's (ops/mac_plan.py
+// `mac_plan`).
 int tt_assembly_mac(const void* idx, const void* w, const void* h_table,
                     const void* delays, const void* gains, const void* Xu,
                     const void* Xd, const void* first, void* Y,
-                    const void* twL, const void* twN, const void* taper,
-                    int rows, int run, int taps, int t_pad, int n_fft,
-                    int crossfade, int apply_itd, int apply_ild, int threads,
-                    int blocks_per_sm, float align_guard, float max_shift,
-                    float taper_lo, float taper_hi, void* scratch, int slices,
-                    int work, void* stream) {
+                    const void* twL, const void* twN, const void* twM,
+                    const void* taper, int rows, int run, int taps, int t_pad,
+                    int n_fft, int crossfade, int apply_itd, int apply_ild,
+                    int ranks, int threads, int blocks_per_sm,
+                    float align_guard, float max_shift, float taper_lo,
+                    float taper_hi, void* scratch, int slices, int work,
+                    void* stream) {
   const AssemblyParams p =
       assembly_params(taps, t_pad, n_fft, apply_itd, apply_ild, align_guard,
                       max_shift, taper_lo, taper_hi);
@@ -471,11 +687,16 @@ int tt_assembly_mac(const void* idx, const void* w, const void* h_table,
                     static_cast<float2*>(Y),
                     static_cast<const float2*>(twL),
                     static_cast<const float2*>(twN),
+                    static_cast<const float2*>(twM),
                     static_cast<const float*>(taper),
                     p,
                     rows,
                     run,
                     crossfade};
+    if (p.log2n > kRegMaxLog2N)
+      return launch_mac_cluster<kRegMaxLog2N + 1>(
+          p.log2n, p.log2L, ranks, threads, blocks_per_sm, a, s);
+    if (ranks != 0) return static_cast<int>(cudaErrorInvalidValue);
     return launch_register<kMacMinLog2>(p.log2n, p.log2L, threads,
                                         blocks_per_sm, a, s);
   }

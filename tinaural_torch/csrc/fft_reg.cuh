@@ -373,12 +373,10 @@ static_assert(RegPlan<kRegMaxLog2N>::radix(RegPlan<kRegMaxLog2N>::passes - 1)
                   == 4,
               "local_out assumes a last radix of 4");
 
-// Launch kernel on `clusters` clusters of `ranks` blocks of
-// kClusterThreads threads with `smem` bytes of dynamic shared memory each.
-// The first launch of a kernel on a device reads how many such clusters
-// the device places at once and refuses (cudaErrorLaunchOutOfResources)
-// where it places none; a launch that fails returns its error.
-inline int cluster_capacity(const void* kernel, const cudaLaunchConfig_t* cfg) {
+// How many clusters of cfg's shape the device places at once for kernel:
+// read once per kernel and device (cudaOccupancyMaxActiveClusters) and
+// kept; ≥ 0, or a CUDA error negated.
+inline int cluster_count(const void* kernel, const cudaLaunchConfig_t* cfg) {
   struct Seen {
     const void* kernel;
     int device, clusters;
@@ -387,40 +385,78 @@ inline int cluster_capacity(const void* kernel, const cudaLaunchConfig_t* cfg) {
   static int count = 0;
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess) return -static_cast<int>(err);
   for (int i = 0; i < count; ++i)
     if (seen[i].kernel == kernel && seen[i].device == device)
-      return seen[i].clusters > 0
-                 ? 0
-                 : static_cast<int>(cudaErrorLaunchOutOfResources);
+      return seen[i].clusters;
   int clusters = 0;
   err = cudaOccupancyMaxActiveClusters(&clusters, kernel, cfg);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (err != cudaSuccess) return -static_cast<int>(err);
   if (count < 64) seen[count++] = {kernel, device, clusters};
+  return clusters;
+}
+
+// 0 where the device places at least one cluster of cfg's shape for
+// kernel, else the error (cudaErrorLaunchOutOfResources where it places
+// none).
+inline int cluster_capacity(const void* kernel, const cudaLaunchConfig_t* cfg) {
+  const int clusters = cluster_count(kernel, cfg);
+  if (clusters < 0) return -clusters;
   return clusters > 0 ? 0 : static_cast<int>(cudaErrorLaunchOutOfResources);
 }
 
+// The launch of kernel on `clusters` clusters of `ranks` blocks of
+// kClusterThreads threads with `smem` bytes of dynamic shared memory each,
+// the kernel's shared-memory limit raised to it; attr is the cluster
+// attribute the config points to.
+template <typename... Params>
+int cluster_config(void (*kernel)(Params...), int clusters, int ranks,
+                   int smem, cudaStream_t stream, cudaLaunchAttribute* attr,
+                   cudaLaunchConfig_t* cfg) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = ranks;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *cfg = {};
+  cfg->gridDim = dim3(clusters * ranks);
+  cfg->blockDim = dim3(kClusterThreads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return 0;
+}
+
+// The clusters of `ranks` blocks with `smem` bytes each that the current
+// device runs at once for kernel: ≥ 0, or a CUDA error negated.
+template <typename... Params>
+int cluster_slots(void (*kernel)(Params...), int ranks, int smem) {
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  const int err = cluster_config(kernel, 1, ranks, smem, nullptr, &attr, &cfg);
+  if (err) return -err;
+  return cluster_count(reinterpret_cast<const void*>(kernel), &cfg);
+}
+
+// Launch kernel on `clusters` clusters of `ranks` blocks of
+// kClusterThreads threads with `smem` bytes of dynamic shared memory each.
+// The first launch of a kernel on a device reads how many such clusters
+// the device places at once and refuses (cudaErrorLaunchOutOfResources)
+// where it places none; a launch that fails returns its error.
 template <typename... Params, typename... Args>
 int launch_cluster(void (*kernel)(Params...), int clusters, int ranks,
                    int smem, cudaStream_t stream, Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = ranks;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(clusters * ranks);
-  cfg.blockDim = dim3(kClusterThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  const int bad = cluster_config(kernel, clusters, ranks, smem, stream, &attr,
+                                 &cfg);
+  if (bad) return bad;
   const int fit = cluster_capacity(reinterpret_cast<const void*>(kernel), &cfg);
   if (fit) return fit;
-  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

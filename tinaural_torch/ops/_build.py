@@ -40,7 +40,8 @@ _SIGNATURES = {
     "tt_block_spectra": [_P] * 4 + [_I] * 9 + _SPLIT,
     "tt_block_spectra_mix": [_P] * 4 + [_I] * 10 + _SPLIT,
     "tt_spectra_inverse": [_P] * 4 + [_I] * 6 + _SPLIT,
-    "tt_assembly_mac": [_P] * 12 + [_I] * 10 + [_F] * 4 + _SPLIT,
+    "tt_assembly_mac": [_P] * 13 + [_I] * 11 + [_F] * 4 + _SPLIT,
+    "tt_assembly_mac_clusters": [_I],
 }
 
 

@@ -3,10 +3,12 @@ cluster's shared memory, or a device scratch.
 
 Every kernel of ``csrc/`` holds its twiddles and FFT buffers in shared
 memory when they fit the card's limit for one block (227 KB on the H100).
-Two kernels have a cluster mode above that: `spectra_inverse` at n_fft
-32768 … 131072 and `assemble_partitions` at L 16384 … 131072 spread each
-row over a thread-block cluster whose blocks hold a share of its buffers
-each (``csrc/fft_reg.cuh`` `ClusterPlan`). Their plans give one block's
+Three kernels have a cluster mode above that: `spectra_inverse` at n_fft
+32768 … 131072, `assemble_partitions` at L 16384 … 131072 and
+`assembly_mac` at n_fft = L 32768 … 131072 spread each row (each run of
+rows, for `assembly_mac`) over a thread-block cluster whose blocks hold a
+share of its buffers each (``csrc/fft_reg.cuh`` `ClusterPlan`). Their
+plans give one block's
 share as the shared figure, so the shared-mode test below takes them too,
 and the kernel's entry point picks the cluster kernel from the sizes.
 Above it the kernels run with their buffers in a device-memory scratch,

@@ -15,8 +15,9 @@ flattened (source, block) axis, with ``F = n_fft/2 + 1``:
    `first` marks row r (each source's block 0; row 0 always); without
    crossfade Y = Xu·H[r]. Up to n_fft 16384 the kernel keeps each row's
    transforms in registers and H never reaches device memory (its launch
-   plan is ``ops/mac_plan.py``); above, its buffers live in a device
-   scratch;
+   plan is ``ops/mac_plan.py``); at n_fft 32768 … 131072 with L == n_fft a
+   thread-block cluster takes each run of rows (the cluster mode); at
+   other shapes above 16384 its buffers live in a device scratch;
 3. kernel `spectra_inverse` and the per-source `overlap_add`
    (``ops/block_step.py``, ``ops/block_render.py``) → (S, 2, out).
 
@@ -33,6 +34,8 @@ raises. ``launches`` counts this module's kernel.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..data.table import (ALIGN_GUARD, DELAY_PAD, MAX_RENDER_SHIFT,
@@ -43,7 +46,7 @@ from .block_render import (_check_inputs, _cuda_inputs,
 from .block_step import spectra_inverse_cuda, spectra_inverse_reference
 from .mac_plan import mac_plan, ramp_taper
 from .ola import overlap_add
-from .spectra_inverse import twiddles
+from .spectra_inverse import MAX_REGISTER_N, twiddles
 
 KERNELS = ("assembly_mac",)
 launches = dict.fromkeys(KERNELS, 0)
@@ -59,11 +62,33 @@ def reset_launches() -> None:
 
 
 def run_length(rows: int, slots: int) -> int:
-    """Rows per CUDA block of `assembly_mac` when ``slots`` blocks run at
-    once (the SMs times the plan's blocks per SM): the shortest run that
-    needs no more than RUN_WAVES · slots runs, so 1 + 1/run assemblies per
-    row remain."""
+    """Rows per CUDA block (per cluster in the cluster mode) of
+    `assembly_mac` when ``slots`` of them run at once (the SMs times the
+    plan's blocks per SM, or the clusters the card runs at once): the
+    shortest run that needs no more than RUN_WAVES · slots runs, so
+    1 + 1/run assemblies per row remain."""
     return -(-rows // (RUN_WAVES * max(slots, 1)))
+
+
+@functools.cache
+def _cluster_slots(index: int, n_fft: int) -> int:
+    from . import _build
+
+    with torch.cuda.device(index):
+        v = _build.library().tt_assembly_mac_clusters(n_fft)
+    if v <= 0:
+        raise RuntimeError(f"cuda:{index} runs no cluster of assembly_mac at "
+                           f"n_fft={n_fft} (code {v})")
+    return v
+
+
+def cluster_slots(device: torch.device, n_fft: int) -> int:
+    """The clusters of `assembly_mac`'s cluster mode at ``n_fft`` that the
+    CUDA device runs at once (``cudaOccupancyMaxActiveClusters``): read
+    once per device and size, with no host sync. Raises where it runs
+    none."""
+    return _cluster_slots(device.index if device.index is not None
+                          else torch.cuda.current_device(), n_fft)
 
 
 def assembly_mac_render(xbs: torch.Tensor, idx: torch.Tensor,
@@ -168,17 +193,22 @@ def assembly_mac_cuda(idx: torch.Tensor, w: torch.Tensor, table: TorchTable,
     run = run_length(rows, sm_count(idx.device) * plan.blocks_per_sm)
     *split, _keep = layout(idx.device, plan.shared_f2, plan.scratch_f2,
                            -(-rows // run), n_fft)
-    tables = (0, 0, 0) if split[1] else (
+    cluster = plan.cluster and not split[1]
+    if cluster:  # a run per cluster, from the clusters that run at once
+        run = run_length(rows, cluster_slots(idx.device, n_fft))
+    tables = (0, 0, 0, 0) if split[1] else (
         twiddles(plan.L, idx.device).data_ptr(),
         twiddles(n_fft, idx.device).data_ptr(),
+        twiddles(MAX_REGISTER_N, idx.device).data_ptr() if cluster else 0,
         ramp_taper(plan.L, idx.device).data_ptr())
     _build.check(_build.library().tt_assembly_mac(
         idx.data_ptr(), w.data_ptr(), table.h.data_ptr(),
         table.delays.data_ptr(), table.gains.data_ptr(), Xu.data_ptr(),
         Xd.data_ptr(), first.data_ptr(), Y.data_ptr(), *tables, rows, run,
         table.taps, plan.t_pad, n_fft, int(crossfade), int(apply_itd),
-        int(apply_ild), plan.threads, plan.blocks_per_sm, ALIGN_GUARD,
-        MAX_RENDER_SHIFT, TAPER_LO, TAPER_HI, *split, stream), "assembly_mac")
+        int(apply_ild), plan.ranks, plan.threads, plan.blocks_per_sm,
+        ALIGN_GUARD, MAX_RENDER_SHIFT, TAPER_LO, TAPER_HI, *split, stream),
+        "assembly_mac")
     launches["assembly_mac"] += 1
     return Y
 

@@ -14,11 +14,23 @@ n, the ramp's taper from `ramp_taper`.
 wrapper hands the CUDA entry point the plan's threads and blocks per SM,
 and the entry point refuses any plan other than the one it was compiled
 for. The wrapper passes the plan's shared-memory figure to
-``ops/_layout.py``, which picks the buffer mode. Above `MAX_REGISTER_N` the
-kernel runs the split buffer mode of ``csrc/common.cuh``: radix-2 passes
-over a device scratch, `SPLIT_THREADS` threads per block. The plan
-describes that launch, and its shared figure is the full radix-2 layout,
-which no card's shared memory holds, so the layout picks the split mode.
+``ops/_layout.py``, which picks the buffer mode.
+
+Above `MAX_REGISTER_N`, up to `MAX_CLUSTER_N`, where the assembly's L
+equals n_fft, the kernel runs its cluster mode: one thread-block cluster
+of ``ranks = n/16384`` blocks of `CLUSTER_THREADS` threads takes a run of
+rows, each transform a radix-``ranks`` step across the cluster and each
+block's 16384-point register FFT (``csrc/fft_reg.cuh`` `ClusterPlan`), so
+the radices are ``(ranks, 16, 16, 16, 4)``; the chain is
+`assemble_partitions`' cluster chain, and the twiddles come at L = n and
+at 16384. Its shared figure is one block's share, so the layout takes it
+unless the split mode is forced; its runs come from the clusters the card
+runs at once (`assembly_mac.cluster_slots`). Every other shape above
+`MAX_REGISTER_N` (n_fft above `MAX_CLUSTER_N`, or L < n_fft) runs the split
+buffer mode of ``csrc/common.cuh``: radix-2 passes over a device scratch,
+`SPLIT_THREADS` threads per block. The plan describes that launch, and its
+shared figure is the full radix-2 layout, which no card's shared memory
+holds, so the layout picks the split mode.
 """
 
 from __future__ import annotations
@@ -31,7 +43,8 @@ import torch
 
 from ..data.table import DELAY_PAD, TAPER_HI, TAPER_LO
 from .filters import next_pow2
-from .spectra_inverse import MAX_REGISTER_N, inverse_plan
+from .spectra_inverse import (CLUSTER_THREADS, MAX_CLUSTER_N,
+                              MAX_REGISTER_N, inverse_plan)
 
 POINTS = 16  # values per thread in each register transform
 # threads' worth of blocks that __launch_bounds__ asks to fit one SM
@@ -56,12 +69,18 @@ class MacPlan:
     radices_n: tuple[int, ...]  # the n-point passes
     threads: int  # per block
     blocks_per_sm: int  # that __launch_bounds__ asks for
-    shared_f2: int  # complex64 of shared memory per block, shared mode
+    shared_f2: int  # complex64 of shared memory per block, shared or
+    # cluster mode
     scratch_f2: int  # complex64 of one scratch slice, split mode
+    ranks: int = 0  # blocks per cluster in the cluster mode, else 0
 
     @property
     def register(self) -> bool:
         return self.n <= MAX_REGISTER_N
+
+    @property
+    def cluster(self) -> bool:
+        return self.ranks > 0
 
 
 @functools.cache
@@ -74,6 +93,14 @@ def mac_plan(taps: int, n_fft: int) -> MacPlan:
                          f"taps + {DELAY_PAD} = {t_pad}")
     L = next_pow2(t_pad)
     scratch = n_fft + 2 * L + 4 * (n_fft // 2 + 1)
+    if MAX_REGISTER_N < n_fft <= MAX_CLUSTER_N and L == n_fft:
+        # the radix-C step, then each block's 16384-point transform; one
+        # block's share, which the pair exchange reuses
+        local = inverse_plan(MAX_REGISTER_N)
+        ranks = n_fft // MAX_REGISTER_N
+        radices = (ranks, *local.radices)
+        return MacPlan(taps, n_fft, L, t_pad, radices, radices,
+                       CLUSTER_THREADS, 1, local.shared_f2, scratch, ranks)
     if n_fft > MAX_REGISTER_N:
         log2 = lambda m: m.bit_length() - 1
         return MacPlan(taps, n_fft, L, t_pad, (2,) * log2(L),
