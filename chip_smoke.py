@@ -94,6 +94,21 @@ Phases, each of which fails the run on any error (nothing is caught):
      cluster mode; B1's split mode timed and profiled beside it), and
      (j4) the stream at dir_rate 4 — each against the float64 plain path
      (SNR ≥ 100 dB) with its exact launch counts;
+  4d. the CLI (`tinaural_torch.cli.main`, in process, after every timing
+     and before the profiles; `check_cli`), at the default table (the
+     synthetic set, 128 taps), block 1024 and stream block 256, on a
+     seeded int16 WAV of 2^19 samples: `render`, `sweep`, `trajectory`
+     (three waypoints), `scene` (16 WAVs of 2^17 samples at 16
+     directions), `stream` at update rates 1 and 4, and `render --hrir` a
+     compact-KEMAR directory of the whole grid written from the synthetic
+     set, each WAV within 1 int16 LSB of the port's API on the same
+     inputs, ≥ 60 dB from the same subcommand with --cpu-golden, and with
+     its exact launch counts; `export` then `info`; `fit` of 100 steps over
+     2^15 samples against √2 × the port's own render, its parameters and
+     losses on the card, its ms a step by CUDA events (one more step's
+     device busy time from a profile in phase 5), and its fitted render's
+     error < 0.2 × the stock table's; `python -m tinaural_torch info` in a
+     subprocess;
   5. one torch.profiler window per block render, per burst of (d) and of
      (e) at update rate 1 and for (g), after every timing: device busy
      time, idle share and the largest kernels ((f)'s pushes are profiled
@@ -117,7 +132,9 @@ body, and at 3d's shapes with their bounds and device ms; B1's two FFT
 kernels with their split mode at n_fft 32768; `assembly_mac` with its
 mode and device ms, and at (l)'s and the cluster and forced split shapes
 with their bounds); the last line
-is ``{"ok": true, "device": {...}}``.
+is ``{"ok": true, "device": {...}}``; before the kernels line, one
+``{"cli": {...}}`` line holds phase 4d's walls, launches, LSB and SNR
+results and the card.
 """
 
 from __future__ import annotations
@@ -520,7 +537,10 @@ def device_breakdown(fn) -> tuple[float, dict]:
         torch.cuda.synchronize()
     by = {}
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        # a user annotation (the optimizer's step) is a range over kernels
+        # on the device's timeline, not work of its own
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
             name = e.name.replace("(anonymous namespace)::", "")
             name = name.removeprefix("void ").split("(")[0].split("<")[0]
             name = name.split("::")[-1].strip()
@@ -1818,6 +1838,280 @@ def long_render(name: str, table, Bj: int, N: int, streamed: bool, core,
         profile_routes=profile_other)
 
 
+# the CLI phase: its inputs' sizes, fit's steps, and each render
+# subcommand's launches from the route rules at these shapes (512 blocks of
+# 1024: the static render on B3 + B2, sweeps and trajectories on B1; 16
+# static sources of 128 blocks: B4; 2048 stream blocks of 256: B7 + B8,
+# one assembly a push at update rate 1, one every 4 at 4)
+CLI_N, CLI_SOURCES, CLI_SOURCE_N, CLI_FIT_N, CLI_FIT_STEPS = (
+    1 << 19, 16, 1 << 17, 1 << 15, 100)
+CLI_STREAM_BLOCKS = CLI_N // 256
+CLI_STREAM_COUNTS = {
+    1: {"assemble_partitions": CLI_STREAM_BLOCKS,
+        "stream_conv": CLI_STREAM_BLOCKS},
+    4: {"assemble_partitions": CLI_STREAM_BLOCKS // 4,
+        "stream_conv": CLI_STREAM_BLOCKS}}
+CLI_SNR_DB = 60.0  # a subcommand's WAV against its --cpu-golden WAV
+
+
+def _wav_int16(path):
+    import numpy as np
+    from scipy.io import wavfile
+
+    sr, y = wavfile.read(path)
+    require(y.dtype == np.int16 and y.ndim == 2 and y.shape[1] == 2,
+            f"{path}: not a stereo int16 WAV")
+    return y.astype(np.int64)
+
+
+def _kemar_dir(root) -> None:
+    """A compact-KEMAR directory of the synthetic set over the whole grid:
+    every ring's front half (az ≤ 180) as float32 stereo WAVs, the back
+    half left for the loader to mirror."""
+    from tinaural_torch.data import synthesize_hrirs, write_wav
+
+    h, g = synthesize_hrirs()
+    for e_i, e in enumerate(g.elevs):
+        d = root / f"elev{int(e)}"
+        d.mkdir()
+        for a_i, az in enumerate(g.ring_azimuths(e_i)):
+            if az <= 180.0:
+                write_wav(d / f"H{int(e)}e{int(round(az)) % 360:03d}a.wav",
+                          SR, h[e_i, a_i].T, dtype="float32")
+
+
+def check_cli(table) -> dict:
+    """Phase 4d: `python -m tinaural_torch`'s subcommands, called in
+    process on the card at the default table (the synthetic set, 128 taps)
+    and block 1024, stream block 256. Each render subcommand's WAV is held
+    to within 1 int16 LSB of the port's API on the card with the same
+    inputs, to ≥ CLI_SNR_DB against the same subcommand with --cpu-golden,
+    and to its exact launch counts; `export` then `info` on the .npz; `fit`
+    of 100 steps over 2^15 samples against a target √2 × the port's own
+    render, its parameters and losses on the card (spies on
+    `fit.train_step` and the CLI's `fit_hrtf`), its ms a step by CUDA
+    events, and its fitted table's render error
+    < 0.2 × the stock table's; `python -m tinaural_torch info` in a
+    subprocess."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    import tinaural_torch as tt
+    from tinaural_torch import cli as cli_module
+    from tinaural_torch.data import read_wav, write_wav
+    from tinaural_torch.models import fit
+    from tinaural_torch.utils import circular_sweep, waypoints_to_block_dirs
+
+    t_phase = time.perf_counter()
+    cli = cli_module.main
+    cfg = tt.RenderConfig(block_size=B)
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        rng = np.random.default_rng(16)
+        src = tmp / "in.wav"
+        write_wav(src, SR, np.clip(rng.standard_normal(CLI_N) * 0.2, -1, 1))
+        _, x = read_wav(src)  # what the CLI renders
+        spec, xs, dirs = [], [], []
+        for i in range(CLI_SOURCES):
+            p = tmp / f"src{i}.wav"
+            write_wav(p, SR, np.clip(
+                rng.standard_normal(CLI_SOURCE_N) * 0.2, -1, 1))
+            az, el = 22.5 * i + 3.0, -30.0 + 7.5 * i  # 16 distinct
+            spec.append({"wav": str(p), "az": az, "el": el})
+            xs.append(read_wav(p)[1])
+            dirs.append([az, el])
+        scene = tmp / "scene.json"
+        scene.write_text(json.dumps(spec))
+        xs, dirs = np.stack(xs), np.asarray(dirs)
+        kemar = tmp / "kemar"
+        kemar.mkdir()
+        _kemar_dir(kemar)
+        kemar_table = tt.TorchTable.from_hrir_table(
+            tt.load_hrir_set(str(kemar)), table.device)
+        nb = CLI_N // B
+        wps = [(0.0, 300.0, -20.0), (5.0, 90.0, 40.0), (11.0, 200.0, 0.0)]
+
+        def stream_api(k):
+            s = tt.Stream(table, cfg.replace(stream_block=256,
+                                             stream_update_rate=k))
+            return s.render_offline(x, circular_sweep(CLI_STREAM_BLOCKS,
+                                                      0.0, 360.0, 0.0))
+
+        # name → (argv after the output, the API call, launches, normalize)
+        r, rk = tt.BinauralRenderer(table, cfg), tt.BinauralRenderer(
+            kemar_table, cfg)
+        subs = {
+            "render": (["render", str(src), "--az", "123.4", "--el", "5.6"],
+                       lambda: r.render(x, 123.4, 5.6), STEP_COUNTS, False),
+            "sweep": (["sweep", str(src), "--start", "270", "--end", "90",
+                       "--el", "10"],
+                      lambda: r.render_trajectory(
+                          x, circular_sweep(nb, 270.0, 90.0, 10.0)),
+                      B1_COUNTS, False),
+            "trajectory": (["trajectory", str(src),
+                            *(a for w in wps for a in
+                              ("--waypoint", ",".join(map(str, w))))],
+                           lambda: r.render_trajectory(
+                               x, waypoints_to_block_dirs(wps, nb, B, SR)),
+                           B1_COUNTS, False),
+            "scene": (["scene", str(scene)],
+                      lambda: r.render_scene(xs, dirs), MIX_COUNTS, True),
+            "stream_update_rate_1": (["stream", str(src), "--update-rate",
+                                      "1"], lambda: stream_api(1),
+                                     CLI_STREAM_COUNTS[1], False),
+            "stream_update_rate_4": (["stream", str(src), "--update-rate",
+                                      "4"], lambda: stream_api(4),
+                                     CLI_STREAM_COUNTS[4], False),
+            "render_kemar_dir": (["render", str(src), "--az", "250",
+                                  "--el", "-15", "--hrir", str(kemar)],
+                                 lambda: rk.render(x, 250.0, -15.0),
+                                 STEP_COUNTS, False)}
+        for name, (argv, api, want, normalize) in subs.items():
+            out, ref, gold = (tmp / f"{name}_{k}.wav"
+                              for k in ("cli", "api", "golden"))
+            argv = [argv[0], argv[1], str(out), *argv[2:]]
+            t0 = time.perf_counter()
+            counts = _launches_of(lambda: require(cli(argv) == 0,
+                                                  f"cli {name}: exit code"))
+            wall = time.perf_counter() - t0
+            require(counts == want, f"cli {name}: launches {counts}, want "
+                    f"{want}")
+            write_wav(ref, SR, api().cpu().numpy().T, normalize=normalize)
+            t0 = time.perf_counter()
+            require(cli([*argv[:2], str(gold), *argv[3:], "--cpu-golden"])
+                    == 0, f"cli {name} --cpu-golden: exit code")
+            golden_wall = time.perf_counter() - t0
+            y, y_api, y_gold = (_wav_int16(p) for p in (out, ref, gold))
+            require(y.shape == y_api.shape == y_gold.shape,
+                    f"cli {name}: shapes {y.shape} {y_api.shape} "
+                    f"{y_gold.shape}")
+            lsb = int(np.abs(y - y_api).max())
+            err = float(np.sum((y - y_gold).astype(np.float64) ** 2))
+            snr = (float("inf") if err == 0 else float(10 * np.log10(
+                np.sum(y_gold.astype(np.float64) ** 2) / err)))
+            require(lsb <= 1, f"cli {name}: {lsb} LSB from the API")
+            require(snr >= CLI_SNR_DB, f"cli {name}: {snr:.2f} dB from "
+                    f"--cpu-golden")
+            res[name] = {"wall_s": wall, "samples": int(y.shape[0]),
+                         "launches": counts, "max_lsb_vs_api": lsb,
+                         "snr_db_vs_cpu_golden": snr,
+                         "cpu_golden_wall_s": golden_wall}
+            print(f"[cli {name}] {wall:.3f} s, launches {counts}, "
+                  f"{lsb} LSB from the API, {snr:.2f} dB from "
+                  f"--cpu-golden ({golden_wall:.3f} s)", flush=True)
+
+        npz = tmp / "table.npz"
+        info = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(info):
+            counts = _launches_of(lambda: require(
+                cli(["export", str(npz)]) == 0
+                and cli(["info", "--hrir", str(npz)]) == 0,
+                "cli export/info: exit code"))
+        require("directions:  710" in info.getvalue() and not counts,
+                f"cli export/info: {info.getvalue()!r}, launches {counts}")
+        res["export_info"] = {"wall_s": time.perf_counter() - t0,
+                              "launches": counts}
+        proc = subprocess.run(
+            [sys.executable, "-m", "tinaural_torch", "info"],
+            capture_output=True, text=True, timeout=300,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        require(proc.returncode == 0 and "directions:  710" in proc.stdout,
+                f"python -m tinaural_torch info: rc {proc.returncode}, "
+                f"{proc.stderr[-2000:]}")
+        print(f"[cli export/info] {res['export_info']['wall_s']:.3f} s; "
+              f"python -m tinaural_torch info: rc 0", flush=True)
+
+        # fit: a target √2 × the port's own render on the card
+        fx = np.clip(rng.standard_normal(CLI_FIT_N) * 0.2, -1, 1)
+        fsrc, ftgt, fout = tmp / "fit_src.wav", tmp / "fit_tgt.wav", \
+            tmp / "fitted.npz"
+        write_wav(fsrc, SR, fx, dtype="float32")
+        _, fx = read_wav(fsrc)
+        fdir = np.array([[75.0, 10.0]])
+        y0 = r.render_scene(fx[None, :], fdir)
+        target = y0 * np.sqrt(2.0)
+        write_wav(ftgt, SR, target.cpu().numpy().T, dtype="float32")
+        _, target_np = read_wav(ftgt)
+        seen = {"losses": [], "params": None}
+        # the first step's start and the last step's end on the stream
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        real_step, real_fit = fit.train_step, cli_module.fit_hrtf
+
+        def step_spy(*a, **kw):
+            if not seen["losses"]:
+                start.record()
+            loss = real_step(*a, **kw)
+            end.record()
+            seen["losses"].append(loss)
+            return loss
+
+        def fit_spy(*a, **kw):
+            params, losses = real_fit(*a, **kw)
+            seen["params"] = params
+            return params, losses
+
+        fit.train_step, cli_module.fit_hrtf = step_spy, fit_spy
+        t0 = time.perf_counter()
+        counts = _launches_of(lambda: require(
+            cli(["fit", str(fsrc), str(ftgt), str(fout), "--az", "75",
+                 "--el", "10", "--steps", str(CLI_FIT_STEPS)]) == 0,
+            "cli fit: exit code"))
+        wall = time.perf_counter() - t0
+        fit.train_step, cli_module.fit_hrtf = real_step, real_fit
+        step_ms = start.elapsed_time(end) / CLI_FIT_STEPS
+        require(len(seen["losses"]) == CLI_FIT_STEPS
+                and all(v.device.type == "cuda" for v in seen["losses"])
+                and all(p.device.type == "cuda" for p in seen["params"]),
+                "cli fit: parameters or losses off the card")
+        require(not counts, f"cli fit: launches {counts}, want none (the "
+                "loss runs the plain route)")
+        fitted = tt.TorchTable.from_hrir_table(tt.load_hrir_set(str(fout)),
+                                               table.device)
+        yf = tt.BinauralRenderer(fitted, cfg).render_scene(fx[None, :], fdir)
+        tgt = torch.tensor(target_np.T, device=table.device)
+        n = min(yf.shape[-1], tgt.shape[-1])
+        err_fit = float(((yf[:, :n] - tgt[:, :n]) ** 2).sum())
+        err_stock = float(((y0[:, :n] - tgt[:, :n]) ** 2).sum())
+        losses = [float(v) for v in seen["losses"]]
+        require(err_fit < 0.2 * err_stock, f"cli fit: fitted error "
+                f"{err_fit:.3e} not < 0.2 × stock {err_stock:.3e}")
+        # one more step of the fitted θ, profiled in phase 5: its device
+        # busy time against the CUDA-event time a step
+        params = seen["params"]
+        opt = torch.optim.Adam(params, lr=3e-2)
+        fxb = torch.tensor(fx.reshape(1, -1, B), dtype=torch.float32,
+                           device=table.device)
+        fdirs = torch.tensor(np.broadcast_to(fdir[:, None], (1, fxb.shape[1],
+                                                             2)).copy(),
+                             dtype=torch.float32, device=table.device)
+        tgt32 = tgt.float()
+        step_profile = {"kernel_ms": step_ms, "launches": {}}
+        TO_PROFILE.append(("cli fit step", step_profile, lambda: fit.train_step(
+            params, opt, table, fxb, fdirs, tgt32, cfg)))
+        res["fit"] = {"wall_s": wall, "steps": CLI_FIT_STEPS,
+                      "samples": CLI_FIT_N, "ms_per_step": step_ms,
+                      "loss_first": losses[0], "loss_last": losses[-1],
+                      "err_fit_over_stock": err_fit / err_stock,
+                      "launches": counts, "device": "cuda",
+                      "step_profile": step_profile}
+        print(f"[cli fit] {wall:.3f} s, {CLI_FIT_STEPS} steps at "
+              f"{step_ms:.3f} ms a step (CUDA events), loss "
+              f"{losses[0]:.3e} -> {losses[-1]:.3e}, fitted error "
+              f"{err_fit / err_stock:.3e} × the stock table's", flush=True)
+    res["phase_s"] = time.perf_counter() - t_phase
+    res["card"] = card_line()
+    print(f"[cli] phase {res['phase_s']:.2f} s", flush=True)
+    return res
+
+
 def ptxas_summary(log: str) -> list[str]:
     """One line per compiled kernel instance from nvcc's -Xptxas -v
     report: its name and template arguments, registers and spills."""
@@ -2146,6 +2440,9 @@ def main() -> int:
         True, _partitioned_core, pc.partitioned_render,
         pc.partitioned_render_reference, PART_COUNTS, launches, reps=2,
         dir_rate=4)
+
+    # 4d. the CLI, after every timing and before the profiles
+    cli_res = check_cli(table)
     profile_renders()
     profile_kernels()
     check_assembly_savings(renders)
@@ -2347,6 +2644,7 @@ def main() -> int:
         if k["name"] in k4:
             k["dir_rate_4"] = k4[k["name"]]
     print(json.dumps({"renders": renders}), flush=True)
+    print(json.dumps({"cli": cli_res}), flush=True)
     print(f"card: {card_line()}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -20,7 +20,9 @@ blocks) of B1's, the block step's, the scene mixdown's and the
 partitioned kernels at k = 2, 4 and 8, nb no multiple of k, in chunks,
 in B1's split mode at n_fft 32768 and `assemble_partitions`' cluster
 mode, each against the float64 plain path at k = 1 on the snapped
-track.
+track; the CLI's `render` and `sweep` on the card (their launches, and
+within 1 int16 LSB of the API); `fit`'s step and loop on CUDA tensors
+(the loss's plain route), against the CPU's step.
 
 This file imports neither the JAX package nor the shared conftest (which
 does), so it also runs where `tinaural` cannot be imported, as on a
@@ -1354,3 +1356,96 @@ def test_overlap_add_refuses_another_plan(cuda, monkeypatch):
         br.overlap_add_cuda(huge, 2048)
     with pytest.raises(ValueError, match="power of two"):
         br.overlap_add_cuda(torch.zeros((1, 3, 2, 12), device=cuda), 3)
+
+
+def _cli_launches(fn) -> dict:
+    """The kernel launches of one call of fn, counted from 0."""
+    mods = (br, bs, pc, am)
+    for m in mods:
+        m.reset_launches()
+    fn()
+    torch.cuda.synchronize()
+    return {k: v for m in mods for k, v in m.launches.items() if v}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cmd", ["render", "sweep"])
+def test_cli_launches_its_kernels_and_matches_the_api(table, tmp_path, cmd):
+    """The CLI on the card (no --cpu) launches the route's kernels and
+    writes the port's API output to within 1 int16 LSB."""
+    from scipy.io import wavfile
+
+    from tinaural_torch.cli import main
+    from tinaural_torch.utils import circular_sweep
+
+    x = np.clip(np.random.default_rng(21).standard_normal(16 * B) * 0.2,
+                -1, 1)
+    src, out, ref = (tmp_path / f for f in ("in.wav", "out.wav", "ref.wav"))
+    tinaural_torch.write_wav(src, 44100, x)
+    _, x = tinaural_torch.read_wav(src)
+    args = ["--az", "33", "--el", "12"] if cmd == "render" else \
+        ["--start", "270", "--end", "90"]
+    counts = _cli_launches(lambda: main([cmd, str(src), str(out), *args]))
+    r = tinaural_torch.BinauralRenderer(table)
+    y = (r.render(x, 33.0, 12.0) if cmd == "render" else
+         r.render_trajectory(x, circular_sweep(16, 270.0, 90.0)))
+    tinaural_torch.write_wav(ref, 44100, y.cpu().numpy().T)
+    want = ({"assemble_filters": 1, "block_spectra": 1, "spectra_inverse": 1,
+             "overlap_add": 1} if cmd == "render" else
+            {"assemble_filters": 1, "block_spectra_mix_inverse": 1,
+             "overlap_add": 1})
+    assert counts == want
+    ya = wavfile.read(out)[1].astype(np.int64)
+    yb = wavfile.read(ref)[1].astype(np.int64)
+    assert ya.shape == yb.shape and np.abs(ya - yb).max() <= 1
+
+
+def _fit_inputs(dev, seed=3, S=2, nb=3):
+    rng = np.random.default_rng(seed)
+    xbs = torch.tensor(rng.standard_normal((S, nb, 256)), dtype=torch.float32,
+                       device=dev)
+    d = np.stack([rng.uniform(0, 360, S), rng.uniform(-40, 90, S)], 1)
+    dirs = torch.tensor(np.broadcast_to(d[:, None], (S, nb, 2)).copy(),
+                        dtype=torch.float32, device=dev)
+    target = torch.tensor(rng.standard_normal((2, nb * 256)) * 0.1,
+                          dtype=torch.float32, device=dev)
+    return xbs, dirs, target
+
+
+@pytest.mark.gpu
+def test_train_step_on_the_card(table):
+    """One step on CUDA tensors: finite, non-zero gradients on every leaf,
+    and the loss of the CPU's step to rtol 1e-4 (the loss's plain route on
+    either device)."""
+    from tinaural_torch.models import fit
+
+    cfg = tinaural_torch.RenderConfig(block_size=256)
+    cpu_table = TorchTable.from_hrir_table(
+        tinaural_torch.load_hrir_set("synthetic"), "cpu")
+    losses, grads = {}, {}
+    for dev, t in (("cuda", table), ("cpu", cpu_table)):
+        params = fit.FitParams(*(p.requires_grad_()
+                                 for p in fit.init_params(device=dev)))
+        opt = torch.optim.Adam(params, lr=3e-2)
+        loss = fit.train_step(params, opt, t, *_fit_inputs(dev), cfg)
+        assert loss.device.type == dev
+        losses[dev] = loss.item()
+        grads[dev] = [p.grad.cpu() for p in params]
+    for name, g in zip(fit.FitParams._fields, grads["cuda"]):
+        assert bool(torch.isfinite(g).all()) and bool((g != 0).any()), name
+    assert losses["cuda"] == pytest.approx(losses["cpu"], rel=1e-4)
+
+
+@pytest.mark.gpu
+def test_fit_runs_on_cuda_tensors(table):
+    """fit_hrtf on the card refuses nothing and keeps θ there."""
+    from tinaural_torch.models import fit
+
+    cfg = tinaural_torch.RenderConfig(block_size=256)
+    xbs, dirs, target = _fit_inputs("cuda")
+    xs = xbs.reshape(2, -1).cpu().numpy()
+    params, losses = fit.fit_hrtf(table, xs, dirs.cpu().numpy(),
+                                  target.cpu().numpy(), steps=5, config=cfg)
+    assert len(losses) == 5 and np.all(np.isfinite(losses))
+    assert all(p.device.type == "cuda" for p in params)
+    assert losses[-1] < losses[0]

@@ -60,15 +60,6 @@ def test_npz_round_trip_across_packages(tmp_path):
                         tinaural.load_hrir_set(str(q)))
 
 
-def test_unported_sources_raise(tmp_path):
-    with pytest.raises(ValueError, match="SOFA"):
-        tinaural_torch.load_hrir_set(str(tmp_path / "set.sofa"))
-    with pytest.raises(ValueError, match="KEMAR-directory"):
-        tinaural_torch.load_hrir_set(str(tmp_path))
-    with pytest.raises(FileNotFoundError):
-        tinaural_torch.load_hrir_set(str(tmp_path / "nothing"))
-
-
 def test_from_hrir_table_carries_jax_table():
     jt = tinaural.load_hrir_set("synthetic")
     t = TorchTable.from_hrir_table(jt, "cpu")

@@ -19,6 +19,10 @@ from tinaural_torch.ops import assembly_mac as am
 from tinaural_torch.ops import block_render as br
 from tinaural_torch.ops import block_step as step
 from tinaural_torch.ops import partitioned_conv as pc
+from tinaural_torch import cli, utils
+from tinaural_torch.data import wav
+from tinaural_torch.models import fit
+from tinaural_torch.reference import golden
 assert not any(m == "jax" or m.startswith(("jax.", "flax", "tinaural."))
                or m == "tinaural" for m in sys.modules), "JAX package imported"
 t = tinaural_torch.TorchTable.from_hrir_table(
@@ -49,7 +53,14 @@ assert r4.render_trajectory(np.ones(5000, np.float32),
 assert "tinaural_torch.ops._build" not in sys.modules, "CPU route reached the build"
 assert all(v == 0 for v in (*br.launches.values(), *step.launches.values(),
                             *pc.launches.values(), *am.launches.values()))
+p = fit.init_params()
+assert fit.personalize_table(t, p).h.shape == t.h.shape
+assert utils.circular_sweep(4).shape == (4, 2)
+assert golden.render_static(tinaural_torch.load_hrir_set("synthetic"),
+                            np.ones(100), 30.0, 0.0).shape == (2, 291)
+assert "tinaural_torch.ops._build" not in sys.modules, "CPU route reached the build"
 assert "jax" not in sys.modules and "flax" not in sys.modules
+assert "optax" not in sys.modules and "h5py" not in sys.modules
 print("ok")
 """
 
@@ -61,3 +72,28 @@ def test_import_leaves_out_jax_and_build():
                           text=True, env=env, cwd=ROOT, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")
+
+
+def test_python_m_help_leaves_out_jax():
+    """`python -m tinaural_torch --help` lists the nine subcommands and
+    imports neither jax nor the JAX package."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    code = ("import runpy, sys\n"
+            "sys.argv = ['tinaural_torch', '--help']\n"
+            "try:\n"
+            "    runpy.run_module('tinaural_torch', run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert e.code == 0, e.code\n"
+            "assert not any(m == 'jax' or m.startswith(('jax.', 'flax', "
+            "'optax', 'tinaural.')) or m == 'tinaural' for m in sys.modules)\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, cwd=ROOT, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    for cmd in ("render", "sweep", "trajectory", "scene", "stream", "fit",
+                "export", "info", "bench"):
+        assert cmd in proc.stdout
+    proc = subprocess.run([sys.executable, "-m", "tinaural_torch", "--help"],
+                          capture_output=True, text=True, env=env, cwd=ROOT,
+                          timeout=300)
+    assert proc.returncode == 0 and "tinaural-torch" in proc.stdout

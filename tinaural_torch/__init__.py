@@ -8,7 +8,7 @@ picked by the device of the tensors: CUDA tensors run the kernels of
 """
 
 from .config import DEFAULT_CONFIG, RenderConfig
-from .data import HrirArrays, TorchTable, load_hrir_set
+from .data import HrirArrays, TorchTable, load_hrir_set, read_wav, write_wav
 from .models.renderer import (BinauralRenderer, render, render_scene,
                               render_trajectory)
 from .models.streaming import BatchedStream, Stream, StreamState, init_state
@@ -21,6 +21,8 @@ __all__ = [
     "HrirArrays",
     "TorchTable",
     "load_hrir_set",
+    "read_wav",
+    "write_wav",
     "BinauralRenderer",
     "render",
     "render_trajectory",

@@ -1,10 +1,12 @@
-"""Data layer: HRIR grids, the synthetic set, tables and loaders."""
+"""Data layer: HRIR grids, the synthetic set, tables, loaders and WAV
+I/O."""
 
 from .grids import SphericalGrid, kemar_grid
 from .loaders import load_hrir_set
 from .synthetic import synthesize_hrirs
 from .table import (HrirArrays, TorchTable, build_table, decompose_table,
                     estimate_delays, fractional_shift, load_table, save_table)
+from .wav import read_wav, write_wav
 
 __all__ = [
     "SphericalGrid",
@@ -19,4 +21,6 @@ __all__ = [
     "fractional_shift",
     "save_table",
     "load_table",
+    "read_wav",
+    "write_wav",
 ]

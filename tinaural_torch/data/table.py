@@ -50,6 +50,16 @@ class HrirArrays:
     sample_rate: int = 44100
     decomposed: bool = False
 
+    @property
+    def taps(self) -> int:
+        return self.h.shape[-1]
+
+    def grid(self) -> SphericalGrid:
+        return SphericalGrid(
+            elevs=np.asarray(self.elevs, dtype=np.float64),
+            az_counts=np.asarray(self.az_counts, dtype=np.int64),
+        )
+
 
 @dataclasses.dataclass
 class TorchTable:
@@ -88,6 +98,17 @@ class TorchTable:
             np.asarray(t.h), np.asarray(t.delays), np.asarray(t.gains),
             np.asarray(t.elevs), np.asarray(t.az_counts), np.asarray(t.valid),
             sample_rate=t.sample_rate, decomposed=t.decomposed, device=device)
+
+    def to_arrays(self) -> HrirArrays:
+        """The weights bridge back: the six fields as host numpy arrays
+        (detached; h, delays, gains, valid and elevs float32, az_counts
+        int32)."""
+        host = lambda t: t.detach().cpu().numpy()
+        return HrirArrays(
+            h=host(self.h), delays=host(self.delays), gains=host(self.gains),
+            elevs=host(self.elevs), az_counts=host(self.az_counts),
+            valid=host(self.valid), sample_rate=self.sample_rate,
+            decomposed=self.decomposed)
 
     @property
     def device(self) -> torch.device:

@@ -30,16 +30,9 @@ def next_pow2(n: int) -> int:
     return m
 
 
-def delay_ramp(n_fft: int, shift_samples: torch.Tensor) -> torch.Tensor:
-    """Torch counterpart of `tinaural_torch.data.table.delay_ramp`, in the
-    dtype of ``shift_samples`` (float32 → complex64, float64 →
-    complex128), with the same operation order as the JAX package's f32
-    version. Only the value is ported: the straight-through gradient that
-    the JAX version defines for fitting comes with the port of `fit`.
-
-    shift_samples: (...) → (..., n_fft//2 + 1) complex, |ramp| = 1.
-    """
-    d = shift_samples[..., None]
+def _ramp_phase(n_fft: int, d: torch.Tensor):
+    """The ramp's phase at the rfft bins of ``n_fft`` for delays d (..., 1),
+    and the band-weighted slope θ·w of a pure delay (F,)."""
     dt = d.dtype
     di = torch.floor(d)
     frac = d - di
@@ -50,7 +43,42 @@ def delay_ramp(n_fft: int, shift_samples: torch.Tensor) -> torch.Tensor:
     psi = torch.atan2(frac * torch.sin(theta),
                       (1.0 - frac) + frac * torch.cos(theta))
     phase = theta * di + w * theta * frac + (1.0 - w) * psi
-    return torch.polar(torch.ones_like(phase), phase)
+    return phase, theta * w
+
+
+class _DelayRamp(torch.autograd.Function):
+    """The exact ramp as the value, the straight-through slope as the
+    gradient (`tinaural.ops.filters.delay_ramp`'s stop-gradient): ∂ψ/∂frac
+    steepens without bound toward Nyquist, and those few-bin spikes wreck
+    ITD fitting, so ∂phase/∂d is the band-weighted pure-delay slope θ·w,
+    the derivative of a fractional delay."""
+
+    @staticmethod
+    def forward(ctx, d: torch.Tensor, n_fft: int) -> torch.Tensor:
+        phase, slope = _ramp_phase(n_fft, d)
+        ramp = torch.polar(torch.ones_like(phase), phase)
+        ctx.save_for_backward(ramp, slope)
+        return ramp
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        ramp, slope = ctx.saved_tensors
+        # d/dφ of e^{jφ} is j·e^{jφ}; against the complex gradient that is
+        # Re(conj(grad)·j·ramp) = Im(grad)·Re(ramp) − Re(grad)·Im(ramp)
+        g_phase = grad.imag * ramp.real - grad.real * ramp.imag
+        return (g_phase * slope).sum(-1, keepdim=True), None
+
+
+def delay_ramp(n_fft: int, shift_samples: torch.Tensor) -> torch.Tensor:
+    """Torch counterpart of `tinaural_torch.data.table.delay_ramp`, in the
+    dtype of ``shift_samples`` (float32 → complex64, float64 →
+    complex128), with the same operation order as the JAX package's f32
+    version. The gradient with respect to the delay is the JAX version's
+    straight-through one (`_DelayRamp`); the value is the exact phase.
+
+    shift_samples: (...) → (..., n_fft//2 + 1) complex, |ramp| = 1.
+    """
+    return _DelayRamp.apply(shift_samples[..., None], n_fft)
 
 
 def _clip_delay(d: torch.Tensor) -> torch.Tensor:
