@@ -109,6 +109,19 @@ Phases, each of which fails the run on any error (nothing is caught):
      device busy time from a profile in phase 5), and its fitted render's
      error < 0.2 × the stock table's; `python -m tinaural_torch info` in a
      subprocess;
+  4e. the parallel layer (`check_parallel`) on a world-size-1 NCCL group
+     initialised in process (a ``file://`` rendezvous) and a (1, 1) mesh:
+     `render_scene_sharded` at (b)'s and (c)'s inputs (B4 at the
+     per-shard shapes) and `ShardedBatchedStream.push_many` at (d)'s,
+     update rates 1 and 4 (B7; B8 at 4), each equal in bits to the
+     unsharded entry point (the streams also after a resume);
+     `render_long_sharded` at (a)'s inputs (B1) and (l)'s (B9 + B2), one
+     span behind a silent block, ≥ 100 dB from the float64 plain path;
+     each with exactly the unsharded call's launches and its wall ms
+     beside the unsharded call's; three `fit_step_sharded` steps at 4d's
+     fit shape equal to `train_step`'s losses and parameters (rtol 1e-5);
+     then (a)'s public call by `utils.profiling.marginal_cost` beside
+     phase 4's CUDA-event core time and the card; the group destroyed;
   5. one torch.profiler window per block render, per burst of (d) and of
      (e) at update rate 1 and for (g), after every timing: device busy
      time, idle share and the largest kernels ((f)'s pushes are profiled
@@ -119,7 +132,9 @@ Phases, each of which fails the run on any error (nothing is caught):
      blend and as the hold step), per `frame_spectra` and
      `partitioned_conv` check, per block-step check of 3c and 3d, per
      `assembly_mac` check of 3d and per `overlap_add` shape of 3d: its
-     device time a call; (j)'s trajectory is profiled on B1's route too.
+     device time a call; (j)'s trajectory is profiled on B1's route too;
+     last, one chrome trace of (a)'s core through `utils.profiling.trace`
+     (`check_trace`), which must name B1's three kernels.
 Every render reads every kernel's launch count, all set to 0 just before
 it. The line before the last is the kernels' JSON record (each k-path
 kernel with its dir_rate 4 check and launches under ``dir_rate_4``; each
@@ -134,7 +149,9 @@ mode and device ms, and at (l)'s and the cluster and forced split shapes
 with their bounds); the last line
 is ``{"ok": true, "device": {...}}``; before the kernels line, one
 ``{"cli": {...}}`` line holds phase 4d's walls, launches, LSB and SNR
-results and the card.
+results and the card, and one ``{"parallel": {...}}`` line phase 4e's
+runs (launches, wall ms, bit equality or SNR), (a)'s marginal cost, the
+card and phase 5's trace.
 """
 
 from __future__ import annotations
@@ -1523,12 +1540,26 @@ def _counts_after(fn, expect: dict, name: str, launches_total: dict,
     return out, {k: v for k, v in counts.items() if v}
 
 
+def serving_inputs(dev, S: int, K: int, k: int):
+    """A serving burst's device-staged inputs: K blocks of 256 for each of
+    S streams, heads moving 2° per push → (blocks, azs, els)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(S + K + k)
+    blocks = torch.tensor(rng.standard_normal((K, S, 256)),
+                          dtype=torch.float32, device=dev)
+    azs = torch.tensor((np.linspace(0, 350, S)[None]
+                        + 2.0 * np.arange(K)[:, None]) % 360.0,
+                       dtype=torch.float32, device=dev)
+    return blocks, azs, torch.zeros_like(azs)
+
+
 def check_serving(name: str, table, S: int, K: int, k: int,
                   launches_total: dict, reps: int) -> dict:
     """BatchedStream.push_many of K device-staged blocks per stream, heads
     moving 2° per push, with no host sync; then the float64 plain check
     and the kernel / plain fp32 timings of the same burst."""
-    import numpy as np
     import torch
 
     import tinaural_torch as tt
@@ -1537,14 +1568,7 @@ def check_serving(name: str, table, S: int, K: int, k: int,
 
     B = 256
     cfg = tt.RenderConfig(stream_block=B, stream_update_rate=k)
-    dev = table.device
-    rng = np.random.default_rng(S + K + k)
-    blocks = torch.tensor(rng.standard_normal((K, S, B)), dtype=torch.float32,
-                          device=dev)
-    azs = torch.tensor((np.linspace(0, 350, S)[None]
-                        + 2.0 * np.arange(K)[:, None]) % 360.0,
-                       dtype=torch.float32, device=dev)
-    els = torch.zeros_like(azs)
+    blocks, azs, els = serving_inputs(table.device, S, K, k)
     bs = tt.BatchedStream(table, S, cfg)
     st0 = bs.state
     n_upd = -(-K // k)
@@ -1799,6 +1823,19 @@ def check_long(long_streamed, long_traj, N: int, launches_total: dict,
                 profile_other=True)}
 
 
+def long_inputs(N: int, Bj: int):
+    """(j)'s and (l)'s signal and bench.py's BRIR direction track, one
+    direction a block of Bj → (x (N,), dirs (N/Bj, 2))."""
+    import numpy as np
+
+    nb = N // Bj
+    x = np.random.default_rng(6).standard_normal(N).astype(np.float32)
+    dirs = np.stack([np.linspace(0, 350, nb) % 360,
+                     20 * np.sin(np.linspace(0, 9, nb))],
+                    axis=1).astype(np.float32)
+    return x, dirs
+
+
 def long_render(name: str, table, Bj: int, N: int, streamed: bool, core,
                 kern, plain_fn, expect: dict, launches_total: dict,
                 reps: int, other=None, dir_rate: int = 1,
@@ -1808,7 +1845,6 @@ def long_render(name: str, table, Bj: int, N: int, streamed: bool, core,
     ``profile_other``). Above ``dir_rate`` 1 the
     float64 check is the plain path at dir_rate 1 on the snapped track,
     and each assembly launch must take ⌈nb/dir_rate⌉ rows."""
-    import numpy as np
     import torch
 
     import tinaural_torch as tt
@@ -1817,10 +1853,7 @@ def long_render(name: str, table, Bj: int, N: int, streamed: bool, core,
     cfg = tt.RenderConfig(block_size=Bj, stream_block=Bj, dir_rate=dir_rate)
     r = tt.BinauralRenderer(table, cfg)
     nb = N // Bj
-    x = np.random.default_rng(6).standard_normal(N).astype(np.float32)
-    dirs = np.stack([np.linspace(0, 350, nb) % 360,
-                     20 * np.sin(np.linspace(0, 9, nb))],
-                    axis=1).astype(np.float32)
+    x, dirs = long_inputs(N, Bj)
     public = r.render_streamed if streamed else r.render_trajectory
     xb = torch.tensor(x.reshape(nb, Bj), device=table.device)
     dirs_t = torch.tensor(dirs, device=table.device)
@@ -2110,6 +2143,250 @@ def check_cli(table) -> dict:
     res["card"] = card_line()
     print(f"[cli] phase {res['phase_s']:.2f} s", flush=True)
     return res
+
+
+# phase 4e: the (src, blk) mesh of a group of one, and each sharded run's
+# launches (those of the unsharded public call on the same inputs)
+PARALLEL_STREAM_COUNTS = {1: {"assemble_partitions": 32, "stream_conv": 32},
+                          4: {"assemble_partitions": 8, "stream_conv": 32}}
+FIT_STEPS_4E = 3
+
+
+def wall_ms(fn, reps: int = 3) -> float:
+    """Mean host wall ms of fn() with the card synchronised after each
+    call (the first call left out, as a warm-up)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def check_parallel(table, cfg, traj: tuple, scene: tuple,
+                   renders: dict) -> dict:
+    """Phase 4e: the parallel layer on a world-size-1 NCCL group (a
+    ``file://`` rendezvous in this process) and a (1, 1) mesh, at full
+    width. ``traj`` = (a)'s (x, dirs); ``scene`` = (b)'s and (c)'s (xs,
+    moving dirs, static dirs). The sharded scenes at (b) and (c) and the
+    sharded streams at (d) (update rates 1 and 4) equal the unsharded
+    entry points in bits; the sharded long renders at (a) and (l) (one
+    span behind a silent block) are ≥ NEW_RENDER_SNR_DB from the float64
+    plain path; each run launches exactly the unsharded call's kernels
+    and is timed by its wall ms beside the unsharded call's; three
+    `fit_step_sharded` steps at phase 4d's fit shape equal `train_step`'s
+    losses and parameters to rtol 1e-5. Then (a)'s public call timed
+    with `utils.profiling.marginal_cost`, beside phase 4's CUDA-event
+    core time. The group is destroyed at the end."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import tinaural_torch as tt
+    from tinaural_torch.models import fit
+    from tinaural_torch.models.renderer import _trajectory_core
+    from tinaural_torch.ops import assembly_mac as am
+    from tinaural_torch.ops import block_render as br
+    from tinaural_torch.ops import block_step as bs
+    from tinaural_torch.ops import partitioned_conv as pc
+    from tinaural_torch.parallel import (ShardedBatchedStream,
+                                         fit_step_sharded, make_mesh,
+                                         render_long_sharded,
+                                         render_scene_sharded)
+    from tinaural_torch.utils import marginal_cost
+
+    t_phase = time.perf_counter()
+    dev = table.device
+    launches = dict.fromkeys(
+        [*br.KERNELS, *bs.KERNELS, *pc.KERNELS, *am.KERNELS], 0)
+    res = {}
+
+    def run(name, sharded, unsharded, expect, no_sync=False):
+        """The sharded call with its launches counted, the same for the
+        unsharded call, then both timed → (sharded out, unsharded out,
+        result)."""
+        y, counts = _counts_after(sharded, expect, f"4e {name}", launches,
+                                  no_sync)
+        y_ref, counts_ref = _counts_after(unsharded, expect,
+                                          f"4e {name} unsharded",
+                                          dict.fromkeys(launches, 0), no_sync)
+        require(bool(torch.isfinite(y).all()), f"4e {name}: not finite")
+        r = {"launches": counts, "wall_ms": wall_ms(sharded),
+             "unsharded_wall_ms": wall_ms(unsharded), "shape": list(y.shape)}
+        return y, y_ref, r
+
+    def report(name, r):
+        res[name] = r
+        what = (f"SNR {r['snr_db_vs_plain_fp64']:.2f} dB vs plain fp64"
+                if "snr_db_vs_plain_fp64" in r else "equal in bits")
+        print(f"[parallel {name}] {what}, launches {r['launches']}, wall "
+              f"{r['wall_ms']:.3f} ms (unsharded {r['unsharded_wall_ms']:.3f})",
+              flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rdv",
+                                world_size=1, rank=0)
+        try:
+            mesh = make_mesh((1, 1), "cuda")
+            r = tt.BinauralRenderer(table, cfg)
+
+            # the scenes (b), (c): B4 at the per-shard shapes
+            xs, dmov, dstat = scene
+            for name, dirs in (("b_scene_moving", dmov),
+                               ("c_scene_static", dstat)):
+                y, y_ref, rr = run(
+                    name, lambda: render_scene_sharded(table, xs, dirs, mesh,
+                                                       cfg),
+                    lambda: r.render_scene(xs, dirs), MIX_COUNTS)
+                require(torch.equal(y, y_ref),
+                        f"4e {name}: sharded scene differs in bits")
+                rr["equal_in_bits"] = True
+                report(name, rr)
+
+            # the long renders (a) on B1 and (l) on B9 + B2, one span
+            x_l, dirs_l = long_inputs(1 << 23, 2048)
+            cfg_l = tt.RenderConfig(block_size=2048)
+            for name, (x, dirs), c, expect, plain in (
+                    ("a_trajectory", traj, cfg, B1_COUNTS,
+                     br.block_render_reference),
+                    ("l_trajectory_block_2048", (x_l, dirs_l), cfg_l,
+                     MAC_COUNTS, am.assembly_mac_render_reference)):
+                rl = tt.BinauralRenderer(table, c)
+                y, _, rr = run(
+                    name, lambda: render_long_sharded(table, x, dirs, mesh,
+                                                      c),
+                    lambda: rl.render_trajectory(x, dirs), expect)
+                Bc = c.block_size
+                y64 = _trajectory_core(
+                    table, torch.tensor(x.reshape(-1, Bc), device=dev,
+                                        dtype=torch.float64),
+                    torch.tensor(dirs, device=dev), c, render=plain)
+                s = snr_db(y64[:, :y.shape[-1]], y)
+                require(s >= NEW_RENDER_SNR_DB,
+                        f"4e {name}: SNR {s:.2f} < {NEW_RENDER_SNR_DB}")
+                rr["snr_db_vs_plain_fp64"] = s
+                del y64
+                report(name, rr)
+
+            # the streams (d), update rates 1 and 4 (B7, and B8 at 4)
+            for k in (1, 4):
+                scfg = tt.RenderConfig(stream_block=256, stream_update_rate=k)
+                blocks, azs, els = serving_inputs(dev, 1024, 32, k)
+                svc = ShardedBatchedStream(table, 1024, mesh, scfg)
+                bst = tt.BatchedStream(table, 1024, scfg)
+                st_s, st_b = svc.state, bst.state
+                name = f"d_serving_k{k}"
+                y, y_ref, rr = run(
+                    name, lambda: svc.push_many(blocks, azs, els),
+                    lambda: bst.push_many(blocks, azs, els),
+                    PARALLEL_STREAM_COUNTS[k], no_sync=True)
+                require(torch.equal(y, y_ref),
+                        f"4e {name}: sharded streams differ in bits")
+                svc.state, bst.state = st_s, st_b  # resume: equal again
+                require(torch.equal(svc.push_many(blocks, azs, els), y),
+                        f"4e {name}: resumed burst differs")
+                rr["equal_in_bits"] = True
+                report(name, rr)
+
+            # three fit steps at phase 4d's fit shape against train_step's
+            rng = np.random.default_rng(17)
+            fx = np.clip(rng.standard_normal(CLI_FIT_N) * 0.2, -1,
+                         1).astype(np.float32)
+            fdir = np.array([[75.0, 10.0]], np.float32)
+            target = r.render_scene(fx[None], fdir) * np.sqrt(2.0)
+            fxb = torch.tensor(fx.reshape(1, -1, B), device=dev)
+            fdirs = torch.tensor(np.broadcast_to(
+                fdir[:, None], (1, fxb.shape[1], 2)).copy(), device=dev)
+            out = {}
+            for key, step in (("sharded", lambda p, o: fit_step_sharded(
+                                  p, o, table, fxb, fdirs, target, cfg,
+                                  mesh)),
+                              ("train_step", lambda p, o: fit.train_step(
+                                  p, o, table, fxb, fdirs, target, cfg))):
+                params = fit.FitParams(*(p.requires_grad_() for p in
+                                         fit.init_params(device=dev)))
+                opt = torch.optim.Adam(params, lr=3e-2)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                counts = _launches_of(lambda: out.__setitem__(key, (
+                    [float(step(params, opt)) for _ in range(FIT_STEPS_4E)],
+                    [p.detach().clone() for p in params])))
+                out[f"{key}_ms"] = (time.perf_counter() - t0) * 1e3 \
+                    / FIT_STEPS_4E
+                require(not counts, f"4e fit ({key}): launches {counts}, "
+                        "want none (the loss runs the plain route)")
+            (ls, ps), (lt, pt) = out["sharded"], out["train_step"]
+            require(np.allclose(ls, lt, rtol=1e-5, atol=0)
+                    and all(torch.allclose(a, b, rtol=1e-5, atol=1e-7)
+                            for a, b in zip(ps, pt)),
+                    f"4e fit: sharded losses {ls} or parameters differ "
+                    f"from train_step's {lt}")
+            res["fit"] = {"steps": FIT_STEPS_4E, "losses": ls,
+                          "train_step_losses": lt, "launches": {},
+                          "wall_ms_per_step": out["sharded_ms"],
+                          "train_step_wall_ms_per_step":
+                              out["train_step_ms"],
+                          "max_abs_param_diff": max(
+                              float((a - b).abs().max())
+                              for a, b in zip(ps, pt))}
+            print(f"[parallel fit] {FIT_STEPS_4E} steps: losses {ls} "
+                  f"(train_step {lt}), params within "
+                  f"{res['fit']['max_abs_param_diff']:.3e}, "
+                  f"{out['sharded_ms']:.3f} ms a step (train_step "
+                  f"{out['train_step_ms']:.3f})", flush=True)
+        finally:
+            dist.destroy_process_group()
+
+    # (a)'s public call by marginal_cost, beside phase 4's core time
+    x, dirs = traj
+    mc = marginal_cost(lambda: r.render_trajectory(x, dirs))
+    res["a_marginal_cost_ms"] = mc * 1e3
+    res["a_core_cuda_event_ms"] = renders["a_trajectory"]["kernel_ms"]
+    res["launches_total"] = {k: v for k, v in launches.items() if v}
+    res["phase_s"] = time.perf_counter() - t_phase
+    res["card"] = card_line()
+    print(f"[parallel] (a)'s public call: marginal_cost "
+          f"{res['a_marginal_cost_ms']:.3f} ms a call, phase 4's core "
+          f"{res['a_core_cuda_event_ms']:.3f} ms by CUDA events; card "
+          f"{res['card']}; phase {res['phase_s']:.2f} s", flush=True)
+    return res
+
+
+def check_trace(name: str, fn, kernels) -> dict:
+    """Phase 5: one chrome trace of fn() through `utils.profiling.trace`
+    into a temporary directory; every kernel of ``kernels`` must be named
+    in the trace file. A trace can come back without its device events
+    (as `profile_renders` finds), so up to three are taken."""
+    import glob
+    import json
+    import os
+    import tempfile
+
+    from tinaural_torch.utils import trace
+
+    for attempt in range(1, 4):
+        with tempfile.TemporaryDirectory() as tmp:
+            with trace(tmp) as d:
+                fn()
+            (path,) = glob.glob(os.path.join(d, "trace-*.json"))
+            size = os.path.getsize(path)
+            with open(path) as f:
+                names = {e.get("name", "") for e in json.load(f)[
+                    "traceEvents"]}
+        found = {k: any(f"{k}_kernel" in n for n in names) for k in kernels}
+        if all(found.values()):
+            break
+    require(all(found.values()),
+            f"trace of {name}: kernels named {found} after {attempt} traces")
+    print(f"[trace {name}] chrome trace of {size} bytes names "
+          f"{', '.join(kernels)} ({attempt} trace(s))", flush=True)
+    return {"bytes": size, "kernels_named": list(kernels),
+            "traces_taken": attempt}
 
 
 def ptxas_summary(log: str) -> list[str]:
@@ -2443,9 +2720,16 @@ def main() -> int:
 
     # 4d. the CLI, after every timing and before the profiles
     cli_res = check_cli(table)
+    # 4e. the parallel layer on a world-size-1 NCCL group
+    par_res = check_parallel(table, cfg, (x, dirs), (xs, dmov, dstat),
+                             renders)
     profile_renders()
     profile_kernels()
     check_assembly_savings(renders)
+    # one chrome trace of (a)'s core through utils.profiling.trace
+    par_res["a_trace"] = check_trace(
+        "a trajectory 2^23", lambda: _trajectory_core(table, xb, dirs_t, cfg),
+        br.KERNELS)
 
     # overlap_add ends the B1 renders and is the OLA half of B2 in every
     # render that launched spectra_inverse
@@ -2645,6 +2929,7 @@ def main() -> int:
             k["dir_rate_4"] = k4[k["name"]]
     print(json.dumps({"renders": renders}), flush=True)
     print(json.dumps({"cli": cli_res}), flush=True)
+    print(json.dumps({"parallel": par_res}), flush=True)
     print(f"card: {card_line()}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

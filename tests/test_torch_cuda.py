@@ -22,7 +22,9 @@ in B1's split mode at n_fft 32768 and `assemble_partitions`' cluster
 mode, each against the float64 plain path at k = 1 on the snapped
 track; the CLI's `render` and `sweep` on the card (their launches, and
 within 1 int16 LSB of the API); `fit`'s step and loop on CUDA tensors
-(the loss's plain route), against the CPU's step.
+(the loss's plain route), against the CPU's step; a `utils.profiling.trace`
+of a render naming its kernels; and the parallel layer in a group of one
+over NCCL against the unsharded entry points.
 
 This file imports neither the JAX package nor the shared conftest (which
 does), so it also runs where `tinaural` cannot be imported, as on a
@@ -1449,3 +1451,93 @@ def test_fit_runs_on_cuda_tensors(table):
     assert len(losses) == 5 and np.all(np.isfinite(losses))
     assert all(p.device.type == "cuda" for p in params)
     assert losses[-1] < losses[0]
+
+
+@pytest.mark.gpu
+def test_trace_names_the_render_kernels(table, tmp_path):
+    """`utils.profiling.trace` of one trajectory render (B1's route) writes
+    a chrome trace that names its three kernels."""
+    import glob
+    import json
+
+    from tinaural_torch.utils import trace
+
+    r = tinaural_torch.BinauralRenderer(table)
+    x = np.random.default_rng(22).standard_normal(64 * B).astype(np.float32)
+    dirs = np.stack([np.linspace(0, 300, 64), np.zeros(64)], 1)
+    r.render_trajectory(x, dirs)  # built and warm before the trace
+    with trace(tmp_path) as d:
+        r.render_trajectory(x, dirs)
+    (path,) = glob.glob(str(d / "trace-*.json"))
+    with open(path) as f:
+        names = " ".join(e.get("name", "") for e in json.load(f)["traceEvents"])
+    for kernel in br.KERNELS:
+        assert f"{kernel}_kernel" in names, kernel
+
+
+@pytest.mark.gpu
+def test_make_mesh_cuda_needs_a_process_group(table):
+    import torch.distributed as dist
+
+    from tinaural_torch.parallel import make_mesh
+
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="process group"):
+        make_mesh((1, 1), "cuda")
+
+
+@pytest.mark.gpu
+def test_sharded_renders_at_world_size_one_over_nccl(table, tmp_path):
+    """A group of one over NCCL on a (1, 1) mesh: the sharded scene (moving
+    and static) and streams equal the unsharded entry points in bits, the
+    sharded long render (one span behind a silent block) is ≥ 100 dB from
+    the unsharded one, and each launches what the unsharded call does."""
+    import torch.distributed as dist
+
+    from tinaural_torch.parallel import (ShardedBatchedStream, make_mesh,
+                                         render_long_sharded,
+                                         render_scene_sharded)
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdv",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh((1, 1), "cuda")
+        cfg = tinaural_torch.RenderConfig()
+        r = tinaural_torch.BinauralRenderer(table, cfg)
+        rng = np.random.default_rng(23)
+        S, N = 8, 32 * B
+        xs = rng.standard_normal((S, N)).astype(np.float32)
+        moving = np.stack([rng.uniform(0, 360, (S, 32)),
+                           rng.uniform(-40, 90, (S, 32))], -1)
+        static = moving[:, 0]
+        for dirs in (moving, static):
+            n_want = _cli_launches(lambda: r.render_scene(xs, dirs))
+            n_got = _cli_launches(lambda: render_scene_sharded(
+                table, xs, dirs, mesh, cfg))
+            want = r.render_scene(xs, dirs)
+            got = render_scene_sharded(table, xs, dirs, mesh, cfg)
+            assert torch.equal(got, want) and n_got == n_want
+        x = rng.standard_normal(64 * B + 100).astype(np.float32)
+        tdirs = np.stack([np.linspace(0, 350, 65), np.zeros(65)], 1)
+        n_want = _cli_launches(lambda: r.render_trajectory(x, tdirs))
+        n_got = _cli_launches(lambda: render_long_sharded(table, x, tdirs,
+                                                          mesh, cfg))
+        got = render_long_sharded(table, x, tdirs, mesh, cfg)
+        want = r.render_trajectory(x, tdirs)
+        assert got.shape == want.shape and n_got == n_want
+        assert _snr_db(want, got) >= 100
+        scfg = tinaural_torch.RenderConfig(stream_update_rate=4)
+        blocks = torch.tensor(rng.standard_normal((8, 16, 256)),
+                              dtype=torch.float32, device=table.device)
+        azs = torch.linspace(0, 300, 16, device=table.device)
+        els = torch.zeros(16, device=table.device)
+        plain = tinaural_torch.BatchedStream(table, 16, scfg)
+        sharded = ShardedBatchedStream(table, 16, mesh, scfg)
+        n_want = _cli_launches(lambda: plain.push_many(blocks, azs, els))
+        n_got = _cli_launches(lambda: sharded.push_many(blocks, azs, els))
+        assert n_got == n_want == {"assemble_partitions": 2,
+                                   "stream_conv": 8}
+        assert torch.equal(sharded.push_many(blocks, azs, els),
+                           plain.push_many(blocks, azs, els))
+    finally:
+        dist.destroy_process_group()

@@ -178,7 +178,7 @@ def test_train_step_returns_the_loss_before_the_step(tables):
     xs, dirs, xbs, dirs_b = _scene(3)
     xbs, dirs_b = torch.from_numpy(xbs), torch.from_numpy(dirs_b)
     target = torch.zeros(2, xs.shape[1])
-    params = _leaves(tfit.init_params())
+    params = _leaves(tfit.init_params(device="cpu"))
     before = tfit.scene_loss(params, t, xbs, dirs_b, target, TCFG).item()
     opt = torch.optim.Adam(params, lr=3e-2)
     loss = tfit.train_step(params, opt, t, xbs, dirs_b, target, TCFG)
@@ -191,7 +191,7 @@ def test_fit_recovers_global_gain(tables):
     (the assertion is on the render: gain and EQ are over-complete)."""
     _, t = tables
     xs, dirs, _, _ = _scene(7)
-    true = tfit.init_params()._replace(
+    true = tfit.init_params(device="cpu")._replace(
         gain_log=torch.tensor(np.log(2.0), dtype=torch.float32))
     ttab = tfit.personalize_table(t, true)
     target = tt.BinauralRenderer(ttab, TCFG).render_scene(xs, dirs).numpy()
@@ -202,6 +202,16 @@ def test_fit_recovers_global_gain(tables):
         fitted = tfit.personalize_table(t, params)
     y = tt.BinauralRenderer(fitted, TCFG).render_scene(xs, dirs).numpy()
     assert snr_db(target, y) > 25
+
+
+def test_init_params_defaults_to_the_card():
+    """The card unless the caller passes the CPU; no card, no fallback."""
+    if torch.cuda.is_available():
+        assert all(p.device.type == "cuda" for p in tfit.init_params())
+    else:
+        with pytest.raises(RuntimeError, match="CUDA card"):
+            tfit.init_params()
+    assert all(p.device.type == "cpu" for p in tfit.init_params(device="cpu"))
 
 
 def test_params_bridge_round_trip():

@@ -23,6 +23,9 @@ from tinaural_torch import cli, utils
 from tinaural_torch.data import wav
 from tinaural_torch.models import fit
 from tinaural_torch.reference import golden
+from tinaural_torch import parallel
+from tinaural_torch.parallel import dryrun, launch
+from tinaural_torch.utils import profiling
 assert not any(m == "jax" or m.startswith(("jax.", "flax", "tinaural."))
                or m == "tinaural" for m in sys.modules), "JAX package imported"
 t = tinaural_torch.TorchTable.from_hrir_table(
@@ -53,7 +56,7 @@ assert r4.render_trajectory(np.ones(5000, np.float32),
 assert "tinaural_torch.ops._build" not in sys.modules, "CPU route reached the build"
 assert all(v == 0 for v in (*br.launches.values(), *step.launches.values(),
                             *pc.launches.values(), *am.launches.values()))
-p = fit.init_params()
+p = fit.init_params(device="cpu")
 assert fit.personalize_table(t, p).h.shape == t.h.shape
 assert utils.circular_sweep(4).shape == (4, 2)
 assert golden.render_static(tinaural_torch.load_hrir_set("synthetic"),

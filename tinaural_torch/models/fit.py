@@ -62,7 +62,13 @@ class FitParams(NamedTuple):
                            for t in self))
 
 
-def init_params(n_bands: int = 8, device="cpu") -> FitParams:
+def init_params(n_bands: int = 8, device="cuda:0") -> FitParams:
+    """Identity parameters (every leaf zero) on ``device``: the card by
+    default, the CPU only where the caller passes it. Raises without a
+    card for a CUDA device."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"init_params: no CUDA card for {device!r}; pass "
+                           "device='cpu' for the CPU")
     z = lambda *shape: torch.zeros(shape, dtype=torch.float32, device=device)
     return FitParams(ear_eq_log=z(2, n_bands), itd_scale_log=z(),
                      ild_scale_log=z(), gain_log=z())
