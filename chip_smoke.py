@@ -11,11 +11,17 @@ Phases, each of which fails the run on any error (nothing is caught):
   3. each block-render kernel against its plain torch version at the main
      path's shapes (128-tap synthetic table, B = 1024, n_fft = 2048: one
      8192-block trajectory, 64 sources × 128 blocks with and without
-     crossfade, render (m)'s 16 sources × 1024 blocks) and in the split
-     mode at n_fft 32768 ((j)'s 128 rows), then at dir_rate 4 (one filter per group of 4
-     blocks: 2048 filters for the 8192-block trajectory, 8 for 30 blocks
-     in the split mode): SNR ≥ 100 dB, `overlap_add` equal in bits and
-     naming the body it ran, each FFT kernel's SNR against plain fp64
+     crossfade, render (m)'s 16 sources × 1024 blocks), then
+     `assemble_filters` and `block_spectra_mix_inverse` in their cluster
+     mode at n_fft 32768 ((j)'s 128 rows × 16,384 taps, clusters of 2)
+     and 65536 (64 rows × 44,100 taps, clusters of 4) and in the split
+     mode forced at (j)'s shape, each timed call after an L2 flush and
+     each ≥ 100 dB against plain fp64, then at dir_rate 4 (one filter per
+     group of 4 blocks: 2048 filters for the 8192-block trajectory, 8 for
+     30 blocks in the cluster mode and in the split mode forced): SNR ≥
+     100 dB, `overlap_add` equal in
+     bits and naming the body it ran, each FFT kernel equal in bits over
+     two calls, naming its buffer mode, its SNR against plain fp64
      printed;
   3b. each partitioned-convolution kernel against its plain version, SNR
      ≥ 100 dB, each line naming the body it ran: the streaming step at
@@ -70,8 +76,11 @@ Phases, each of which fails the run on any error (nothing is caught):
      trajectory and (a4) the same at dir_rate 4, (b) a 64-source moving
      scene, (b4) the same at dir_rate 4, and (c) a 64-source static
      scene of 2^17 samples each on the mixdown route, their cores timed on
-     B1's route too, and (m) a 16-source moving scene of 2^20 samples
-     (1024 blocks, B1's route) — with every kernel's launch count read
+     B1's route too, (m) a 16-source moving scene of 2^20 samples
+     (1024 blocks, B1's route) and (n) a 64-source moving scene of 2^18
+     samples at 16,384 taps (256 blocks: B1's route at n_fft 32768, both
+     FFT kernels in the cluster mode; its float64 plain path run 8
+     sources at a time and summed) — with every kernel's launch count read
      around them, each output held against the port's own plain path in
      float64 on the card (SNR ≥ 60 dB for (a), ≥ 100 dB for the others;
      the mixdown route's output equal in bits over two calls; a dir_rate
@@ -132,7 +141,8 @@ Phases, each of which fails the run on any error (nothing is caught):
      blend and as the hold step), per `frame_spectra` and
      `partitioned_conv` check, per block-step check of 3c and 3d, per
      `assembly_mac` check of 3d and per `overlap_add` shape of 3d: its
-     device time a call; (j)'s trajectory is profiled on B1's route too;
+     device time a call, from a trace of 10 calls between spin kernels
+     that holds all 10 (else "not measured" after three); (j)'s trajectory is profiled on B1's route too;
      last, one chrome trace of (a)'s core through `utils.profiling.trace`
      (`check_trace`), which must name B1's three kernels.
 Every render reads every kernel's launch count, all set to 0 just before
@@ -144,7 +154,10 @@ convolution's kernels with their device ms, body and forward
 transforms; the block step's two with their device ms and body, and
 `block_spectra` at (h)'s shape with its bound; `overlap_add` with its
 body, and at 3d's shapes with their bounds and device ms; B1's two FFT
-kernels with their split mode at n_fft 32768; `assembly_mac` with its
+kernels with their cluster mode at n_fft 32768 and 65536, their forced
+split mode and the dir_rate 4 checks in both modes (each with its mode,
+bound and device ms), and their device ms in (j)'s B1 route and in (n);
+`assembly_mac` with its
 mode and device ms, and at (l)'s and the cluster and forced split shapes
 with their bounds); the last line
 is ``{"ok": true, "device": {...}}``; before the kernels line, one
@@ -156,6 +169,7 @@ card and phase 5's trace.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -168,7 +182,7 @@ KERNEL_SNR_DB = 100.0
 INVERSE_SNR_DB = 130.0  # spectra_inverse against plain fp32
 MAC_FP64_SNR_DB = 110.0  # assembly_mac against plain fp64
 RENDER_SNR_DB = 60.0
-NEW_RENDER_SNR_DB = 100.0  # renders (b), (c), (h)–(m)
+NEW_RENDER_SNR_DB = 100.0  # renders (b), (c), (h)–(n)
 SOURCE = "tinaural_torch/csrc/block_render.cu"
 # the block render's kernels → their sources
 B1_SOURCES = {"assemble_filters": "tinaural_torch/csrc/assemble_filters.cu",
@@ -226,6 +240,19 @@ def assembly_work(table, idx, n_fft: int) -> dict:
     rows = idx.numel() // 4
     return bound(rows * 32 + table_bytes(table, idx) + rows * 2 * F * 8,
                  rows * assembly_flops(table, n_fft))
+
+
+def mix_work(S: int, nb: int, B: int, n_fft: int, h_numel: int,
+             crossfade: bool) -> dict:
+    """block_spectra_mix_inverse: each source's block read, H read, both
+    ears' frames written; a forward of each source's block, its products
+    with both ears' filters (two of them under crossfade), one inverse an
+    output block."""
+    F = n_fft // 2 + 1
+    mac = 16 if crossfade else 8
+    return bound(S * nb * B * 4 + h_numel * 8 + nb * 2 * n_fft * 4,
+                 S * nb * (fft_flops(n_fft) + 2 * F * mac)
+                 + nb * fft_flops(n_fft))
 
 
 def assembly_flops(table, n_fft: int) -> float:
@@ -318,11 +345,38 @@ def trajectory_dirs(nb: int):
                     axis=1).astype(np.float32)
 
 
+def b1_mode(plan, forced: bool) -> str:
+    """The buffer mode that a kernel with a cluster mode (B1's FFT
+    kernels, `assembly_mac`) runs at ``plan``."""
+    if forced or not (plan.register or plan.cluster):
+        return "split"
+    return "register" if plan.register else "cluster"
+
+
+@contextlib.contextmanager
+def forced_split(on: bool):
+    """The split buffer mode forced at any shape while ``on``
+    (`_layout.force_work`), the mode chosen from the shapes again after."""
+    from tinaural_torch.ops import _layout
+
+    _layout.force_work = _layout.SPLIT_WORK if on else 0
+    try:
+        yield
+    finally:
+        _layout.force_work = 0
+
+
 def check_kernels(table, S: int, nb: int, crossfade: bool, label: str,
-                  reps: int, dir_rate: int = 1) -> dict:
+                  reps: int, dir_rate: int = 1, flush: bool = False,
+                  forced: bool = False, min_fp64: float | None = None
+                  ) -> dict:
     """Each kernel against its plain version on the same inputs, with one
     filter per group of ``dir_rate`` blocks: the snapped track's rows
-    [::dir_rate]."""
+    [::dir_rate]; each FFT kernel equal in bits over two calls and
+    naming its buffer mode. ``flush``: each timed call after `l2_flush`,
+    and the FFT kernels' device ms a call taken in phase 5; ``forced``:
+    the split mode forced at any shape; ``min_fp64``: the SNR each FFT
+    kernel must reach against plain fp64."""
     import numpy as np
     import torch
 
@@ -330,6 +384,7 @@ def check_kernels(table, S: int, nb: int, crossfade: bool, label: str,
     from tinaural_torch.models.renderer import (_group_dirs, _n_fft,
                                                 _neighbours)
     from tinaural_torch.ops import block_render as br
+    from tinaural_torch.ops.render_plan import filters_plan, mix_plan
 
     dev = table.device
     n_fft = _n_fft(table, B)
@@ -346,40 +401,67 @@ def check_kernels(table, S: int, nb: int, crossfade: bool, label: str,
                        device=dev)
     flags = dict(apply_itd=True, apply_ild=True)
     mix = dict(crossfade=crossfade, dir_rate=dir_rate)
+    modes = {"assemble_filters": b1_mode(filters_plan(table.taps, n_fft),
+                                         forced),
+             "block_spectra_mix_inverse": b1_mode(mix_plan(n_fft), forced)}
+    fl = l2_flush(dev) if flush else None
 
-    H = br.assemble_filters_cuda(idx, w, table, n_fft, **flags)
+    def assemble():
+        with forced_split(forced):
+            return br.assemble_filters_cuda(idx, w, table, n_fft, **flags)
+
+    def mixdown(H):
+        with forced_split(forced):
+            return br.block_spectra_mix_inverse_cuda(xbs, H, n_fft, **mix)
+
+    H = assemble()
     H_ref = br.assemble_filters_reference(idx, w, table, n_fft, **flags)
     H_64 = br.assemble_filters_reference(idx, w.double(), table, n_fft, **flags)
-    frames = br.block_spectra_mix_inverse_cuda(xbs, H, n_fft, **mix)
+    frames = mixdown(H)
     frames_ref = br.block_spectra_mix_inverse_reference(xbs, H, n_fft, **mix)
     out = br.overlap_add_cuda(frames[None], B)[0]
     out_ref = br.overlap_add(frames.transpose(0, 1), B)
     torch.cuda.synchronize()
+    require(torch.equal(H, assemble()) and torch.equal(frames, mixdown(H)),
+            f"[{label}] B1's FFT kernels: two calls differ")
 
     res = {}
-    for name, got, ref, kern, plain in (
-            ("assemble_filters", H, H_ref,
-             lambda: br.assemble_filters_cuda(idx, w, table, n_fft, **flags),
+    for name, got, ref, kern, plain, fl_ in (
+            ("assemble_filters", H, H_ref, assemble,
              lambda: br.assemble_filters_reference(idx, w, table, n_fft,
-                                                   **flags)),
+                                                   **flags), fl),
             ("block_spectra_mix_inverse", frames, frames_ref,
-             lambda: br.block_spectra_mix_inverse_cuda(xbs, H, n_fft, **mix),
+             lambda: mixdown(H),
              lambda: br.block_spectra_mix_inverse_reference(xbs, H, n_fft,
-                                                            **mix)),
+                                                            **mix), fl),
             ("overlap_add", out, out_ref,
              lambda: br.overlap_add_cuda(frames[None], B),
-             lambda: br.overlap_add(frames.transpose(0, 1), B))):
+             lambda: br.overlap_add(frames.transpose(0, 1), B), None)):
         require(bool(torch.isfinite(torch.view_as_real(got) if got.is_complex()
                                     else got).all()), f"{name} not finite")
         s = snr_db(ref, got)
         res[name] = {"snr_db": s, "max_abs_err": max_abs(ref, got),
-                     "ms": cuda_ms(kern, reps), "plain_ms": cuda_ms(plain, reps)}
+                     "ms": cuda_ms(kern, reps, fl_),
+                     "plain_ms": cuda_ms(plain, reps, fl_)}
+        if name in modes:
+            res[name].update(mode=modes[name], n_fft=n_fft, taps=table.taps,
+                             l2_flushed=flush,
+                             rows=(S * -(-nb // dir_rate)
+                                   if name == "assemble_filters" else nb))
         print(f"[{label} S={S} nb={nb} crossfade={crossfade} "
-              f"dir_rate={dir_rate}] {name}: "
-              f"SNR {s:.2f} dB vs plain fp32, max abs err "
+              f"dir_rate={dir_rate}] {name}"
+              + (f" ({modes[name]} mode)" if name in modes else "")
+              + f": SNR {s:.2f} dB vs plain fp32, max abs err "
               f"{res[name]['max_abs_err']:.3e}, kernel {res[name]['ms']:.4f} ms,"
-              f" plain {res[name]['plain_ms']:.4f} ms", flush=True)
+              f" plain {res[name]['plain_ms']:.4f} ms"
+              + (", L2 flushed" if fl_ else ""), flush=True)
         require(s >= KERNEL_SNR_DB, f"{name} SNR {s:.2f} < {KERNEL_SNR_DB} dB")
+        if flush and name in modes:
+            res[name]["device_ms"] = "not measured"
+            KERNEL_PROFILES.append((f"{label} ({modes[name]} mode)",
+                                    res[name], "device_ms",
+                                    lambda kern=kern: (fl(), kern()), None,
+                                    name))
     frames_64 = br.block_spectra_mix_inverse_reference(
         xbs.double(), H.to(torch.complex128), n_fft, **mix)
     for name, ref64, got, plain in (
@@ -387,14 +469,15 @@ def check_kernels(table, S: int, nb: int, crossfade: bool, label: str,
             ("block_spectra_mix_inverse", frames_64, frames, frames_ref)):
         res[name]["snr_fp64_db"] = snr_db(ref64, got)
         print(f"[{label}] {name}: SNR {res[name]['snr_fp64_db']:.2f} dB vs "
-              f"plain fp64 (plain fp32: {snr_db(ref64, plain):.2f} dB)",
-              flush=True)
-    F = n_fft // 2 + 1
-    mac = 16 if crossfade else 8
+              f"plain fp64 (plain fp32: {snr_db(ref64, plain):.2f} dB), "
+              "equal in bits over two calls", flush=True)
+        if min_fp64 is not None:
+            require(res[name]["snr_fp64_db"] >= min_fp64,
+                    f"[{label}] {name}: SNR {res[name]['snr_fp64_db']:.2f} < "
+                    f"{min_fp64} dB vs plain fp64")
     res["assemble_filters"].update(assembly_work(table, idx, n_fft))
-    res["block_spectra_mix_inverse"].update(bound(
-        S * nb * B * 4 + H.numel() * 8 + nb * 2 * n_fft * 4,
-        S * nb * (fft_flops(n_fft) + 2 * F * mac) + nb * fft_flops(n_fft)))
+    res["block_spectra_mix_inverse"].update(
+        mix_work(S, nb, B, n_fft, H.numel(), crossfade))
     require(torch.equal(out, out_ref), f"[{label}] overlap_add differs "
             "in bits from the plain version")
     res["overlap_add"].update(ola_work(1, nb, B, n_fft),
@@ -433,6 +516,11 @@ STEP_COUNTS = {"assemble_filters": 1, "block_spectra": 1,
 MIX_COUNTS = {"assemble_filters": 1, "block_spectra_mix": 1,
               "spectra_inverse": 1, "overlap_add": 1}
 MAC_COUNTS = {"assembly_mac": 1, "spectra_inverse": 1, "overlap_add": 1}
+# a B1 FFT kernel check's fields in the kernels line, at the cluster and
+# forced split shapes
+B1_FIELDS = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+             "snr_db", "snr_fp64_db", "mode", "device_ms", "rows", "n_fft",
+             "taps", "l2_flushed")
 # an assembly_mac check's fields in the kernels line
 MAC_FIELDS = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
               "snr_db", "snr_fp64_db", "run", "mode", "device_ms", "rows",
@@ -506,6 +594,24 @@ def check_render(name: str, public_call, core_call, audio_sec: float,
 
 
 
+def scene_reference_chunked(table, xbs, dirs, cfg, chunk: int):
+    """The moving scene core's float64 plain path (B1's) over ``chunk``
+    sources at a time, the chunks' mixdowns summed in order: the map is
+    linear over sources, and a chunk's float64 filters take 1/chunk of the
+    whole scene's memory (16,384 rows at n_fft 32768 would take ~8.6 GB a
+    complex128 array)."""
+    from tinaural_torch.models.renderer import _scene_core
+    from tinaural_torch.ops import block_render as br
+
+    out = None
+    for s0 in range(0, xbs.shape[0], chunk):
+        y = _scene_core(table, xbs[s0:s0 + chunk].double(),
+                        dirs[s0:s0 + chunk], cfg,
+                        render=br.block_render_reference)
+        out = y if out is None else out + y
+    return out
+
+
 # (name, result, core call) of each block render, profiled once all renders
 # are timed, so that no trace runs between two timings
 TO_PROFILE = []
@@ -515,21 +621,34 @@ def profile_renders() -> None:
     """Each block render's core in a torch.profiler window: device busy
     time, idle share against its CUDA-event time, and the device time of
     its largest kernels, added to its result. A trace can come back
-    missing device events, so one counts only when it holds every kernel
-    the render launched; after three that do not, "not measured". A
-    serving burst's CUDA-event time is its time per block × K."""
+    missing device records, so the first of up to three that holds each of
+    the port's kernels as often as the render launched it counts; else the
+    last that holds each of them at all, its records of each beside its
+    launches under ``traced_launches``; else "not measured". A serving
+    burst's CUDA-event time is its time per block × K."""
     for name, res, fn in TO_PROFILE:
         event_ms = res.get("kernel_ms") or res["kernel_ms_per_block"] * res["K"]
-        want = {f"{k}_kernel" for k in res["launches"]}
+        want = {f"{k}_kernel": n for k, n in res["launches"].items()}
+        kept = None
         for _ in range(3):
-            busy, by_kernel = device_breakdown(fn)
-            if want <= by_kernel.keys():
-                break
-        else:
+            busy, by_kernel, count = device_breakdown(fn)
+            if want.keys() <= by_kernel.keys():
+                kept = busy, by_kernel, count
+                if all(count[k] == n for k, n in want.items()):
+                    break
+        if kept is None:
             res["device_busy_ms"] = "not measured"
             print(f"[profile {name}] incomplete traces: not measured",
                   flush=True)
             continue
+        busy, by_kernel, count = kept
+        short = {k: f"{count[k]} of {n}" for k, n in want.items()
+                 if count[k] != n}
+        if short:
+            res["traced_launches"] = short
+            print(f"[profile {name}] records of launches in the trace: "
+                  + ", ".join(f"{k} {v}" for k, v in short.items()),
+                  flush=True)
         top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6])
         top.update({k: by_kernel[k] for k in want})  # the port's, always
         res.update(device_busy_ms=busy, device_ms_by_kernel=top,
@@ -540,19 +659,24 @@ def profile_renders() -> None:
               flush=True)
 
 
-def device_breakdown(fn) -> tuple[float, dict]:
+def device_breakdown(fn) -> tuple[float, dict, dict]:
     """Device time of one call of fn from a torch.profiler trace: the sum
-    of all kernel and copy times, and the time by name (kernel names cut
-    to their function)."""
+    of all kernel and copy times, the time by name (kernel names cut to
+    their function) and the records by name. The call sits between runs of
+    `PAD` spin kernels, left out of the sums (see `kernel_device_ms`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(PAD):
+            torch.cuda._sleep(PAD_CYCLES)
         fn()
+        for _ in range(PAD):
+            torch.cuda._sleep(PAD_CYCLES)
         torch.cuda.synchronize()
-    by = {}
+    by, count = {}, {}
     for e in prof.events():
         # a user annotation (the optimizer's step) is a range over kernels
         # on the device's timeline, not work of its own
@@ -561,8 +685,11 @@ def device_breakdown(fn) -> tuple[float, dict]:
             name = e.name.replace("(anonymous namespace)::", "")
             name = name.removeprefix("void ").split("(")[0].split("<")[0]
             name = name.split("::")[-1].strip()
+            if name == "spin_kernel":
+                continue
             by[name] = by.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
-    return sum(by.values()), by
+            count[name] = count.get(name, 0) + 1
+    return sum(by.values()), by, count
 
 
 # (dir_rate 4 render, its dir_rate 1 counterpart, the assembly kernel):
@@ -846,22 +973,48 @@ def profile_kernels() -> None:
 
 
 def kernel_device_ms(fn, kernel: str, calls: int = 10):
-    """Device time of ``kernel`` per call of fn, from one torch.profiler
-    trace of ``calls`` calls; "not measured" where the trace holds none
-    of it."""
+    """Device time of ``kernel`` per call of fn (which launches it once):
+    the mean over a torch.profiler trace of ``calls`` calls that holds
+    every one of them; up to three traces, then "not measured". The calls
+    sit between runs of `PAD` spin kernels inside the trace, so that device
+    records lost at a trace's edges are the spins' and not the measured
+    kernel's; a short trace prints the order of its device records (K the
+    kernel, p a spin, . another kernel) and the kernel's raw count."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and kernel in e.name]
-    return sum(us) / calls / 1e3 if len(us) == calls else "not measured"
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PAD):
+                torch.cuda._sleep(PAD_CYCLES)
+            for _ in range(calls):
+                fn()
+            for _ in range(PAD):
+                torch.cuda._sleep(PAD_CYCLES)
+            torch.cuda.synchronize()
+        dev = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        us = [e.time_range.elapsed_us() for e in dev if kernel in e.name]
+        if len(us) == calls:
+            return sum(us) / calls / 1e3
+        raw = sum(kernel in e.name() for e in
+                  prof.profiler.kineto_results.events()
+                  if e.device_type() == torch.autograd.DeviceType.CUDA)
+        print(f"[profile] {kernel}: {len(us)} of {calls} launches in the "
+              f"trace ({raw} raw): " + "".join(
+                  "K" if kernel in e.name else
+                  "p" if "spin_kernel" in e.name else "." for e in dev),
+              flush=True)
+    return "not measured"
+
+
+# spin kernels of PAD_CYCLES clock cycles (~50 µs each at 1.98 GHz) before
+# and after a kernel_device_ms trace's calls: 8 of ~5 µs each lost up to 11
+# records at one edge of a trace on an H100 (the kernel's among them)
+PAD, PAD_CYCLES = 32, 100_000
 
 
 # (label, table's taps, rows, B) of assemble_partitions' launches on the
@@ -1377,9 +1530,9 @@ def check_assembly_mac(table, S: int, nb: int, label: str, reps: int,
     Xu, Xd = am._input_spectra(xbs, n_fft, True)
     first = am._first_rows(S, nb, table.device)
     plan = mac_plan(table.taps, n_fft)
-    mode = ("split" if forced or not (plan.register or plan.cluster)
-            else "register" if plan.register else "cluster")
-    slots = (am.cluster_slots(table.device, n_fft) if mode == "cluster"
+    mode = b1_mode(plan, forced)
+    slots = (_layout.cluster_slots(table.device, "tt_assembly_mac_clusters",
+                                   n_fft) if mode == "cluster"
              else _layout.sm_count(table.device) * plan.blocks_per_sm)
     run = am.run_length(rows, slots)
     shape = (f"clusters of {plan.ranks} × {plan.threads} threads, {slots} "
@@ -1392,12 +1545,9 @@ def check_assembly_mac(table, S: int, nb: int, label: str, reps: int,
     fl = l2_flush(table.device) if flush else None
 
     def kern(cf: bool = True):
-        _layout.force_work = _layout.SPLIT_WORK if forced else 0
-        try:
+        with forced_split(forced):
             return am.assembly_mac_cuda(idx, w, table, Xu, Xd, first, n_fft,
                                         crossfade=cf, **PART_FLAGS)
-        finally:
-            _layout.force_work = 0
 
     for name, cf in (("assembly_mac", True),
                      ("assembly_mac_no_crossfade", False)):
@@ -1649,7 +1799,8 @@ def check_latency(table, n: int, launches_total: dict) -> dict:
         t0 = time.perf_counter()
         s.push(x[i], float(azs[i]), 0.0).cpu()
         walls.append((time.perf_counter() - t0) * 1e3)
-    busy, by = device_breakdown(lambda: pushes(tt.Stream(table, cfg), True))
+    busy, by, _ = device_breakdown(
+        lambda: pushes(tt.Stream(table, cfg), True))
     dev_ms = busy / n
     res = {"snr_db_vs_plain_fp64": s64, "pushes": n, "launches": counts,
            "wall_ms_per_push_median": float(np.median(walls)),
@@ -2460,7 +2611,8 @@ def main() -> int:
     import numpy as np
 
     import tinaural_torch as tt
-    from tinaural_torch.models.renderer import (_partitioned_core,
+    from tinaural_torch.models.renderer import (_neighbours,
+                                                _partitioned_core,
                                                 _scene_core,
                                                 _scene_static_core,
                                                 _snap_dirs, _trajectory_core)
@@ -2469,6 +2621,7 @@ def main() -> int:
     from tinaural_torch.ops import block_render as br
     from tinaural_torch.ops import block_step as bs
     from tinaural_torch.ops import partitioned_conv as pc
+    from tinaural_torch.ops.render_plan import filters_plan, mix_plan
 
     # 1. device
     card = card_line()
@@ -2509,16 +2662,35 @@ def main() -> int:
     check_kernels(table, 64, 128, False, "static scene", reps=5)
     # render (m)'s shape: 16 sources × 1024 blocks
     k_m = check_kernels(table, 16, 1024, True, "m scene", reps=5)
-    # B1's split mode, at the 16,384-tap table's n_fft 32768: (j)'s 128
-    # rows
-    k_split = check_kernels(long_traj, 1, 128, True, "split n_fft 32768",
-                            reps=2)
+    # B1's cluster mode at the 16,384-tap table's n_fft 32768: (j)'s 128
+    # rows (clusters of 2), the same with the split mode forced, and 64
+    # rows × 44,100 taps at 65536 (clusters of 4), each timed call after
+    # an L2 flush, ≥ 100 dB against plain fp64
+    k_cl = check_kernels(long_traj, 1, 128, True, "cluster n_fft 32768",
+                         reps=5, flush=True, min_fp64=KERNEL_SNR_DB)
+    k_split = check_kernels(long_traj, 1, 128, True,
+                            "split n_fft 32768 forced", reps=2, flush=True,
+                            forced=True, min_fp64=KERNEL_SNR_DB)
+    k_cl65 = check_kernels(long_streamed, 1, 64, True, "cluster n_fft 65536",
+                           reps=5, flush=True, min_fp64=KERNEL_SNR_DB)
     # the dir_rate path: one filter per group of 4 blocks, at (a4)'s shape
-    # and in the split mode (8 filters for 30 blocks)
+    # and in the cluster mode (8 filters for 30 blocks)
     k_traj4 = check_kernels(table, 1, 8192, True, "trajectory dir_rate 4",
                             reps=5, dir_rate=4)
-    check_kernels(long_traj, 1, 30, True, "split n_fft 32768 dir_rate 4",
-                  reps=2, dir_rate=4)
+    k_cl4 = check_kernels(long_traj, 1, 30, True,
+                          "cluster n_fft 32768 dir_rate 4", reps=2,
+                          dir_rate=4, min_fp64=KERNEL_SNR_DB)
+    # the split mode's ⌊b/k⌋ row map and group-start predecessor, which
+    # n_fft above 131072 still takes
+    k_split4 = check_kernels(long_traj, 1, 30, True,
+                             "split n_fft 32768 forced dir_rate 4", reps=2,
+                             dir_rate=4, forced=True, min_fp64=KERNEL_SNR_DB)
+    for res, want in ((k_cl, "cluster"), (k_split, "split"),
+                      (k_cl65, "cluster"), (k_cl4, "cluster"),
+                      (k_split4, "split")):
+        for name in ("assemble_filters", "block_spectra_mix_inverse"):
+            require(res[name]["mode"] == want, f"{name} ran the "
+                    f"{res[name]['mode']} mode, want {want}")
 
     # 3b. the partitioned-convolution kernels against their plain versions
     k_serve = check_stream_kernels(table, 1024, 256, "stream 128 taps P=1",
@@ -2683,6 +2855,40 @@ def main() -> int:
         other_routes={"scene_step_render": lambda: _scene_core(
             table, xbs_m, dm_t, cfg, render=bs.scene_step_render)})
 
+    # (n): a moving scene of 64 sources × 2^18 samples at 16,384 taps:
+    # 256 blocks, more than the SMs, so B1's route at n_fft 32768, both
+    # FFT kernels in the cluster mode (16,384 filter rows, H 4.3 GB)
+    require(filters_plan(long_traj.taps, 1 << 15).cluster
+            and mix_plan(1 << 15).cluster, "(n)'s shapes leave the cluster mode")
+    rng_n = np.random.default_rng(3)
+    S, N = 64, 1 << 18
+    xs_n = rng_n.standard_normal((S, N)).astype(np.float32)
+    dn = np.stack([rng_n.uniform(0, 360, (S, N // B)),
+                   rng_n.uniform(-40, 90, (S, N // B))], -1).astype(np.float32)
+    xbs_n = torch.tensor(xs_n.reshape(S, -1, B), device=dev)
+    dn_t = torch.tensor(dn, device=dev)
+    rn = tt.BinauralRenderer(long_traj, cfg)
+    renders["n_scene_moving_16384_taps"] = check_render(
+        "n scene 64 moving 2^18 16384 taps",
+        lambda: rn.render_scene(xs_n, dn),
+        lambda plain, dt: _scene_core(long_traj, xbs_n.to(dt), dn_t, cfg,
+                                      render=block_op(plain)),
+        S * N / SR, B1_COUNTS, launches, reps=3, min_snr=NEW_RENDER_SNR_DB,
+        ref=lambda: scene_reference_chunked(long_traj, xbs_n, dn_t, cfg, 8))
+    # (n)'s bound, from its inputs: each kernel's bytes and operations
+    nb_n, n_n = N // B, 1 << 15
+    idx_n, _ = _neighbours(long_traj, dn_t, cfg)
+    bounds_n = {"assemble_filters": assembly_work(long_traj, idx_n, n_n),
+                "block_spectra_mix_inverse": mix_work(
+                    S, nb_n, B, n_n, S * nb_n * 2 * (n_n // 2 + 1),
+                    cfg.crossfade),
+                "overlap_add": ola_work(1, nb_n, B, n_n)}
+    renders["n_scene_moving_16384_taps"]["bounds"] = bounds_n
+    print("[render n scene 64 moving 2^18 16384 taps] bounds: " + ", ".join(
+        f"{k} {v['bound_ms']:.4f} ms ({v['bound_by']})"
+        for k, v in bounds_n.items()) + f"; the render "
+        f"{sum(v['bound_ms'] for v in bounds_n.values()):.4f} ms", flush=True)
+
     # 4b. the streaming and partitioned renders
     renders["d_serving"] = check_serving("d serving", table, 1024, 32, 1,
                                          launches, reps=3)
@@ -2772,14 +2978,20 @@ def main() -> int:
         **({"also_replaces": [f"{PALLAS}:{FUSED_BLOCK_STEP}",
                               f"{PALLAS}:{FUSED_BLOCK_STEP_MIX}"]}
            if name == "assemble_filters" else {}),
-        **({"split_n_fft_32768": {
-                **{f: k_split[name][f] for f in (
-                    "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
-                    "snr_db", "snr_fp64_db")},
-                "rows": 128,
-                "j_route_device_ms": render_ms(
-                    ("j_long", "trajectory_16384_taps", "block_render_route"),
-                    name)}}
+        **({"cluster_shapes": {key: {f: m[name].get(f) for f in B1_FIELDS}
+                               for key, m in (("j_n_fft_32768", k_cl),
+                                              ("n_fft_65536", k_cl65),
+                                              ("j_split_forced", k_split),
+                                              ("j_dir_rate_4", k_cl4),
+                                              ("j_dir_rate_4_split_forced",
+                                               k_split4))},
+            "j_route_device_ms": render_ms(
+                ("j_long", "trajectory_16384_taps", "block_render_route"),
+                name),
+            "n_render_device_ms": render_ms("n_scene_moving_16384_taps",
+                                            name),
+            "n_render_bound_ms": renders["n_scene_moving_16384_taps"][
+                "bounds"][name]["bound_ms"]}
            if name != "overlap_add" else {}),
         **({"body": k_traj[name]["body"],
             "shapes": {key: {f: m.get(f) for f in (

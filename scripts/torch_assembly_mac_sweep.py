@@ -27,7 +27,7 @@ import torch
 import tinaural_torch as tt
 from tinaural_torch.config import RenderConfig
 from tinaural_torch.models.renderer import _neighbours
-from tinaural_torch.ops import _build
+from tinaural_torch.ops import _build, _layout
 from tinaural_torch.ops import assembly_mac as am
 
 FLAGS = dict(apply_itd=True, apply_ild=True)
@@ -89,7 +89,7 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     tables = {taps: tt.TorchTable.from_hrir_table(
         tt.load_hrir_set("synthetic", taps=taps), dev) for taps in (128, 2048)}
-    waves = args.waves or [getattr(am, "RUN_WAVES", None)]
+    waves = args.waves or [_layout.RUN_WAVES]
     for name, taps, rows, cf in (("k", 2048, 8192, True),
                                  ("k_no_crossfade", 2048, 8192, False),
                                  ("l", 128, 4096, True)):
@@ -106,7 +106,7 @@ def main() -> None:
                "snr_db": snr_db(Y64, kern())}
         for wv in waves:
             if wv is not None:
-                am.RUN_WAVES = wv
+                _layout.RUN_WAVES = wv
             rec[f"ms_waves_{wv}"] = cuda_ms(kern, args.reps)
         print(json.dumps(rec), flush=True)
     # correctness at the larger shared plans

@@ -40,7 +40,8 @@ from tinaural_torch.ops.ola import overlap_add
 from tinaural_torch.ops.render_plan import (FILTERS_SPLIT_THREADS,
                                             MIX_SPLIT_THREADS, filters_plan,
                                             mix_groups, mix_plan)
-from tinaural_torch.ops.spectra_inverse import MAX_REGISTER_N, twiddles
+from tinaural_torch.ops.spectra_inverse import (MAX_CLUSTER_N,
+                                                MAX_REGISTER_N, twiddles)
 
 torch.set_num_threads(1)
 
@@ -61,20 +62,29 @@ def _compiled_min_blocks(threads: int) -> int:
 def test_filters_and_mix_plans(log2n):
     """Both plans match the compiled constants and fit the H100's shared
     memory exactly up to n_fft 16384, where the layout takes the shared
-    mode; above, the split mode's radix-2 launch."""
+    mode; from 32768 to 131072 the cluster mode's share (the filters' only
+    where L == n_fft); above, and for the filters' shorter L, the split
+    mode's radix-2 launch."""
     n = 1 << log2n
     register = n <= MAX_REGISTER_N
+    clusters = MAX_REGISTER_N < n <= MAX_CLUSTER_N
     for taps in {1, n // 2 - DELAY_PAD + 1, n - DELAY_PAD}:
         p = filters_plan(taps, n)
         assert (p.taps, p.n, p.t_pad) == (taps, n, taps + DELAY_PAD)
         assert p.L == 1 << (taps + DELAY_PAD - 1).bit_length() <= n
         assert p.register == register
+        assert p.cluster == (clusters and p.L == n)
         fits = p.shared_f2 * 8 + _layout._STATIC_SMEM <= H100_SHARED_BYTES
-        assert fits == register
+        assert fits == (register or p.cluster)
         assert _layout.split_work(p.shared_f2, n, H100_SHARED_BYTES) == (
-            0 if register else _layout.SPLIT_WORK)
+            0 if fits else _layout.SPLIT_WORK)
         assert p.scratch_f2 == n + 2 * p.L
-        if register:
+        if p.cluster:
+            assert p.ranks == n // MAX_REGISTER_N
+            assert (p.threads, p.rows_per_block, p.blocks_per_sm) == (
+                1024, 1, 1)
+            assert p.shared_f2 == MAX_REGISTER_N + MAX_REGISTER_N // 16
+        elif register:
             radices, threads, _ = _compiled_plan(n)
             assert p.radices_n == radices
             assert p.radices_L == _compiled_plan(p.L)[0]
@@ -93,10 +103,15 @@ def test_filters_and_mix_plans(log2n):
             assert (p.threads, p.rows_per_block) == (FILTERS_SPLIT_THREADS, 1)
     m = mix_plan(n)
     assert m.register == register
+    assert m.cluster == clusters
     fits = m.group_f2 * 8 + _layout._STATIC_SMEM <= H100_SHARED_BYTES
-    assert fits == register
+    assert fits == (register or clusters)
     assert m.scratch_f2 == n + 2 * (n // 2 + 1)
-    if register:
+    if clusters:
+        assert m.ranks == n // MAX_REGISTER_N
+        assert (m.threads, m.max_groups, m.blocks_per_sm) == (1024, 1, 1)
+        assert m.group_f2 == MAX_REGISTER_N + MAX_REGISTER_N // 16
+    elif register:
         radices, threads, _ = _compiled_plan(n)
         assert (m.radices, m.threads) == (radices, threads)
         # mix_group_f2, mix_max_groups and mix_min_blocks: the

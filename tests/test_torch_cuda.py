@@ -9,7 +9,10 @@ version at B 1 … 2048 and k 2, 4 and 32 on its vector and scalar bodies
 (a frames view off alignment) and under a refused plan, the scene
 mixdown's `block_spectra_mix` with the summing `spectra_inverse`, the
 natural-order `assembly_mac` (its register plans, and its cluster mode at
-n_fft 32768, 65536 and 131072), `spectra_inverse` alone at every FFT
+n_fft 32768, 65536 and 131072), B1's `assemble_filters` and
+`block_spectra_mix_inverse` in their cluster mode at the same sizes
+(dir_rate 1, 2 and 4, equal in bits over two calls, under a refused plan
+and forced back to the split mode), `spectra_inverse` alone at every FFT
 size, and `assemble_partitions`' register body at every (L, B) pair with
 its refusal of another plan; each family again in the split buffer mode, forced at small shapes,
 and at the sizes that need it (a 44,100-tap `render_streamed`, a
@@ -18,7 +21,7 @@ and at the sizes that need it (a 44,100-tap `render_streamed`, a
 to the split mode; and the dir_rate row map (one filter per group of k
 blocks) of B1's, the block step's, the scene mixdown's and the
 partitioned kernels at k = 2, 4 and 8, nb no multiple of k, in chunks,
-in B1's split mode at n_fft 32768 and `assemble_partitions`' cluster
+in B1's cluster mode at n_fft 32768 and `assemble_partitions`' cluster
 mode, each against the float64 plain path at k = 1 on the snapped
 track; the CLI's `render` and `sweep` on the card (their launches, and
 within 1 int16 LSB of the API); `fit`'s step and loop on CUDA tensors
@@ -185,14 +188,17 @@ def test_block_render_register_kernels_every_size(log2n):
 
 @pytest.mark.gpu
 def test_block_render_at_the_mode_boundary(long_tables):
-    """n_fft 16384, the largest register plan, and 32768, the split mode,
-    on the same table, rows and blocks: both kernels and the whole render
-    against the float64 plain version."""
+    """n_fft 16384, the largest register plan, and 32768 (L = 4096 < n:
+    `assemble_filters` in the split mode, `block_spectra_mix_inverse` in
+    the cluster mode) on the same table, rows and blocks: both kernels and
+    the whole render against the float64 plain version."""
     t = long_tables[2048]
     xbs, idx, w = _inputs(t, 2, 6, seed=11)
     for n in (16384, 32768):
         assert filters_plan(t.taps, n).register == (n == 16384)
+        assert not filters_plan(t.taps, n).cluster
         assert mix_plan(n).register == (n == 16384)
+        assert mix_plan(n).cluster == (n == 32768)
         H = br.assemble_filters_cuda(idx, w, t, n, **FLAGS)
         H64 = br.assemble_filters_reference(idx, w.double(), t, n, **FLAGS)
         assert _snr_db(H64, H) >= 100, n
@@ -248,6 +254,112 @@ def test_block_render_kernels_reject_bad_inputs(table):
         br.assemble_filters_cuda(idx, w, table, 96, **FLAGS)
     with pytest.raises(ValueError):
         br.assemble_filters_cuda(idx.cpu(), w, table, n_fft, **FLAGS)
+
+
+# ------------------------------------------------------ B1's cluster mode
+
+
+def _cluster_rows(long_tables, taps, S, nb, k, seed):
+    """(S, nb, B) blocks and ⌈nb/k⌉ rows a source on the synthetic table
+    of ``taps`` taps, or at 70,000 taps on a random table whose delays
+    and weights are exact in float32 (`_exact_delay_inputs`)."""
+    if taps != 70000:
+        return (long_tables[taps], *_group_rows(long_tables[taps], S, nb, k,
+                                                seed))
+    fnb = br.filter_rows(nb, k)
+    dev = long_tables[128].device
+    t, idx, w = _exact_delay_inputs(taps, S * fnb, seed, dev)
+    xbs = _inputs(long_tables[128], S, nb, seed)[0]
+    return t, xbs, idx.reshape(S, fnb, 4), w.reshape(S, fnb, 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("taps,n_fft,S,nb,crossfade,k", [
+    (16384, 32768, 1, 128, True, 1), (16384, 32768, 3, 21, True, 4),
+    (16384, 32768, 2, 13, False, 1), (16384, 32768, 4, 9, True, 2),
+    (44100, 65536, 2, 9, True, 1), (44100, 65536, 3, 13, True, 4),
+    (44100, 65536, 2, 5, False, 4), (70000, 131072, 2, 5, True, 1)])
+def test_block_render_cluster_mode_matches_plain(long_tables, taps, n_fft, S,
+                                                 nb, crossfade, k):
+    """B1's two FFT kernels in the cluster mode (n_fft = L 32768, 65536
+    and 131072: clusters of 2, 4 and 8), at dir_rate 1, 2 and 4 with nb no
+    multiple of k: `assemble_filters` on ⌈nb/k⌉ rows a source against its
+    float64 plain version, `block_spectra_mix_inverse` on those filters
+    against its float64 plain version, each ≥ 100 dB and equal in bits
+    over two calls, then the route against the float64 plain path with
+    one launch of each kernel."""
+    t, xbs, idx, w = _cluster_rows(long_tables, taps, S, nb, k,
+                                   seed=taps + S * 100 + nb + k)
+    assert filters_plan(t.taps, n_fft).cluster and mix_plan(n_fft).cluster
+    assert _n_fft(t, B) == n_fft
+    H = br.assemble_filters_cuda(idx, w, t, n_fft, **FLAGS)
+    H64 = br.assemble_filters_reference(idx, w.double(), t, n_fft, **FLAGS)
+    assert _snr_db(H64, H) >= 100
+    assert torch.equal(H, br.assemble_filters_cuda(idx, w, t, n_fft, **FLAGS))
+    mix = dict(crossfade=crossfade, dir_rate=k)
+    frames = br.block_spectra_mix_inverse_cuda(xbs, H, n_fft, **mix)
+    f64 = br.block_spectra_mix_inverse_reference(
+        xbs.double(), H.to(torch.complex128), n_fft, **mix)
+    assert _snr_db(f64, frames) >= 100
+    assert torch.equal(frames, br.block_spectra_mix_inverse_cuda(
+        xbs, H, n_fft, **mix))
+    before = dict(br.launches)
+    y = br.block_render(xbs, idx, w, t, n_fft, **mix, **FLAGS)
+    torch.cuda.synchronize()
+    assert all(br.launches[n] == before[n] + 1 for n in br.KERNELS)
+    y64 = br.block_render_reference(xbs.double(), idx, w, t, n_fft, **mix,
+                                    **FLAGS)
+    assert _snr_db(y64, y) >= 100
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("taps,n_fft", [(16384, 32768), (44100, 65536)])
+def test_block_render_forced_split_at_cluster_sizes(long_tables, monkeypatch,
+                                                    taps, n_fft):
+    """force_work still takes the split mode where B1's cluster mode would
+    run: both kernels against their float64 plain versions, at dir_rate 1
+    and 4."""
+    monkeypatch.setattr(_layout, "force_work", _layout.SPLIT_WORK)
+    for k in (1, 4):
+        t, xbs, idx, w = _cluster_rows(long_tables, taps, 2, 9, k, seed=k)
+        H = br.assemble_filters_cuda(idx, w, t, n_fft, **FLAGS)
+        H64 = br.assemble_filters_reference(idx, w.double(), t, n_fft,
+                                            **FLAGS)
+        assert _snr_db(H64, H) >= 100, k
+        frames = br.block_spectra_mix_inverse_cuda(xbs, H, n_fft,
+                                                   crossfade=True, dir_rate=k)
+        f64 = br.block_spectra_mix_inverse_reference(
+            xbs.double(), H.to(torch.complex128), n_fft, crossfade=True,
+            dir_rate=k)
+        assert _snr_db(f64, frames) >= 100, k
+
+
+@pytest.mark.gpu
+def test_block_render_cluster_mode_refuses_another_plan(long_tables,
+                                                        monkeypatch):
+    """The cluster entry points take only the plans they were compiled
+    for: other ranks, threads, rows per block or blocks per SM raise, and
+    nothing is launched."""
+    t, xbs, idx, w = _cluster_rows(long_tables, 16384, 1, 4, 1, seed=5)
+    n_fft = _n_fft(t, B)
+    H = br.assemble_filters_cuda(idx, w, t, n_fft, **FLAGS)
+    plan, mplan = filters_plan(t.taps, n_fft), mix_plan(n_fft)
+    for wrong in (dict(ranks=4), dict(ranks=0), dict(threads=512),
+                  dict(rows_per_block=2), dict(blocks_per_sm=2)):
+        monkeypatch.setattr(br, "filters_plan", lambda taps, n, wrong=wrong:
+                            dataclasses.replace(plan, **wrong))
+        before = br.launches["assemble_filters"]
+        with pytest.raises(RuntimeError):
+            br.assemble_filters_cuda(idx, w, t, n_fft, **FLAGS)
+        assert br.launches["assemble_filters"] == before, wrong
+    for wrong in (dict(ranks=4), dict(ranks=0), dict(threads=512),
+                  dict(blocks_per_sm=2)):
+        monkeypatch.setattr(br, "mix_plan", lambda n, wrong=wrong:
+                            dataclasses.replace(mplan, **wrong))
+        before = br.launches["block_spectra_mix_inverse"]
+        with pytest.raises(RuntimeError):
+            br.block_spectra_mix_inverse_cuda(xbs, H, n_fft, crossfade=True)
+        assert br.launches["block_spectra_mix_inverse"] == before, wrong
 
 
 # ---------------------------------------------------------------- partitioned
@@ -1131,7 +1243,7 @@ def test_dir_rate_partitioned_matches_plain(cuda, monkeypatch, k, taps, B,
 @pytest.mark.gpu
 def test_dir_rate_above_shared_memory(table, long_tables, monkeypatch):
     """dir_rate 4, nb no multiple of 4, where the buffers leave shared
-    memory: B1's split mode at n_fft 32768 (16,384 taps) and
+    memory: B1's cluster mode at n_fft 32768 (16,384 taps) and
     `assemble_partitions`' cluster mode (44,100 taps) through the
     renderer's cores against the float64 plain path at dir_rate 1 on the
     snapped track; then B1, the block-step routes and the partitioned

@@ -62,15 +62,17 @@ def _constants() -> dict:
     for name in ("kRegMaxLog2N", "kClusterMaxLog2N", "kClusterThreads"):
         out[name] = int(re.search(rf"constexpr int {name} = (\d+);",
                                   fft).group(1))
-    # kMacPairs = (1 << kRegMaxLog2N) / 2; the share is RegPlan<14>::row_f2
-    assert re.search(r"constexpr int kMacPairs = \(1 << kRegMaxLog2N\) / 2;",
-                     mac)
+    # kClusterPairs = (1 << kRegMaxLog2N) / 2 (the pair exchange of
+    # fft_reg.cuh cluster_pairs); the share is RegPlan<14>::row_f2
+    assert re.search(r"constexpr int kClusterPairs = "
+                     r"\(1 << kRegMaxLog2N\) / 2;", fft)
+    assert "bin(kClusterPairs);  // n/2" in mac
     assert re.search(r"constexpr int kMacClusterShared = "
                      r"ClusterPlan<kRegMaxLog2N \+ 1>::share_f2;", mac)
     assert "static constexpr int share_f2 = Local::row_f2;" in fft
     assert "passes > 1 ? n + n / 16 : 0;" in fft
     M = 1 << out["kRegMaxLog2N"]
-    out["kMacPairs"] = M // 2
+    out["kClusterPairs"] = M // 2
     out["kMacClusterShared"] = M + M // 16
     # one block of kClusterThreads an SM, one cluster a run
     assert re.search(r"__launch_bounds__\(kClusterThreads, 1\)\n"
@@ -92,8 +94,8 @@ def test_cluster_plan_equals_the_cuda_constants(log2n):
     assert p.threads == c["kClusterThreads"] and p.blocks_per_sm == 1
     assert p.shared_f2 == c["kMacClusterShared"]
     assert p.shared_f2 * 8 == 139_264
-    assert 2 * c["kMacPairs"] + 2 <= p.shared_f2
-    assert p.ranks * c["kMacPairs"] == n // 2
+    assert 2 * c["kClusterPairs"] + 2 <= p.shared_f2
+    assert p.ranks * c["kClusterPairs"] == n // 2
     assert log2n <= c["kClusterMaxLog2N"] and MAX_CLUSTER_N == 1 << 17
     assert _layout.split_work(p.shared_f2, n, H100_SHARED_BYTES) == 0
     short = mac_plan(n // 2 - 64, n)  # L = n/2: the split mode

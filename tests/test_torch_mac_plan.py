@@ -116,8 +116,8 @@ def test_run_length_fills_the_concurrent_blocks():
                         (7, 396), (100, 1), (128, 66), (128, 30), (131, 66)):
         run = am.run_length(rows, slots)
         runs = -(-rows // run)
-        assert runs <= am.RUN_WAVES * slots
-        assert run == 1 or -(-rows // (run - 1)) > am.RUN_WAVES * slots
+        assert runs <= _layout.RUN_WAVES * slots
+        assert run == 1 or -(-rows // (run - 1)) > _layout.RUN_WAVES * slots
     assert am.run_length(128, 66) == 2 and am.run_length(128, 30) == 5
 
 

@@ -46,10 +46,35 @@
 // (ops/spectra_inverse.py `twiddles`), the ramp's taper from
 // ops/mac_plan.py `ramp_taper`: no block computes a twiddle.
 //
-// The split buffer mode (n_fft above 16384, or forced) keeps the radix-2
-// body: the effective-filter chain of common.cuh and fft_run over the
-// block's device scratch slice, 256 threads, the blocks walking the rows.
-// It shares the register kernel's name, so a profile names both alike.
+// The cluster buffer mode (n_fft = L 32768 … 131072; ops/render_plan.py
+// `filters_plan`, ops/_layout.py): a row's filter pair is 2·F complex64,
+// 262 KB at 32768, more than one block's shared memory, and the split
+// mode's radix-2 body took 0.86 ms of device time at render (j)'s 128 rows
+// × 16,384 taps on an H100, 50× its byte bound. Here one thread-block
+// cluster of C = n/16384 blocks (ranks) of 1024 threads takes a run of
+// rows (fft_reg.cuh ClusterPlan), each row as assembly_mac's cluster
+// kernel builds it without the MAC (assembly_stages.cuh cluster_spectrum):
+//   chain      cluster_filter: the gather straight into registers, rfft_L,
+//              the ramp exchange of bins q and L − q across ranks, the
+//              table-driven ramp and gain, irfft_L;
+//   rfft_n     h_eff truncated to t_pad, scaled by 1/L and conjugated in
+//              registers, then one cluster transform: the radix-C step,
+//              one DSMEM exchange, each rank's 16384-point register FFT;
+//   pairs      one exchange brings Z[q] and Z[n − q] of rank c's bins
+//              q = c·8192 … c·8192 + 8191 (the last rank also n/2) side
+//              by side; thread tid unpacks H0, H1 at q = c·8192 + tid +
+//              1024·i (i < 8) and writes both ears of H coalesced.
+// Runs of rows come from the clusters the card places at once
+// (cudaOccupancyMaxActiveClusters, tt_assemble_filters_clusters), as
+// assembly_mac's do: at (j)'s 128 rows, 66 clusters of 2 give runs of 2.
+// Twiddles come from host tables at n, L = n and 16384, the taper at L.
+//
+// The split buffer mode (n_fft above 131072, L < n_fft above 16384 — as at
+// block 1024 and 15,298 … 16,320 taps, n_fft 32768 with L 16384 —, or
+// forced) keeps the radix-2 body: the effective-filter chain of common.cuh
+// and fft_run over the block's device scratch slice, 256 threads, the
+// blocks walking the rows. Both other modes share the register kernel's
+// name, so a profile names all three alike.
 
 #include "assembly_stages.cuh"
 
@@ -83,9 +108,11 @@ struct FilterArgs {
   float2* H;             // (rows, 2, F)
   const float2* twL;     // exp(+2πi·m/L), m < L
   const float2* twN;     // exp(+2πi·m/n), m < n
+  const float2* twM;     // exp(+2πi·m/16384), m < 16384 (cluster mode)
   const float* taper;    // the ramp's taper w at bins 0 … L/2
   AssemblyParams p;
   int rows;
+  int run;  // rows per cluster (cluster mode)
 };
 
 // The shared buffer mode: G rows per block of T = n/16 threads; see the
@@ -178,6 +205,46 @@ __global__ void __launch_bounds__(RegPlan<kLog2N>::threads,
       }
     }
   }
+}
+
+// complex64 of shared memory per rank of the cluster mode: the cluster
+// chain's share, which the pair exchange reuses. ops/render_plan.py
+// `filters_plan` computes the same.
+constexpr int kFiltersClusterShared = ClusterPlan<kRegMaxLog2N + 1>::share_f2;
+
+// The cluster mode: one cluster of PN::ranks blocks per run of rows; see
+// the header comment. L == n.
+template <class PN>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+    assemble_filters_kernel(const FilterArgs a) {
+  constexpr int n = PN::n, C = PN::ranks;
+  constexpr int F = n / 2 + 1;
+  extern __shared__ __align__(16) float2 share[];
+  const int r0 = static_cast<int>(blockIdx.x) / C * a.run;
+  const int r1 = min(a.rows, r0 + a.run);
+  cluster_arrive<C>();  // this block runs: the others may store into it
+
+  for (int r = r0; r < r1; ++r) {
+    const int rank = fresh_rank();  // blockIdx.x % C
+    const int tid = fresh_tid();
+    // H[r]'s pairs in share (assembly_stages.cuh cluster_spectrum)
+    cluster_spectrum<PN>(share, a, r, rank, tid);
+    // unpack both ears at this thread's bins and write them coalesced
+    float2* H0 = a.H + static_cast<size_t>(r) * 2 * F;
+    auto bin = [&](int pair) {
+      const int q = rank * kClusterPairs + pair;
+      const float4 z = reinterpret_cast<const float4*>(share)[pair];
+      float2 A, B;
+      unpack_pair(make_float2(z.x, z.y), make_float2(z.z, z.w), &A, &B);
+      H0[q] = A;
+      H0[F + q] = B;
+    };
+#pragma unroll 1
+    for (int i = 0; i < 8; ++i) bin(tid + i * kClusterThreads);
+    if (rank == C - 1 && tid == 0) bin(kClusterPairs);  // n/2
+    cluster_arrive<C>();  // the pairs are read
+  }
+  cluster_wait<C>();
 }
 
 // The split buffer mode: the radix-2 body over the block's device scratch
@@ -280,27 +347,85 @@ int launch_register(int log2n, int log2L, int threads, int rows_per_block,
   }
 }
 
+// The cluster kernel for n = 2^kLog2N.
+template <int kLog2N>
+auto filters_cluster_kernel() {
+  return static_cast<void (*)(const FilterArgs)>(
+      assemble_filters_kernel<ClusterPlan<kLog2N>>);
+}
+
+// The cluster kernel for n = 2^log2n with L == n, checked against the
+// caller's plan.
+template <int kLog2N>
+int launch_filters_cluster(int log2n, int log2L, int ranks, int threads,
+                           int rows_per_block, int blocks_per_sm,
+                           const FilterArgs& a, cudaStream_t stream) {
+  if constexpr (kLog2N > kClusterMaxLog2N) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (log2n != kLog2N)
+      return launch_filters_cluster<kLog2N + 1>(log2n, log2L, ranks, threads,
+                                                rows_per_block, blocks_per_sm,
+                                                a, stream);
+    using PN = ClusterPlan<kLog2N>;
+    if (log2L != kLog2N || ranks != PN::ranks || threads != kClusterThreads ||
+        rows_per_block != 1 || blocks_per_sm != 1 || a.run < 1 ||
+        a.twL == nullptr || a.twN == nullptr || a.twM == nullptr ||
+        a.taper == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_cluster(
+        filters_cluster_kernel<kLog2N>(), (a.rows + a.run - 1) / a.run,
+        PN::ranks, kFiltersClusterShared * static_cast<int>(sizeof(float2)),
+        stream, a);
+  }
+}
+
+// The clusters of the cluster kernel at n = 2^log2n that the current
+// device runs at once.
+template <int kLog2N>
+int filters_cluster_slots(int log2n) {
+  if constexpr (kLog2N > kClusterMaxLog2N) {
+    return -static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (log2n != kLog2N) return filters_cluster_slots<kLog2N + 1>(log2n);
+    return cluster_slots(
+        filters_cluster_kernel<kLog2N>(), ClusterPlan<kLog2N>::ranks,
+        kFiltersClusterShared * static_cast<int>(sizeof(float2)));
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
+// The clusters of assemble_filters' cluster mode at n_fft (32768 …
+// 131072) that the current device runs at once, read once per device and
+// kept: the host's runs (ops/block_render.py). ≥ 0, or a CUDA error
+// negated.
+int tt_assemble_filters_clusters(int n_fft) {
+  return filters_cluster_slots<kRegMaxLog2N + 1>(ilog2(n_fft));
+}
+
 // idx, w: (rows, 4) int32 / f32; h_table: (R, 2, taps) f32; delays, gains:
 // (R, 2) f32; H: (rows, 2, n_fft/2+1) complex64. slices > 0: split mode,
-// scratch holds slices · (n_fft + 2L) complex64, and twL, twN, taper,
-// threads, rows_per_block and blocks_per_sm are unused. Otherwise the
-// register kernel (n_fft ≤ 16384): twL and twN the tables of exp(+2πi·m/L)
-// and exp(+2πi·m/n), taper the ramp's taper at bins 0 … L/2, and threads,
-// rows_per_block and blocks_per_sm must be the plan's
-// (ops/render_plan.py `filters_plan`).
+// scratch holds slices · (n_fft + 2L) complex64, and twL, twN, twM, taper,
+// run, ranks, threads, rows_per_block and blocks_per_sm are unused.
+// Otherwise the register kernel (n_fft ≤ 16384, ranks 0) or the cluster
+// kernel (n_fft 32768 … 131072 with L == n_fft, ranks n_fft/16384, each
+// cluster a run of `run` rows): twL and twN the tables of exp(+2πi·m/L)
+// and exp(+2πi·m/n), twM (cluster only) that of exp(+2πi·m/16384), taper
+// the ramp's taper at bins 0 … L/2, and ranks, threads, rows_per_block
+// and blocks_per_sm must be the plan's (ops/render_plan.py
+// `filters_plan`).
 int tt_assemble_filters(const void* idx, const void* w, const void* h_table,
                         const void* delays, const void* gains, void* H,
-                        const void* twL, const void* twN, const void* taper,
-                        int rows, int taps, int t_pad, int n_fft,
-                        int apply_itd, int apply_ild, int threads,
-                        int rows_per_block, int blocks_per_sm,
-                        float align_guard, float max_shift, float taper_lo,
-                        float taper_hi, void* scratch, int slices, int work,
-                        void* stream) {
+                        const void* twL, const void* twN, const void* twM,
+                        const void* taper, int rows, int run, int taps,
+                        int t_pad, int n_fft, int apply_itd, int apply_ild,
+                        int ranks, int threads, int rows_per_block,
+                        int blocks_per_sm, float align_guard, float max_shift,
+                        float taper_lo, float taper_hi, void* scratch,
+                        int slices, int work, void* stream) {
   const AssemblyParams p =
       assembly_params(taps, t_pad, n_fft, apply_itd, apply_ild, align_guard,
                       max_shift, taper_lo, taper_hi);
@@ -314,9 +439,16 @@ int tt_assemble_filters(const void* idx, const void* w, const void* h_table,
                        static_cast<float2*>(H),
                        static_cast<const float2*>(twL),
                        static_cast<const float2*>(twN),
+                       static_cast<const float2*>(twM),
                        static_cast<const float*>(taper),
                        p,
-                       rows};
+                       rows,
+                       run};
+    if (p.log2n > kRegMaxLog2N)
+      return launch_filters_cluster<kRegMaxLog2N + 1>(
+          p.log2n, p.log2L, ranks, threads, rows_per_block, blocks_per_sm, a,
+          s);
+    if (ranks != 0) return static_cast<int>(cudaErrorInvalidValue);
     return launch_register<kFiltersMinLog2>(p.log2n, p.log2L, threads,
                                             rows_per_block, blocks_per_sm, a,
                                             s);

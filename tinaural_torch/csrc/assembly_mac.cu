@@ -76,7 +76,10 @@
 //   pairs      one exchange sends each bin k to the rank that runs the MAC
 //              of min(k, n − k): rank c takes bins c·8192 … c·8192 + 8191
 //              (the last rank also n/2), Z[q] and Z[n − q] side by side, so
-//              a thread reads its pair as one float4;
+//              a thread reads its pair as one float4 (fft_reg.cuh
+//              cluster_pairs). The chain, rfft_n and this exchange are
+//              assembly_stages.cuh cluster_spectrum, which
+//              assemble_filters' cluster kernel shares;
 //   MAC        thread tid unpacks H0, H1 at bins q = c·8192 + tid + 1024·i
 //              (i < 8) and reads Xu, Xd and writes Y coalesced. H_prev
 //              cannot stay on chip (two ears of F complex64 are 131 KB a
@@ -349,77 +352,27 @@ __global__ void __launch_bounds__(RegPlan<kLog2N>::threads,
 // n/2 on the last rank) reuse. ops/mac_plan.py `mac_plan` computes the
 // same.
 constexpr int kMacClusterShared = ClusterPlan<kRegMaxLog2N + 1>::share_f2;
-constexpr int kMacPairs = (1 << kRegMaxLog2N) / 2;  // MAC bins a rank: 8192
-static_assert(2 * kMacPairs + 2 <= kMacClusterShared,
-              "the pair exchange fits the share");
-
-// This thread's index and its block's rank in the cluster, read anew on
-// every row of the cluster kernel: the addresses and exchange slots
-// derived from them are then computed on each row, not hoisted out of the
-// row loop into registers, where at 64 a thread they spilled: 1140 B of
-// spill stores against 540 B, and 0.520 ms against 0.436 at (j)'s shape
-// on an H100 (scripts/torch_mac_ab.py; PERF.md).
-__device__ __forceinline__ int fresh_tid() {
-  int v;
-  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(v));
-  return v;
-}
-
-__device__ __forceinline__ int fresh_rank() {
-  int v;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(v));
-  return v;
-}
 
 // The cluster mode: one cluster of PN::ranks blocks per run of rows; see
-// the header comment. L == n.
+// the header comment. L == n. The thread index and rank are read anew on
+// every row (fft_reg.cuh fresh_tid).
 template <class PN>
 __global__ void __launch_bounds__(kClusterThreads, 1)
     assembly_mac_kernel(const MacArgs a) {
-  constexpr int n = PN::n, C = PN::ranks, M = PN::M, span = PN::span;
+  constexpr int n = PN::n, C = PN::ranks;
   constexpr int F = n / 2 + 1;
   extern __shared__ __align__(16) float2 share[];
   const int r0 = static_cast<int>(blockIdx.x) / C * a.run;
   const int r1 = min(a.rows, r0 + a.run);
   // the run's predecessor, unless the run starts a track
   const bool prev = a.crossfade && r0 > 0 && __ldg(a.first + r0) < 0.5f;
-  const float inv_n = 1.0f / n;
   cluster_arrive<C>();  // this block runs: the others may store into it
 
   for (int r = prev ? r0 - 1 : r0; r < r1; ++r) {
     const int rank = fresh_rank();  // blockIdx.x % C
     const int tid = fresh_tid();
-    float2 v[16];
-    cluster_filter<PN>(v, share, a, r, rank, tid);
-    // rfft_n of conj(h_eff), truncated to t_pad and scaled by 1/n, as the
-    // conjugate of the inverse: rank c ends with conj(Z[c + C·t2]),
-    // t2 = tid + 1024·local_out(m)
-#pragma unroll
-    for (int m = 0; m < 16; ++m) {
-      const int t = M * (m % C) + rank * span + tid + (m / C) * kClusterThreads;
-      v[m] = t < a.p.t_pad ? conj(cscale(v[m], inv_n)) : make_float2(0.f, 0.f);
-    }
-    cluster_spread<PN>(v, share, rank, tid, a.twN);
-    cluster_local_fft(v, share, tid, a.twM);
-
-    // each Z[k] to the rank of bin q = min(k, n − k), slot 2·(q mod 8192)
-    // (+1 for the mirror); bins 0 and n/2 are their own mirrors, and n/2
-    // goes to the last rank at pair 8192
-    cluster_arrive<C>();  // this block's passes have read share
-    cluster_wait<C>();
-#pragma unroll
-    for (int m = 0; m < 16; ++m) {
-      const int k = rank + C * (tid + kClusterThreads * local_out(m));
-      const bool lo = k <= n / 2;
-      const int q = lo ? k : n - k;
-      const int o = min(q / kMacPairs, C - 1);
-      const int at = 2 * (q - o * kMacPairs);
-      const float2 z = conj(v[m]);
-      st_rank<C>(share, o, rank, at + (lo ? 0 : 1), z);
-      if (k == 0 || k == n / 2) st_rank<C>(share, o, rank, at + 1, z);
-    }
-    cluster_arrive<C>();
-    cluster_wait<C>();  // every pair has landed
+    // H[r]'s pairs in share (assembly_stages.cuh cluster_spectrum)
+    cluster_spectrum<PN>(share, a, r, rank, tid);
 
     // unpack H and the MAC on this thread's bins; the carry through Y
     const bool mac = r >= r0;
@@ -432,7 +385,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
     float2* Y0 = a.Y + static_cast<size_t>(r) * 2 * F;
     float2* Yn = Y0 + 2 * F;             // Y[r + 1]
     auto bin = [&](int pair) {
-      const int q = rank * kMacPairs + pair;
+      const int q = rank * kClusterPairs + pair;
       const float4 z = reinterpret_cast<const float4*>(share)[pair];
       float2 A, B;
       unpack_pair(make_float2(z.x, z.y), make_float2(z.z, z.w), &A, &B);
@@ -460,7 +413,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
     };
 #pragma unroll 1
     for (int i = 0; i < 8; ++i) bin(tid + i * kClusterThreads);
-    if (rank == C - 1 && tid == 0) bin(kMacPairs);  // n/2
+    if (rank == C - 1 && tid == 0) bin(kClusterPairs);  // n/2
     cluster_arrive<C>();  // the pairs are read
   }
   cluster_wait<C>();

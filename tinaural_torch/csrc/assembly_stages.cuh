@@ -7,7 +7,9 @@
 // buffer. assembly_mac.cu's register kernel keeps its own copy of these
 // stages: built on these functions, 29 of its 36 instances changed their
 // spills. The cluster chain at the end (cluster_filter) serves the
-// cluster modes of assemble_partitions.cu and assembly_mac.cu.
+// cluster modes of assemble_partitions.cu, assembly_mac.cu and
+// assemble_filters.cu; the last two build a row's filter spectrum on it
+// with cluster_spectrum.
 
 #pragma once
 
@@ -317,6 +319,34 @@ __device__ __forceinline__ void cluster_filter(float2 (&v)[16], float2* smem,
       for (int t1 = 0; t1 < C; ++t1) v[s * C + t1] = x[t1];
     }
   }
+}
+
+// One row's filter spectrum H = rfft_n(h_eff truncated to t_pad) on a
+// cluster, L == n (ClusterPlan PN): cluster_filter; h_eff truncated to
+// t_pad, scaled by 1/n and conjugated in registers; rfft_n as the
+// conjugate of the inverse across the cluster (cluster_spread, one DSMEM
+// exchange, each rank's 16384-point register FFT); then cluster_pairs. On
+// entry as cluster_filter; on return share holds Z[q], Z[n − q] of the
+// packed pair H0 + i·H1 at float4 l of each rank's bins q = rank·8192 + l
+// (the last rank's n/2 at l = 8192), and no arrive is outstanding. Args
+// names cluster_filter's tables and twN (exp(+2πi·m/n)). The cluster
+// kernels of assembly_mac.cu (which then runs its MAC on the pairs) and
+// assemble_filters.cu (which writes H) share it, so neither keeps a copy.
+template <class PN, class Args>
+__device__ __forceinline__ void cluster_spectrum(float2* share, const Args& a,
+                                                 int r, int rank, int tid) {
+  constexpr int n = PN::n, C = PN::ranks, M = PN::M, span = PN::span;
+  const float inv_n = 1.0f / n;
+  float2 v[16];
+  cluster_filter<PN>(v, share, a, r, rank, tid);
+#pragma unroll
+  for (int m = 0; m < 16; ++m) {
+    const int t = M * (m % C) + rank * span + tid + (m / C) * kClusterThreads;
+    v[m] = t < a.p.t_pad ? conj(cscale(v[m], inv_n)) : make_float2(0.f, 0.f);
+  }
+  cluster_spread<PN>(v, share, rank, tid, a.twN);
+  cluster_local_fft(v, share, tid, a.twM);
+  cluster_pairs<PN>(v, share, rank, tid);
 }
 
 }  // namespace

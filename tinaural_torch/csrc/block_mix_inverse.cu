@@ -52,10 +52,45 @@
 // Twiddles come from the host-built table (ops/spectra_inverse.py
 // `twiddles`): no block computes a twiddle.
 //
-// The split buffer mode (n_fft above 16384, or forced) keeps the radix-2
+// The cluster buffer mode (n_fft 32768 … 131072, any L; ops/render_plan.py
+// `mix_plan`, ops/_layout.py): a block's spectra are n complex64, 256 KB at
+// 32768, more than one block's shared memory, and the split mode's radix-2
+// body took 0.556 ms of device time at render (j)'s 128 blocks of one
+// source on an H100, 28× its byte bound. Here one thread-block cluster of
+// C = n/16384 blocks (ranks) of 1024 threads takes one output block b
+// (fft_reg.cuh ClusterPlan), the sources in order:
+//   forward    z = x·u + i·x·(1−u) (or x) of the B samples, conjugated,
+//              straight into cluster_spread's input order; the radix-C
+//              step, one DSMEM exchange, each rank's 16384-point register
+//              FFT: the conjugate of the inverse is the forward transform;
+//   pairs      one exchange brings Z[q] and Z[n − q] of rank c's bins
+//              q = c·8192 … c·8192 + 8191 (the last rank also n/2) side by
+//              side (fft_reg.cuh cluster_pairs);
+//   MAC        thread tid unpacks Xu, Xd at q = c·8192 + tid + 1024·i
+//              (i < 8) and adds Xu·H[s,⌊b/k⌋] + Xd·H[s,⌊(b−1)/k⌋] of both
+//              ears, H read coalesced, packed as Z = A + i·B at q and n − q
+//              (DC and Nyquist losing their imaginary parts source by
+//              source: the projection is linear);
+//   sum        the packed sums are n complex64 a block, 128 KB a rank at
+//              C = 2: they fit neither beside a rank's 139 KB share (227 KB
+//              a block) nor in registers (32 of the 64 a thread has at 1024
+//              threads, beside the transform's 32). So they go through the
+//              block's own frames row, (2, n) f32 = n complex64 exactly: the
+//              pair of bin q at float4 q, read and written by the thread
+//              that owns q, source after source, with no barrier; bin n/2
+//              stays in a register of the thread that owns it;
+//   inverse    after the last source and a cluster barrier, each thread
+//              sends its sums through DSMEM into cluster_spread's input
+//              order, and the cluster inverse of spectra_inverse.cu's
+//              cluster mode writes ear 0 as Re z / n and ear 1 as Im z / n
+//              over the same frames row.
+// Sources are summed in order, with no atomics. Twiddles come from host
+// tables at n and 16384.
+//
+// The split buffer mode (n_fft above 131072, or forced) keeps the radix-2
 // body over the block's device scratch slice (n_fft + 2F complex64), 512
-// threads, the blocks walking the output blocks. It shares the register
-// kernel's name, so a profile names both alike.
+// threads, the blocks walking the output blocks. Both other modes share the
+// register kernel's name, so a profile names all three alike.
 
 #include "fft_reg.cuh"
 
@@ -92,6 +127,7 @@ struct MixArgs {
   const float2* H;  // (S·⌈nb/k⌉, 2, F)
   float* frames;    // (nb, 2, n)
   const float2* tw;  // exp(+2πi·m/n), m < n
+  const float2* twM;  // exp(+2πi·m/16384), m < 16384 (cluster mode)
   int S, nb, B, crossfade, dir_rate;
   int fnb;  // filter rows per source, ⌈nb/dir_rate⌉
 };
@@ -251,6 +287,138 @@ __global__ void __launch_bounds__(RegPlan<kLog2N>::threads *
     }
 }
 
+// complex64 of shared memory per rank of the cluster mode: one share,
+// which the pair exchange reuses. ops/render_plan.py `mix_plan` computes
+// the same.
+constexpr int kMixClusterShared = ClusterPlan<kRegMaxLog2N + 1>::share_f2;
+
+// The cluster mode: one cluster of PN::ranks blocks per output block b;
+// see the header comment. The thread index and rank are read anew on every
+// source (fft_reg.cuh fresh_tid).
+template <class PN>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+    block_spectra_mix_inverse_kernel(const MixArgs a) {
+  constexpr int n = PN::n, F = n / 2 + 1, C = PN::ranks, M = PN::M;
+  constexpr int span = PN::span;
+  extern __shared__ __align__(16) float2 share[];
+  const int b = static_cast<int>(blockIdx.x) / C;
+  // block b's filter row; its predecessor's is the row before where b
+  // starts a group past block 0, else the same row
+  const int hc = b / a.dir_rate;
+  const bool group_start = b > 0 && b == hc * a.dir_rate;
+  const float inv_B = 1.0f / a.B;
+  // the packed sums: Z[q], Z[n − q] at float4 q of block b's frames row
+  float4* sums = reinterpret_cast<float4*>(a.frames + static_cast<size_t>(b) *
+                                                          2 * n);
+  float2 nyquist = make_float2(0.f, 0.f);  // Z[n/2], on its thread
+  cluster_arrive<C>();  // this block runs: the others may store into it
+
+#pragma unroll 1
+  for (int s = 0; s < a.S; ++s) {
+    const int rank = fresh_rank();  // blockIdx.x % C
+    const int tid = fresh_tid();
+    // conj(z) at t = M·(m % C) + rank·span + tid + (m / C)·1024
+    const float* xb = a.x + (static_cast<size_t>(s) * a.nb + b) * a.B;
+    float2 v[16];
+#pragma unroll
+    for (int m = 0; m < 16; ++m) {
+      const int t = M * (m % C) + rank * span + tid + (m / C) * kClusterThreads;
+      float2 z = make_float2(0.f, 0.f);
+      if (t < a.B) {
+        const float val = __ldg(xb + t);
+        if (a.crossfade) {
+          const float xu = val * ((t + 0.5f) * inv_B);
+          z = make_float2(xu, xu - val);  // conj(x·u + i·x·(1−u))
+        } else {
+          z.x = val;
+        }
+      }
+      v[m] = z;
+    }
+    cluster_spread<PN>(v, share, rank, tid, a.tw);
+    cluster_local_fft(v, share, tid, a.twM);
+    cluster_pairs<PN>(v, share, rank, tid);
+
+    // the MAC at this thread's bins, packed, into the sums
+    const float2* Hc = a.H + (static_cast<size_t>(s) * a.fnb + hc) * 2 * F;
+    const float2* Hp = group_start ? Hc - 2 * F : Hc;
+    auto mac = [&](int pair) {
+      const int q = rank * kClusterPairs + pair;
+      const float4 z = reinterpret_cast<const float4*>(share)[pair];
+      float2 y0, y1;
+      if (a.crossfade) {
+        float2 Xu, Xd;
+        unpack_pair(make_float2(z.x, z.y), make_float2(z.z, z.w), &Xu, &Xd);
+        y0 = cadd(cmul(Xu, __ldg(Hc + q)), cmul(Xd, __ldg(Hp + q)));
+        y1 = cadd(cmul(Xu, __ldg(Hc + F + q)), cmul(Xd, __ldg(Hp + F + q)));
+      } else {
+        const float2 X = make_float2(z.x, z.y);
+        y0 = cmul(X, __ldg(Hc + q));
+        y1 = cmul(X, __ldg(Hc + F + q));
+      }
+      if (q == 0 || q == n / 2) {
+        y0.y = 0.f;
+        y1.y = 0.f;
+      }
+      // pack_pair (common.cuh): Z[q] = A + i·B, Z[n − q] = conj(A) + i·conj(B)
+      return make_float4(y0.x - y1.y, y0.y + y1.x, y0.x + y1.y, y1.x - y0.y);
+    };
+#pragma unroll 1
+    for (int i = 0; i < 8; ++i) {
+      const int pair = tid + i * kClusterThreads;
+      float4 z = mac(pair);
+      float4* at = sums + rank * kClusterPairs + pair;
+      if (s > 0) {
+        const float4 acc = *at;
+        z = make_float4(acc.x + z.x, acc.y + z.y, acc.z + z.z, acc.w + z.w);
+      }
+      *at = z;
+    }
+    if (rank == C - 1 && tid == 0) {  // n/2
+      const float4 z = mac(kClusterPairs);
+      nyquist = make_float2(nyquist.x + z.x, nyquist.y + z.y);
+    }
+    cluster_arrive<C>();  // the pairs are read
+  }
+
+  // the sums into cluster_spread's input order: Z[k] at rank (k mod M) /
+  // span, local (k / M)·span + (k mod M) mod span
+  const int rank = fresh_rank();
+  const int tid = fresh_tid();
+  auto put = [&](int k, float2 z) {
+    const int k2 = k & (M - 1);
+    st_rank<C>(share, k2 / span, rank, (k / M) * span + k2 % span, z);
+  };
+  cluster_wait<C>();  // every rank has read its pairs
+#pragma unroll 1
+  for (int i = 0; i < 8; ++i) {
+    const int q = rank * kClusterPairs + tid + i * kClusterThreads;
+    const float4 z = sums[q];
+    put(q, make_float2(z.x, z.y));
+    if (q) put(n - q, make_float2(z.z, z.w));
+  }
+  if (rank == C - 1 && tid == 0) put(n / 2, nyquist);
+  cluster_arrive<C>();
+  cluster_wait<C>();  // every sum has landed
+  float2 v[16];
+#pragma unroll
+  for (int m = 0; m < 16; ++m)
+    v[m] = share[(m % C) * span + tid + (m / C) * kClusterThreads];
+  cluster_arrive<C>();  // share is read
+  cluster_spread<PN>(v, share, rank, tid, a.tw);
+  cluster_local_fft(v, share, tid, a.twM);
+
+  // v[m] holds sample rank + C·t2, t2 = tid + 1024·local_out(m)
+  const float inv_n = 1.0f / n;
+  float* f0 = a.frames + static_cast<size_t>(b) * 2 * n;
+#pragma unroll
+  for (int m = 0; m < 16; ++m) {
+    const int i = rank + C * (tid + kClusterThreads * local_out(m));
+    f0[i] = v[m].x * inv_n;
+    f0[n + i] = v[m].y * inv_n;
+  }
+}
+
 // The split buffer mode: the radix-2 body, one output block at a time per
 // CUDA block, looping over the S sources.
 __global__ void block_spectra_mix_inverse_kernel(const float* __restrict__ x,
@@ -354,6 +522,29 @@ int launch_register(int log2n, int threads, int groups, int blocks_per_sm,
   }
 }
 
+// The cluster kernel for n = 2^log2n, checked against the caller's plan.
+template <int kLog2N>
+int launch_mix_cluster(int log2n, int ranks, int threads, int groups,
+                       int blocks_per_sm, const MixArgs& a,
+                       cudaStream_t stream) {
+  if constexpr (kLog2N > kClusterMaxLog2N) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (log2n != kLog2N)
+      return launch_mix_cluster<kLog2N + 1>(log2n, ranks, threads, groups,
+                                            blocks_per_sm, a, stream);
+    using PN = ClusterPlan<kLog2N>;
+    if (ranks != PN::ranks || threads != kClusterThreads || groups != 1 ||
+        blocks_per_sm != 1 || a.tw == nullptr || a.twM == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const auto kernel = static_cast<void (*)(const MixArgs)>(
+        block_spectra_mix_inverse_kernel<PN>);
+    return launch_cluster(kernel, a.nb, PN::ranks,
+                          kMixClusterShared * static_cast<int>(sizeof(float2)),
+                          stream, a);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -361,14 +552,18 @@ extern "C" {
 // x: (S, nb, B) f32; H: (S·⌈nb/k⌉, 2, F) complex64, k = dir_rate, block
 // b reading row ⌊b/k⌋ of its source's; frames: (nb, 2, n_fft) f32.
 // slices > 0: split mode, scratch holds slices · (n_fft + 2F) complex64,
-// and tw, threads, groups and blocks_per_sm are unused. Otherwise the
-// register kernel (128 ≤ n_fft ≤ 16384): tw the table of exp(+2πi·m/n),
-// threads and blocks_per_sm the plan's and groups at most its max_groups
-// (ops/render_plan.py `mix_plan`, `mix_groups`).
+// and tw, twM, ranks, threads, groups and blocks_per_sm are unused.
+// Otherwise the register kernel (128 ≤ n_fft ≤ 16384, ranks 0) or the
+// cluster kernel (32768 … 131072, ranks n_fft/16384, one cluster per
+// output block): tw the table of exp(+2πi·m/n), twM (cluster only) that of
+// exp(+2πi·m/16384), ranks, threads and blocks_per_sm the plan's and
+// groups at most its max_groups (ops/render_plan.py `mix_plan`,
+// `mix_groups`).
 int tt_block_spectra_mix_inverse(const void* x, const void* H, void* frames,
-                                 const void* tw, int S, int nb, int B,
-                                 int n_fft, int crossfade, int dir_rate,
-                                 int threads, int groups, int blocks_per_sm,
+                                 const void* tw, const void* twM, int S,
+                                 int nb, int B, int n_fft, int crossfade,
+                                 int dir_rate, int ranks, int threads,
+                                 int groups, int blocks_per_sm,
                                  void* scratch, int slices, int work,
                                  void* stream) {
   if (dir_rate < 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -378,12 +573,17 @@ int tt_block_spectra_mix_inverse(const void* x, const void* H, void* frames,
                     static_cast<const float2*>(H),
                     static_cast<float*>(frames),
                     static_cast<const float2*>(tw),
+                    static_cast<const float2*>(twM),
                     S,
                     nb,
                     B,
                     crossfade,
                     dir_rate,
                     (nb + dir_rate - 1) / dir_rate};
+    if (n_fft > (1 << kRegMaxLog2N))
+      return launch_mix_cluster<kRegMaxLog2N + 1>(
+          ilog2(n_fft), ranks, threads, groups, blocks_per_sm, a, s);
+    if (ranks != 0) return static_cast<int>(cudaErrorInvalidValue);
     return launch_register<kMixMinLog2>(ilog2(n_fft), threads, groups,
                                         blocks_per_sm, a, s);
   }

@@ -373,6 +373,62 @@ static_assert(RegPlan<kRegMaxLog2N>::radix(RegPlan<kRegMaxLog2N>::passes - 1)
                   == 4,
               "local_out assumes a last radix of 4");
 
+// Bins q = min(k, n − k) a rank pairs up after a cluster forward transform
+// (cluster_pairs): 8192, the last rank's n/2 beside them.
+constexpr int kClusterPairs = (1 << kRegMaxLog2N) / 2;
+static_assert(2 * kClusterPairs + 2 <= RegPlan<kRegMaxLog2N>::row_f2,
+              "the pair exchange fits a share");
+
+// The pair exchange after a forward transform computed as the conjugate of
+// the inverse (cluster_spread, cluster_local_fft): on entry v[m] holds
+// conj(Z[k]), k = rank + C·(tid + 1024·local_out(m)), and the block's
+// passes may still read buf. Each Z[k] goes to the rank of bin
+// q = min(k, n − k), o = min(q / 8192, C − 1), slot 2·(q − o·8192), plus
+// 1 for the mirror k > n/2; bins 0 and n/2 are their own mirrors and fill
+// both slots, and n/2 lands on the last rank at pair 8192. On return every
+// rank's buf holds Z[q], Z[n − q] of its bins q = rank·8192 + l side by
+// side at float4 l, and no arrive is outstanding.
+template <class Plan>
+__device__ __forceinline__ void cluster_pairs(const float2 (&v)[16],
+                                              float2* buf, int rank,
+                                              int tid) {
+  constexpr int n = Plan::n, C = Plan::ranks;
+  cluster_arrive<C>();  // this block's passes have read buf
+  cluster_wait<C>();
+#pragma unroll
+  for (int m = 0; m < 16; ++m) {
+    const int k = rank + C * (tid + kClusterThreads * local_out(m));
+    const bool lo = k <= n / 2;
+    const int q = lo ? k : n - k;
+    const int o = min(q / kClusterPairs, C - 1);
+    const int at = 2 * (q - o * kClusterPairs);
+    const float2 z = conj(v[m]);
+    st_rank<C>(buf, o, rank, at + (lo ? 0 : 1), z);
+    if (k == 0 || k == n / 2) st_rank<C>(buf, o, rank, at + 1, z);
+  }
+  cluster_arrive<C>();
+  cluster_wait<C>();  // every pair has landed
+}
+
+// This thread's index and its block's rank in the cluster, read anew on
+// every row of a kernel that loops over rows: the addresses and exchange
+// slots derived from them are then computed on each row, not hoisted out
+// of the row loop into registers, where at 64 a thread they spilled
+// (assembly_mac's cluster kernel: 1140 B of spill stores against 540 B,
+// and 0.520 ms against 0.436 at 128 rows × 16,384 taps on an H100,
+// scripts/torch_mac_ab.py).
+__device__ __forceinline__ int fresh_tid() {
+  int v;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(v));
+  return v;
+}
+
+__device__ __forceinline__ int fresh_rank() {
+  int v;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(v));
+  return v;
+}
+
 // How many clusters of cfg's shape the device places at once for kernel:
 // read once per kernel and device (cudaOccupancyMaxActiveClusters) and
 // kept; ≥ 0, or a CUDA error negated.

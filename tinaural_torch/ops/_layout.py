@@ -3,14 +3,18 @@ cluster's shared memory, or a device scratch.
 
 Every kernel of ``csrc/`` holds its twiddles and FFT buffers in shared
 memory when they fit the card's limit for one block (227 KB on the H100).
-Three kernels have a cluster mode above that: `spectra_inverse` at n_fft
-32768 … 131072, `assemble_partitions` at L 16384 … 131072 and
-`assembly_mac` at n_fft = L 32768 … 131072 spread each row (each run of
-rows, for `assembly_mac`) over a thread-block cluster whose blocks hold a
-share of its buffers each (``csrc/fft_reg.cuh`` `ClusterPlan`). Their
-plans give one block's
-share as the shared figure, so the shared-mode test below takes them too,
-and the kernel's entry point picks the cluster kernel from the sizes.
+Five kernels have a cluster mode above that: `spectra_inverse` at n_fft
+32768 … 131072, `assemble_partitions` at L 16384 … 131072,
+`assembly_mac` and `assemble_filters` at n_fft = L 32768 … 131072, and
+`block_spectra_mix_inverse` at n_fft 32768 … 131072 (any L) spread each
+row (each run of rows, for `assembly_mac` and `assemble_filters`; each
+output block, for `block_spectra_mix_inverse`) over a thread-block cluster
+whose blocks hold a share of its buffers each (``csrc/fft_reg.cuh``
+`ClusterPlan`). Their plans give one block's share as the shared figure,
+so the shared-mode test below takes them too, and the kernel's entry
+point picks the cluster kernel from the sizes. Runs of rows come from the
+clusters the card places at once (`cluster_slots`, `run_length`); a
+cluster launch that the card cannot place raises.
 Above it the kernels run with their buffers in a device-memory scratch,
 one slice per CUDA block, the blocks walking the rows in a grid-stride loop
 and each n-point FFT split into two passes of at most `SPLIT_WORK` points
@@ -32,6 +36,9 @@ SPLIT_WORK = 4096
 SCRATCH_BYTES = 1 << 28
 # Static shared memory a kernel may declare beside its dynamic buffers.
 _STATIC_SMEM = 1024
+# Every run of rows takes about the same time, so runs are as long as leave
+# RUN_WAVES runs for each block (cluster) the card holds at once.
+RUN_WAVES = 1
 
 # Tests set this to a small power of two to force the split mode with that
 # work size at any shape, the cluster mode's included; 0 picks the mode
@@ -62,6 +69,36 @@ def sm_count(device: torch.device) -> int:
         return 0
     return _sm_count(device.index if device.index is not None
                      else torch.cuda.current_device())
+
+
+@functools.cache
+def _cluster_slots(index: int, entry: str, n_fft: int) -> int:
+    from . import _build
+
+    with torch.cuda.device(index):
+        v = getattr(_build.library(), entry)(n_fft)
+    if v <= 0:
+        raise RuntimeError(f"cuda:{index} runs no cluster of {entry} at "
+                           f"n_fft={n_fft} (code {v})")
+    return v
+
+
+def cluster_slots(device: torch.device, entry: str, n_fft: int) -> int:
+    """The clusters of a kernel's cluster mode at ``n_fft`` that the CUDA
+    device runs at once (``cudaOccupancyMaxActiveClusters``, read by the C
+    entry point ``entry``): read once per device, kernel and size, with no
+    host sync. Raises where it runs none."""
+    return _cluster_slots(device.index if device.index is not None
+                          else torch.cuda.current_device(), entry, n_fft)
+
+
+def run_length(rows: int, slots: int) -> int:
+    """Rows per CUDA block (per cluster in the cluster mode) of a kernel
+    that walks runs of rows when ``slots`` of them run at once (the SMs
+    times the plan's blocks per SM, or the clusters the card runs at
+    once): the shortest run that needs no more than RUN_WAVES · slots
+    runs."""
+    return -(-rows // (RUN_WAVES * max(slots, 1)))
 
 
 def split_work(shared_f2: int, largest_fft: int, limit: int) -> int:

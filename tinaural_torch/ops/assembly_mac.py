@@ -34,13 +34,12 @@ raises. ``launches`` counts this module's kernel.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from ..data.table import (ALIGN_GUARD, DELAY_PAD, MAX_RENDER_SHIFT,
                           TAPER_HI, TAPER_LO, TorchTable)
-from ._layout import layout, sm_count
+from . import _layout
+from ._layout import layout, run_length, sm_count
 from .block_render import (_check_inputs, _cuda_inputs,
                            assemble_filters_reference, overlap_add_cuda)
 from .block_step import spectra_inverse_cuda, spectra_inverse_reference
@@ -50,45 +49,11 @@ from .spectra_inverse import MAX_REGISTER_N, twiddles
 
 KERNELS = ("assembly_mac",)
 launches = dict.fromkeys(KERNELS, 0)
-# A run of c rows assembles c + 1 filters (its predecessor too), and every
-# run takes the same time, so the runs are as long as leave RUN_WAVES runs
-# for each block the card holds at once.
-RUN_WAVES = 1
 
 
 def reset_launches() -> None:
     for k in KERNELS:
         launches[k] = 0
-
-
-def run_length(rows: int, slots: int) -> int:
-    """Rows per CUDA block (per cluster in the cluster mode) of
-    `assembly_mac` when ``slots`` of them run at once (the SMs times the
-    plan's blocks per SM, or the clusters the card runs at once): the
-    shortest run that needs no more than RUN_WAVES · slots runs, so
-    1 + 1/run assemblies per row remain."""
-    return -(-rows // (RUN_WAVES * max(slots, 1)))
-
-
-@functools.cache
-def _cluster_slots(index: int, n_fft: int) -> int:
-    from . import _build
-
-    with torch.cuda.device(index):
-        v = _build.library().tt_assembly_mac_clusters(n_fft)
-    if v <= 0:
-        raise RuntimeError(f"cuda:{index} runs no cluster of assembly_mac at "
-                           f"n_fft={n_fft} (code {v})")
-    return v
-
-
-def cluster_slots(device: torch.device, n_fft: int) -> int:
-    """The clusters of `assembly_mac`'s cluster mode at ``n_fft`` that the
-    CUDA device runs at once (``cudaOccupancyMaxActiveClusters``): read
-    once per device and size, with no host sync. Raises where it runs
-    none."""
-    return _cluster_slots(device.index if device.index is not None
-                          else torch.cuda.current_device(), n_fft)
 
 
 def assembly_mac_render(xbs: torch.Tensor, idx: torch.Tensor,
@@ -195,7 +160,8 @@ def assembly_mac_cuda(idx: torch.Tensor, w: torch.Tensor, table: TorchTable,
                            -(-rows // run), n_fft)
     cluster = plan.cluster and not split[1]
     if cluster:  # a run per cluster, from the clusters that run at once
-        run = run_length(rows, cluster_slots(idx.device, n_fft))
+        run = run_length(rows, _layout.cluster_slots(
+            idx.device, "tt_assembly_mac_clusters", n_fft))
     tables = (0, 0, 0, 0) if split[1] else (
         twiddles(plan.L, idx.device).data_ptr(),
         twiddles(n_fft, idx.device).data_ptr(),

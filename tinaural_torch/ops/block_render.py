@@ -23,12 +23,16 @@ at k as every row at k = 1, with k× fewer assemblies.
 (``csrc/assemble_filters.cu``, ``csrc/block_mix_inverse.cu``,
 ``csrc/block_render.cu``) on CUDA tensors and calls the plain version,
 `block_render_reference`, on CPU tensors; any other device raises. The
-first two kernels have two buffer modes (``ops/_layout.py``): up to n_fft
-16384 the shared mode, register-resident FFTs with one exchange buffer in
-shared memory (their launch plans are ``ops/render_plan.py``); above, the
-split mode, radix-2 FFTs over a device scratch. The third, `overlap_add`,
-streams V outputs a thread (its plan is ``ops/ola_plan.py``).
-``launches`` counts each kernel's launches.
+first two kernels have three buffer modes (``ops/_layout.py``; their
+launch plans are ``ops/render_plan.py``): up to n_fft 16384 the shared
+mode, register-resident FFTs with one exchange buffer in shared memory;
+from 32768 to 131072 the cluster mode, each transform spread over a
+thread-block cluster of n_fft/16384 blocks (`assemble_filters` only where
+its L equals n_fft); at the shapes that remain — n_fft above 131072, and
+`assemble_filters` with L < n_fft above 16384 (block 1024 at 15,298 …
+16,320 taps) — the split mode, radix-2 FFTs over a device scratch. The
+third, `overlap_add`, streams V outputs a thread (its plan is
+``ops/ola_plan.py``). ``launches`` counts each kernel's launches.
 """
 
 from __future__ import annotations
@@ -37,14 +41,14 @@ import torch
 
 from ..data.table import (ALIGN_GUARD, DELAY_PAD, MAX_RENDER_SHIFT,
                           TAPER_HI, TAPER_LO, TorchTable)
-from ._layout import layout, sm_count
+from ._layout import cluster_slots, layout, run_length, sm_count
 from .filters import effective_filter
 from .interp import gather_rows
 from .mac_plan import ramp_taper
 from .ola import overlap_add
 from .ola_plan import ALIGN_BYTES, check_rows, ola_plan
 from .render_plan import MIN_MIX_N, filters_plan, mix_groups, mix_plan
-from .spectra_inverse import twiddles
+from .spectra_inverse import MAX_REGISTER_N, twiddles
 
 KERNELS = ("assemble_filters", "block_spectra_mix_inverse", "overlap_add")
 launches = dict.fromkeys(KERNELS, 0)
@@ -152,15 +156,20 @@ def assemble_filters_cuda(idx: torch.Tensor, w: torch.Tensor,
     plan = filters_plan(table.taps, n_fft)
     *split, _keep = layout(idx.device, plan.shared_f2, plan.scratch_f2,
                            S * nb, n_fft)
-    tables = (0, 0, 0) if split[1] else (
+    cluster = plan.cluster and not split[1]
+    # a run of rows per cluster, from the clusters that run at once
+    run = run_length(S * nb, cluster_slots(
+        idx.device, "tt_assemble_filters_clusters", n_fft)) if cluster else 1
+    tables = (0, 0, 0, 0) if split[1] else (
         twiddles(plan.L, idx.device).data_ptr(),
         twiddles(n_fft, idx.device).data_ptr(),
+        twiddles(MAX_REGISTER_N, idx.device).data_ptr() if cluster else 0,
         ramp_taper(plan.L, idx.device).data_ptr())
     _build.check(_build.library().tt_assemble_filters(
         idx.data_ptr(), w.data_ptr(), table.h.data_ptr(),
         table.delays.data_ptr(), table.gains.data_ptr(), H.data_ptr(),
-        *tables, S * nb, table.taps, plan.t_pad, n_fft, int(apply_itd),
-        int(apply_ild), plan.threads, plan.rows_per_block,
+        *tables, S * nb, run, table.taps, plan.t_pad, n_fft, int(apply_itd),
+        int(apply_ild), plan.ranks, plan.threads, plan.rows_per_block,
         plan.blocks_per_sm, ALIGN_GUARD, MAX_RENDER_SHIFT, TAPER_LO,
         TAPER_HI, *split, stream), "assemble_filters")
     launches["assemble_filters"] += 1
@@ -192,11 +201,14 @@ def block_spectra_mix_inverse_cuda(xbs: torch.Tensor, H: torch.Tensor,
     groups = mix_groups(S, nb, plan, sm_count(xbs.device))
     *split, _keep = layout(xbs.device, groups * plan.group_f2,
                            plan.scratch_f2, nb, n_fft)
-    tw = 0 if split[1] else twiddles(n_fft, xbs.device).data_ptr()
+    cluster = plan.cluster and not split[1]
+    tables = (0, 0) if split[1] else (
+        twiddles(n_fft, xbs.device).data_ptr(),
+        twiddles(MAX_REGISTER_N, xbs.device).data_ptr() if cluster else 0)
     _build.check(_build.library().tt_block_spectra_mix_inverse(
-        xbs.data_ptr(), H.data_ptr(), frames.data_ptr(), tw, S, nb, B, n_fft,
-        int(crossfade), dir_rate, plan.threads, groups, plan.blocks_per_sm,
-        *split, stream), "block_spectra_mix_inverse")
+        xbs.data_ptr(), H.data_ptr(), frames.data_ptr(), *tables, S, nb, B,
+        n_fft, int(crossfade), dir_rate, plan.ranks, plan.threads, groups,
+        plan.blocks_per_sm, *split, stream), "block_spectra_mix_inverse")
     launches["block_spectra_mix_inverse"] += 1
     return frames
 

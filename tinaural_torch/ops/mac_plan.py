@@ -25,7 +25,7 @@ the radices are ``(ranks, 16, 16, 16, 4)``; the chain is
 `assemble_partitions`' cluster chain, and the twiddles come at L = n and
 at 16384. Its shared figure is one block's share, so the layout takes it
 unless the split mode is forced; its runs come from the clusters the card
-runs at once (`assembly_mac.cluster_slots`). Every other shape above
+runs at once (`_layout.cluster_slots`). Every other shape above
 `MAX_REGISTER_N` (n_fft above `MAX_CLUSTER_N`, or L < n_fft) runs the split
 buffer mode of ``csrc/common.cuh``: radix-2 passes over a device scratch,
 `SPLIT_THREADS` threads per block. The plan describes that launch, and its

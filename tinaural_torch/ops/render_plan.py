@@ -30,12 +30,26 @@ per thread, the forward transforms as the conjugate of the inverse, with
 twiddles from `spectra_inverse.twiddles` and the ramp's taper from
 `mac_plan.ramp_taper`. `filters_plan` and `mix_plan` are the launches as
 the kernels compute them at compile time; the wrappers hand the entry
-points the plan's threads, rows per block, blocks per SM and groups, and
-the entry points refuse any other plan. Above `MAX_REGISTER_N` both kernels run the
-split buffer mode of ``csrc/common.cuh`` (radix-2 passes over a device
-scratch); the plans describe that launch, and their shared figure is the
-full radix-2 layout, which no card's shared memory holds, so the layout
-(``ops/_layout.py``) picks the split mode there.
+points the plan's ranks, threads, rows per block, blocks per SM and
+groups, and the entry points refuse any other plan.
+
+Above `MAX_REGISTER_N`, up to `MAX_CLUSTER_N`, both kernels have a
+cluster mode (``csrc/fft_reg.cuh`` `ClusterPlan`): a thread-block cluster
+of ``ranks = n/16384`` blocks of `CLUSTER_THREADS` threads takes a run of
+rows (`assemble_filters`, where the assembly's L equals n_fft; runs from
+the clusters the card places at once, `_layout.cluster_slots`) or
+one output block (`block_spectra_mix_inverse`, at any L), each n-point
+transform a radix-``ranks`` step across the cluster and each block's
+16384-point register FFT, so the radices are ``(ranks, 16, 16, 16, 4)``.
+Their shared figure (``shared_f2``; the mix plan's ``group_f2``, one group
+a block) is one block's share, so the layout takes it unless the split
+mode is forced. Every other shape above `MAX_REGISTER_N` (n_fft above
+`MAX_CLUSTER_N`, or `assemble_filters` with L < n_fft, as at block 1024
+and 15,298 … 16,320 taps) runs the split buffer mode of
+``csrc/common.cuh`` (radix-2 passes over a device scratch); the plans
+describe that launch, and their shared figure is the full radix-2 layout,
+which no card's shared memory holds, so the layout (``ops/_layout.py``)
+picks the split mode there.
 """
 
 from __future__ import annotations
@@ -45,7 +59,8 @@ from dataclasses import dataclass
 
 from ..data.table import DELAY_PAD
 from .filters import next_pow2
-from .spectra_inverse import MAX_REGISTER_N, inverse_plan
+from .spectra_inverse import (CLUSTER_THREADS, MAX_CLUSTER_N,
+                              MAX_REGISTER_N, inverse_plan)
 
 POINTS = 16  # values per thread in each register transform
 MAX_ROWS = 16  # rows per block of assemble_filters: ≥ 1 input per thread
@@ -88,12 +103,25 @@ class FiltersPlan:
     threads: int  # per block
     rows_per_block: int  # G
     blocks_per_sm: int  # that __launch_bounds__ asks for
-    shared_f2: int  # complex64 of shared memory per block, shared mode
+    shared_f2: int  # complex64 of shared memory per block, shared or
+    # cluster mode
     scratch_f2: int  # complex64 of one scratch slice, split mode
+    ranks: int = 0  # blocks per cluster in the cluster mode, else 0
 
     @property
     def register(self) -> bool:
         return self.n <= MAX_REGISTER_N
+
+    @property
+    def cluster(self) -> bool:
+        return self.ranks > 0
+
+
+def _cluster_radices(n_fft: int) -> tuple[int, tuple[int, ...]]:
+    """The cluster mode's ranks and radices at n_fft: the radix-C step,
+    then each block's 16384-point transform."""
+    ranks = n_fft // MAX_REGISTER_N
+    return ranks, (ranks, *inverse_plan(MAX_REGISTER_N).radices)
 
 
 @functools.cache
@@ -105,6 +133,13 @@ def filters_plan(taps: int, n_fft: int) -> FiltersPlan:
         raise ValueError(f"n_fft={n_fft} must be a power of two of at least "
                          f"taps + {DELAY_PAD} = {t_pad}")
     L = next_pow2(t_pad)
+    if MAX_REGISTER_N < n_fft <= MAX_CLUSTER_N and L == n_fft:
+        # one block's share, which the pair exchange reuses
+        ranks, radices = _cluster_radices(n_fft)
+        return FiltersPlan(taps, n_fft, L, t_pad, radices, radices,
+                           CLUSTER_THREADS, 1, 1,
+                           inverse_plan(MAX_REGISTER_N).shared_f2,
+                           n_fft + 2 * L, ranks)
     if n_fft > MAX_REGISTER_N:
         log2 = lambda m: m.bit_length() - 1
         return FiltersPlan(taps, n_fft, L, t_pad, (2,) * log2(L),
@@ -128,12 +163,18 @@ class MixPlan:
     threads: int  # per group; a group takes one source at a time
     max_groups: int  # per block: MIX_BLOCK_THREADS' worth
     blocks_per_sm: int  # that __launch_bounds__ asks for
-    group_f2: int  # complex64 of shared memory per group, shared mode
+    group_f2: int  # complex64 of shared memory per group, shared mode;
+    # one block's share in the cluster mode
     scratch_f2: int  # complex64 of one scratch slice, split mode
+    ranks: int = 0  # blocks per cluster in the cluster mode, else 0
 
     @property
     def register(self) -> bool:
         return self.n <= MAX_REGISTER_N
+
+    @property
+    def cluster(self) -> bool:
+        return self.ranks > 0
 
 
 @functools.cache
@@ -143,6 +184,12 @@ def mix_plan(n_fft: int) -> MixPlan:
         raise ValueError(f"n_fft={n_fft} must be a power of two of at least "
                          f"{MIN_MIX_N}")
     F = n_fft // 2 + 1
+    if MAX_REGISTER_N < n_fft <= MAX_CLUSTER_N:
+        # one cluster an output block, one block's share each
+        ranks, radices = _cluster_radices(n_fft)
+        return MixPlan(n_fft, radices, CLUSTER_THREADS, 1, 1,
+                       inverse_plan(MAX_REGISTER_N).shared_f2,
+                       n_fft + 2 * F, ranks)
     if n_fft > MAX_REGISTER_N:
         log2 = n_fft.bit_length() - 1
         return MixPlan(n_fft, (2,) * log2, MIX_SPLIT_THREADS, 1, 1,
