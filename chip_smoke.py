@@ -50,7 +50,14 @@ Phases, each of which fails the run on any error (nothing is caught):
      source, one filter, no crossfade) and both at the register bodies'
      edges (n_fft 128: 64 × 128 blocks of 64; n_fft 16384: 8 × 16 blocks
      of 8192), each block-step check also ≥ 100 dB against plain fp64 and
-     naming the body it ran; then `spectra_inverse` alone, timed
+     naming the body it ran; the pruned mode (n_fft above 16384: P
+     transforms of Q = max(next_pow2(B), 128) points a block) of both at
+     n_fft 32768 and 65536 (16 × 64 and 8 × 64 blocks of 1024, filters of
+     the 16,384- and 44,100-tap tables, crossfade) and on random spectra
+     at n_fft 262144 (Q 1024, P 256) and at Q 16384 (n_fft 65536, a block
+     a residue), each with the split mode forced beside it, every call
+     timed after an L2 flush, ≥ 100 dB against plain fp32 and fp64 and
+     equal in bits over two calls; then `spectra_inverse` alone, timed
      beside `torch.fft.irfft`, at 8192 rows × n_fft 4096, 2048 × 16384
      (the largest shared-mode FFT), 128 × 32768 and 64 × 65536 (cluster
      mode, 2 and 4 blocks per row);
@@ -80,7 +87,15 @@ Phases, each of which fails the run on any error (nothing is caught):
      (1024 blocks, B1's route) and (n) a 64-source moving scene of 2^18
      samples at 16,384 taps (256 blocks: B1's route at n_fft 32768, both
      FFT kernels in the cluster mode; its float64 plain path run 8
-     sources at a time and summed) — with every kernel's launch count read
+     sources at a time and summed), and on that table at block 1024
+     (n_fft 32768, the block step's pruned mode, Q 1024, P 32) (o) (h)'s
+     static `render` at 2^20 samples (B3), (p) (c)'s 64 static and (q)
+     (b)'s 64 moving sources × 2^17 (B4; B1 timed and profiled beside
+     (q); float64 plain paths 8 sources at a time), and (r) (h)'s static
+     `render` at 2^20 samples in blocks of 16384 (the CLI's ``--block``)
+     on the 44,100-tap table (n_fft 65536, the pruned mode's Q 16384,
+     P 4) — with every kernel's
+     launch count read
      around them, each output held against the port's own plain path in
      float64 on the card (SNR ≥ 60 dB for (a), ≥ 100 dB for the others;
      the mixdown route's output equal in bits over two calls; a dir_rate
@@ -152,7 +167,10 @@ kernel's bound: the larger of its bytes over 3.35 TB/s and its FLOPs,
 FFTs counted as 5·n·log2 n, over 67 TFLOP/s fp32; the partitioned
 convolution's kernels with their device ms, body and forward
 transforms; the block step's two with their device ms and body, and
-`block_spectra` at (h)'s shape with its bound; `overlap_add` with its
+`block_spectra` at (h)'s shape with its bound, each with its pruned
+checks and their forced split mode (bounds by `step_work`'s least
+count, the full-transform count beside) and its device ms, launches
+and bound in (o) and (r), or (p) and (q); `overlap_add` with its
 body, and at 3d's shapes with their bounds and device ms; B1's two FFT
 kernels with their cluster mode at n_fft 32768 and 65536, their forced
 split mode and the dir_rate 4 checks in both modes (each with its mode,
@@ -594,20 +612,21 @@ def check_render(name: str, public_call, core_call, audio_sec: float,
 
 
 
-def scene_reference_chunked(table, xbs, dirs, cfg, chunk: int):
-    """The moving scene core's float64 plain path (B1's) over ``chunk``
-    sources at a time, the chunks' mixdowns summed in order: the map is
-    linear over sources, and a chunk's float64 filters take 1/chunk of the
-    whole scene's memory (16,384 rows at n_fft 32768 would take ~8.6 GB a
-    complex128 array)."""
-    from tinaural_torch.models.renderer import _scene_core
+def scene_reference_chunked(table, xbs, dirs, cfg, chunk: int,
+                            static: bool = False):
+    """The moving (``static``: static) scene core's float64 plain path
+    (B1's) over ``chunk`` sources at a time, the chunks' mixdowns summed in
+    order: the map is linear over sources, and a chunk's float64 filters
+    take 1/chunk of the whole scene's memory (16,384 rows at n_fft 32768
+    would take ~8.6 GB a complex128 array)."""
+    from tinaural_torch.models.renderer import _scene_core, _scene_static_core
     from tinaural_torch.ops import block_render as br
 
+    core = _scene_static_core if static else _scene_core
     out = None
     for s0 in range(0, xbs.shape[0], chunk):
-        y = _scene_core(table, xbs[s0:s0 + chunk].double(),
-                        dirs[s0:s0 + chunk], cfg,
-                        render=br.block_render_reference)
+        y = core(table, xbs[s0:s0 + chunk].double(), dirs[s0:s0 + chunk],
+                 cfg, render=br.block_render_reference)
         out = y if out is None else out + y
     return out
 
@@ -1194,20 +1213,66 @@ def check_conv_edges(tables: dict) -> dict:
     return out
 
 
-def step_body(n_fft: int, mix: bool, rows: int, dev, chunk: int = 1) -> str:
+def step_fft_flops(n: int, B_: int) -> float:
+    """Operations of one block step's forward transform: a block of B_
+    samples zero-padded to n is P = n/Q transforms of Q = max(next_pow2(B_),
+    128) points (capped at n) of the pre-twiddled block, 5·n·log2 Q, the
+    least work whatever implements it (`fft_flops(n)` counts 5·n·log2 n)."""
+    from tinaural_torch.ops.step_plan import pruned_q
+
+    return 5.0 * n * math.log2(min(n, pruned_q(B_)))
+
+
+def step_work(S: int, nb: int, B_: int, n: int, h_numel: int,
+              crossfade: bool, chunks: int | None = None,
+              full: bool = False) -> dict:
+    """block_spectra, or with ``chunks`` (its C partials) block_spectra_mix:
+    the blocks and H read once, the spectra written once (S·nb rows, or the
+    mix's nb sums over the sources); a forward a block of 2.5·n·log2 Q, a
+    real block, or under crossfade 5·n·log2 Q, both ramps in one complex
+    transform (`step_fft_flops`: the least work for a zero-padded block);
+    its products with both ears' filters, 6 flops an ear and bin, 14 under
+    crossfade (two products and their sum), 2 more in the mix for the
+    source sum. ``full``: the full-transform count, kept beside it (5·n·
+    log2 n a forward, 8 or 16 flops an ear and bin, the mix's C·nb partials
+    written)."""
+    F = n // 2 + 1
+    mix = chunks is not None
+    if full:
+        fft, mac = fft_flops(n), 16 if crossfade else 8
+        out = chunks * nb if mix else S * nb
+    else:
+        fft = step_fft_flops(n, B_) * (1.0 if crossfade else 0.5)
+        mac = (14 if crossfade else 6) + (2 if mix else 0)
+        out = nb if mix else S * nb
+    return bound(S * nb * B_ * 4 + h_numel * 8 + out * 2 * F * 8,
+                 S * nb * (fft + 2 * F * mac))
+
+
+def step_body(n_fft: int, mix: bool, rows: int, dev, chunk: int = 1,
+              B_: int | None = None, forced: bool = False) -> str:
     """The body that block_spectra (``mix`` False, over ``rows`` rows) or
     block_spectra_mix (``rows`` CUDA blocks of chunks of ``chunk``
-    sources) runs at this shape, as the wrappers pick it."""
+    sources) runs at this shape over blocks of ``B_`` samples, as the
+    wrappers pick it (``forced``: the split mode forced)."""
     from tinaural_torch.ops import _layout
-    from tinaural_torch.ops.step_plan import (mix_groups, spectra_rows,
-                                              step_plan)
+    from tinaural_torch.ops.step_plan import (mix_groups, pruned_plan,
+                                              spectra_rows, step_plan)
 
+    pruned = pruned_plan(n_fft, mix, B_ or n_fft)
+    if pruned is not None and not forced:
+        return (f"pruned body, Q {pruned.Q}, P {pruned.P}: "
+                f"{pruned.groups} residue groups of {pruned.residues} "
+                f"transforms a row, {pruned.threads} threads a block, "
+                f"{pruned.resident_blocks()} blocks an SM"
+                + (f", chunks of {chunk} sources" if mix else ""))
     plan = step_plan(n_fft, mix)
     sms = _layout.sm_count(dev)
     per = (mix_groups(plan, chunk, rows, sms) if mix
            else spectra_rows(plan, rows, sms))
-    split = _layout.split_work(plan.shared_f2(per), n_fft,
-                               _layout.max_shared_bytes(0))
+    with forced_split(forced):
+        split = _layout.split_work(plan.shared_f2(per), n_fft,
+                                   _layout.max_shared_bytes(0))
     if split or not plan.register:
         return "radix-2 body" + (", split mode" if split else "")
     what = "groups" if mix else "rows"
@@ -1218,42 +1283,57 @@ def step_body(n_fft: int, mix: bool, rows: int, dev, chunk: int = 1) -> str:
 
 def check_step(res: dict, name: str, xbs, H, n_fft: int, label: str,
                reps: int, chunk: int | None = None, profile: bool = True,
-               **kw) -> dict:
+               forced: bool = False, flush: bool = False, **kw) -> dict:
     """block_spectra (or, with ``chunk``, block_spectra_mix) against its
     plain fp32 version (SNR ≥ KERNEL_SNR_DB, timed beside its bound) and
-    its plain fp64 version (≥ KERNEL_SNR_DB), naming the body it ran;
-    with ``profile``, its device time a call in phase 5."""
+    its plain fp64 version (≥ KERNEL_SNR_DB), equal in bits over two
+    calls, naming the body it ran; ``forced``: the split mode forced;
+    ``flush``: each timed call after `l2_flush`; with ``profile``, its
+    device time a call in phase 5. Its bound is `step_work`'s, the
+    full-transform count (5·n·log2 n a forward) beside it."""
     import torch
 
     from tinaural_torch.ops import block_step as bs
 
     S, nb, B_ = xbs.shape
-    F = n_fft // 2 + 1
     mix = chunk is not None
     if mix:
         kw["chunk"] = chunk
     kern_fn = bs.block_spectra_mix_cuda if mix else bs.block_spectra_cuda
     plain_fn = (bs.block_spectra_mix_reference if mix
                 else bs.block_spectra_reference)
-    kern = lambda: kern_fn(xbs, H, n_fft, **kw)
+
+    def kern():
+        with forced_split(forced):
+            return kern_fn(xbs, H, n_fft, **kw)
+
     plain = lambda: plain_fn(xbs, H, n_fft, **kw)
     got = kern()
-    out_rows = got.shape[0] * nb
-    body = step_body(n_fft, mix, out_rows if mix else S * nb, xbs.device,
-                     chunk or 1)
+    require(torch.equal(got, kern()), f"{label} {name}: two calls differ")
+    body = step_body(n_fft, mix, got.shape[0] * nb if mix else S * nb,
+                     xbs.device, chunk or 1, B_, forced)
     print(f"[{label}] {name}: {body}", flush=True)
-    _report(res, name, got, plain(), kern, plain, label, reps, bound(
-        S * nb * B_ * 4 + H.numel() * 8 + out_rows * 2 * F * 8,
-        S * nb * (fft_flops(n_fft) + 2 * F * (16 if kw["crossfade"] else 8))))
+    work = dict(S=S, nb=nb, B_=B_, n=n_fft, h_numel=H.numel(),
+                crossfade=kw["crossfade"],
+                chunks=got.shape[0] if mix else None)
+    fl = l2_flush(xbs.device) if flush else None
+    _report(res, name, got, plain(), kern, plain, label, reps,
+            step_work(**work), flush=fl)
     s64 = snr_db(plain_fn(xbs.double(), H.to(torch.complex128), n_fft,
                           **kw), got)
-    print(f"[{label}] {name}: SNR {s64:.2f} dB vs plain fp64", flush=True)
+    nlogn = step_work(**work, full=True)
+    print(f"[{label}] {name}: SNR {s64:.2f} dB vs plain fp64, equal in bits "
+          f"over two calls; bound by the full-transform count (5·n·log2 n) "
+          f"{nlogn['bound_ms']:.4f} ms ({nlogn['bound_by']})", flush=True)
     require(s64 >= KERNEL_SNR_DB, f"{label} {name}: SNR {s64:.2f} vs plain "
             "fp64")
-    res[name].update(snr_fp64_db=s64, body=body, device_ms="not measured")
+    res[name].update(snr_fp64_db=s64, body=body, device_ms="not measured",
+                     bound_nlogn_ms=nlogn["bound_ms"], l2_flushed=flush,
+                     n_fft=n_fft, rows=S * nb, B=B_)
     if profile:
         KERNEL_PROFILES.append((f"{label} {name}", res[name], "device_ms",
-                                kern, None, "block_spectra_mix" if mix
+                                (lambda: (fl(), kern())) if flush else kern,
+                                None, "block_spectra_mix" if mix
                                 else "block_spectra"))
     return res[name]
 
@@ -1396,8 +1476,72 @@ def check_step_shapes(table, reps: int) -> dict:
                    crossfade=cf, dir_rate=k)
         if key != "h":
             check_step(res, "block_spectra_mix", xbs, H, n_fft, label, reps,
-                       chunk=bs.mix_chunk(S, nb, n_fft, sm_count(dev)),
+                       chunk=bs.mix_chunk(S, nb, n_fft, sm_count(dev), B_,
+                                          cf),
                        crossfade=cf, dir_rate=k)
+        out[key] = res
+    return out
+
+
+# (label, S, nb, B, n_fft) of the pruned checks on seeded random spectra:
+# the edge n_fft 262144 (Q 1024, P 256) and Q 16384 at 65536 (P 4: a block
+# a residue, its mirror's transform first)
+PRUNED_EDGES = (("n_fft 262144", 2, 8, 1024, 1 << 18),
+                ("Q 16384", 2, 4, 16384, 1 << 16))
+
+
+def check_pruned_kernels(tables: dict, reps: int) -> dict:
+    """block_spectra and block_spectra_mix in their pruned mode (n_fft
+    above 16384) and, beside each in the same run, with the split mode
+    forced: at n_fft 32768 and 65536 on 16 × 64 and 8 × 64 blocks of B
+    with filters from the 16,384- and 44,100-tap tables (crossfade, a
+    filter a block; at 32768 also without crossfade, two blocks a
+    transform), then at PRUNED_EDGES on random spectra; each timed after
+    an L2 flush, against plain fp32 and fp64, equal in bits over two
+    calls, naming its body, its device ms a call in phase 5."""
+    import numpy as np
+    import torch
+
+    from tinaural_torch.models.renderer import _n_fft
+    from tinaural_torch.ops import block_render as br
+    from tinaural_torch.ops import block_step as bs
+    from tinaural_torch.ops._layout import sm_count
+
+    out = {}
+    shapes = [(f"n_fft {_n_fft(t, B)}", t, S, nb, B, _n_fft(t, B))
+              for t, S, nb in ((tables[16384], 16, 64),
+                               (tables[44100], 8, 64))]
+    shapes += [(key, None, S, nb, Bq, n) for key, S, nb, Bq, n in PRUNED_EDGES]
+    for key, table, S, nb, Bq, n_fft in shapes:
+        dev = tables[16384].device
+        rng = np.random.default_rng(n_fft + Bq)
+        xbs = torch.tensor(rng.standard_normal((S, nb, Bq)),
+                           dtype=torch.float32, device=dev)
+        if table is not None:
+            idx, w = _rows(table, (S, nb), seed=S + nb + n_fft)
+            H = br.assemble_filters_cuda(idx, w, table, n_fft, **PART_FLAGS)
+        else:
+            F = n_fft // 2 + 1
+            H = torch.tensor(rng.standard_normal((S, nb, 2, F))
+                             + 1j * rng.standard_normal((S, nb, 2, F)),
+                             dtype=torch.complex64, device=dev)
+        label = (f"pruned {key}: {S} × {nb} blocks of {Bq}"
+                 + (f", {table.taps} taps" if table is not None else ""))
+        res = {}
+        # without crossfade (two blocks a transform) at the first shape
+        for cf in (True, False) if key == shapes[0][0] else (True,):
+            chunk = bs.mix_chunk(S, nb, n_fft, sm_count(dev), Bq, cf)
+            for forced in (False, True):
+                sfx = ("" if cf else "_no_crossfade") + (
+                    "_split_forced" if forced else "")
+                for name, ch in (("block_spectra", None),
+                                 ("block_spectra_mix", chunk)):
+                    m = check_step(res, name + sfx, xbs, H, n_fft, label,
+                                   2 if forced else reps, chunk=ch,
+                                   forced=forced, flush=True, crossfade=cf)
+                    want = "radix-2 body, split mode" if forced else "pruned"
+                    require(m["body"].startswith(want),
+                            f"{label} {name + sfx} ran {m['body']}")
         out[key] = res
     return out
 
@@ -1451,7 +1595,7 @@ def check_mix_kernels(table, S: int, nb: int, label: str, reps: int) -> dict:
     idx, w = _rows(table, (S, nb), seed=S + nb + 1)
     xbs = torch.tensor(np.random.default_rng(nb + 1).standard_normal(
         (S, nb, B)), dtype=torch.float32, device=table.device)
-    chunk = bs.mix_chunk(S, nb, n_fft, sm_count(table.device))
+    chunk = bs.mix_chunk(S, nb, n_fft, sm_count(table.device), B, True)
     C = -(-S // chunk)
     print(f"[{label}] {C} chunks of {chunk} sources: {C * nb} CUDA blocks",
           flush=True)
@@ -1494,7 +1638,7 @@ def check_group_step_kernels(table, S: int, nb: int, dir_rate: int,
     xbs = torch.tensor(np.random.default_rng(nb + dir_rate).standard_normal(
         (S, nb, B)), dtype=torch.float32, device=table.device)
     H = br.assemble_filters_cuda(idx, w, table, n_fft, **PART_FLAGS)
-    chunk = bs.mix_chunk(S, nb, n_fft, sm_count(table.device))
+    chunk = bs.mix_chunk(S, nb, n_fft, sm_count(table.device), B, True)
     kw = dict(crossfade=True, dir_rate=dir_rate)
     res = {}
     check_step(res, "block_spectra", xbs, H, n_fft, label, reps, **kw)
@@ -1876,10 +2020,13 @@ def check_streamed(table, N: int, launches_total: dict, reps: int,
     return res
 
 
-def check_static(table, N: int, launches_total: dict, reps: int) -> dict:
-    """(h) static `render` of N samples at bench.py's direction (B = 1024)
-    on the block route, then one short call on the direct route, which
-    launches no kernel (`torch.fft` on the card)."""
+def check_static(table, N: int, launches_total: dict, reps: int,
+                 name: str = "h", direct: bool = True,
+                 block: int = B) -> dict:
+    """(h) static `render` of N samples at bench.py's direction on the
+    block route, in blocks of ``block`` samples, then (``direct``) one
+    short call on the direct route, which launches no kernel (`torch.fft`
+    on the card)."""
     import numpy as np
     import torch
 
@@ -1889,18 +2036,23 @@ def check_static(table, N: int, launches_total: dict, reps: int) -> dict:
     from tinaural_torch.ops import block_step as bs
     from tinaural_torch.ops.filters import next_pow2
 
-    cfg = tt.RenderConfig(block_size=B)
+    cfg = tt.RenderConfig(block_size=block)
     r = tt.BinauralRenderer(table, cfg)
     x = np.random.default_rng(3).standard_normal(N).astype(np.float32)
-    xb = torch.tensor(x.reshape(-1, B), device=table.device)
+    xb = torch.tensor(x.reshape(-1, block), device=table.device)
     dir2 = torch.tensor([123.4, 5.6], device=table.device)
     res = check_render(
-        f"h static 2^{N.bit_length() - 1}", lambda: r.render(x, 123.4, 5.6),
+        f"{name} static 2^{N.bit_length() - 1}"
+        + (f" {table.taps} taps" if table.taps != 128 else "")
+        + (f" block {block}" if block != B else ""),
+        lambda: r.render(x, 123.4, 5.6),
         lambda plain, dt: _static_block_core(
             table, xb.to(dt), dir2, cfg,
             render=bs.block_step_render_reference if plain
             else bs.block_step_render),
         N / SR, STEP_COUNTS, launches_total, reps, NEW_RENDER_SNR_DB)
+    if not direct:
+        return res
 
     short = 4000  # under 8 blocks of 1024
     y, counts = _counts_after(lambda: r.render(x[:short], 123.4, 5.6), {},
@@ -2552,9 +2704,11 @@ def ptxas_summary(log: str) -> list[str]:
             sym = m.group(1)
             base = re.search(r"\d+([a-z_]+_kernel)", sym)
             args = re.findall(r"L(b[01]|i\d+)E", sym)
+            mark = ("cluster " if "ClusterPlan" in sym else
+                    "pruned " if "6pruned" in sym else "")
             name = (base.group(1) if base else sym) + (
-                "<" + ("cluster " if "ClusterPlan" in sym else "")
-                + ",".join(a[1:] for a in args) + ">" if args else "")
+                "<" + mark + ",".join(a[1:] for a in args) + ">"
+                if args else "")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and name:
@@ -2582,9 +2736,34 @@ def step_extra(m: dict, timed: bool = False) -> dict:
     fp64 (``timed``: its CUDA-event ms, plain ms and bound too), for the
     kernels line."""
     keys = ("body", "device_ms", "snr_fp64_db") + (
-        ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "snr_db")
+        ("ms", "plain_ms", "bound_ms", "bound_by", "bound_nlogn_ms",
+         "max_abs_err", "snr_db", "n_fft", "rows", "B", "l2_flushed")
         if timed else ())
     return {k: m[k] for k in keys}
+
+
+def pruned_extra(k_pruned: dict, kernel: str, renders: dict,
+                 keys: tuple) -> dict:
+    """The block-step kernel's pruned checks and their forced split mode
+    beside them, and its device ms and bound in the renders ``keys``, for
+    the kernels line."""
+    split = f"{kernel}_split_forced"
+    real = f"{kernel}_no_crossfade"
+    return {"pruned_shapes": {key: step_extra(m[kernel], True)
+                              for key, m in k_pruned.items()},
+            "pruned_split_forced": {key: step_extra(m[split], True)
+                                    for key, m in k_pruned.items()},
+            "pruned_no_crossfade": {key: {
+                "pruned": step_extra(m[real], True),
+                "split_forced": step_extra(m[f"{real}_split_forced"], True)}
+                for key, m in k_pruned.items() if real in m},
+            "renders": {key: {
+                "device_ms": renders[key].get("device_ms_by_kernel", {}).get(
+                    f"{kernel}_kernel", "not measured"),
+                "bound_ms": renders[key]["bounds"][kernel]["bound_ms"],
+                "bound_by": renders[key]["bounds"][kernel]["bound_by"],
+                "launches": renders[key]["launches"][kernel]}
+                for key in keys}}
 
 
 def serving_device_ms(renders: dict, kernel: str) -> dict:
@@ -2621,7 +2800,10 @@ def main() -> int:
     from tinaural_torch.ops import block_render as br
     from tinaural_torch.ops import block_step as bs
     from tinaural_torch.ops import partitioned_conv as pc
+    from tinaural_torch.models.renderer import _n_fft
+    from tinaural_torch.ops._layout import sm_count
     from tinaural_torch.ops.render_plan import filters_plan, mix_plan
+    from tinaural_torch.ops.step_plan import pruned_plan
 
     # 1. device
     card = card_line()
@@ -2734,6 +2916,9 @@ def main() -> int:
         reps=5)
     # render (h)'s shape, and the register bodies' edges
     k_step_shapes = check_step_shapes(table, reps=5)
+    # the pruned mode above n_fft 16384, the split mode forced beside it
+    k_pruned = check_pruned_kernels({16384: long_traj, 44100: long_streamed},
+                                    reps=5)
     k_inverse = check_inverse_shapes(dev, reps=5)
 
     # 3d. the scene mixdown's and the natural-order route's kernels
@@ -2888,6 +3073,89 @@ def main() -> int:
         f"{k} {v['bound_ms']:.4f} ms ({v['bound_by']})"
         for k, v in bounds_n.items()) + f"; the render "
         f"{sum(v['bound_ms'] for v in bounds_n.values()):.4f} ms", flush=True)
+
+    # (o), (p), (q): (h)'s static render at 2^20 samples, (c)'s 64 static
+    # and (b)'s 64 moving sources × 2^17 (128 blocks < 132 SMs: B4) on
+    # (j)'s 16,384-tap table at block 1024, n_fft 32768: the block step's
+    # pruned mode (Q 1024, P 32); their float64 plain paths 8 sources at
+    # a time, as (n)'s; B1 timed and profiled beside (q)
+    n_o = _n_fft(long_traj, B)
+    require(all(pruned_plan(n_o, mix, B) is not None for mix in (False, True)),
+            "(o)–(q) leave the pruned mode")
+    renders["o_static_16384_taps"] = check_static(long_traj, 1 << 20,
+                                                  launches, reps=3, name="o",
+                                                  direct=False)
+    # (r): (h)'s static render at 2^20 samples in blocks of 16384 (the
+    # CLI's --block) on the 44,100-tap table, n_fft 65536: the pruned
+    # mode's Q 16384 (P 4: a residue a CUDA block, its mirror run first)
+    B_r = 1 << 14
+    n_r = _n_fft(long_streamed, B_r)
+    plan_r = pruned_plan(n_r, False, B_r)
+    require(plan_r is not None and plan_r.half and plan_r.P == 4,
+            "(r) leaves the pruned mode's Q 16384")
+    renders["r_static_44100_taps_block_16384"] = check_static(
+        long_streamed, 1 << 20, launches, reps=3, name="r", direct=False,
+        block=B_r)
+    rng_pq = np.random.default_rng(5)
+    S, N = 64, 1 << 17
+    nb_pq = N // B
+    xs_pq = rng_pq.standard_normal((S, N)).astype(np.float32)
+    dp = np.stack([rng_pq.uniform(0, 360, S), rng_pq.uniform(-40, 90, S)],
+                  -1).astype(np.float32)
+    dq = np.stack([rng_pq.uniform(0, 360, (S, nb_pq)),
+                   rng_pq.uniform(-40, 90, (S, nb_pq))], -1).astype(np.float32)
+    xbs_pq = torch.tensor(xs_pq.reshape(S, -1, B), device=dev)
+    dp_t, dq_t = (torch.tensor(d, device=dev) for d in (dp, dq))
+    rl = tt.BinauralRenderer(long_traj, cfg)
+    renders["p_scene_static_16384_taps"] = check_render(
+        "p scene 64 static 16384 taps", lambda: rl.render_scene(xs_pq, dp),
+        lambda plain, dt: _scene_static_core(long_traj, xbs_pq.to(dt), dp_t,
+                                             cfg, render=mix_op(plain)),
+        S * N / SR, MIX_COUNTS, launches, reps=3,
+        min_snr=NEW_RENDER_SNR_DB, same_bits=True,
+        ref=lambda: scene_reference_chunked(long_traj, xbs_pq, dp_t, cfg, 8,
+                                            static=True))
+    renders["q_scene_moving_16384_taps"] = check_render(
+        "q scene 64 moving 16384 taps", lambda: rl.render_scene(xs_pq, dq),
+        lambda plain, dt: _scene_core(long_traj, xbs_pq.to(dt), dq_t, cfg,
+                                      render=mix_op(plain)),
+        S * N / SR, MIX_COUNTS, launches, reps=3,
+        min_snr=NEW_RENDER_SNR_DB, same_bits=True,
+        other_routes={"block_render": lambda: _scene_core(
+            long_traj, xbs_pq, dq_t, cfg, render=br.block_render)},
+        ref=lambda: scene_reference_chunked(long_traj, xbs_pq, dq_t, cfg, 8),
+        profile_routes=True)
+    # their block-step kernel's and assemble_filters' bounds, from inputs
+    F_o = n_o // 2 + 1
+    for key, dirs_k, cf in (("p_scene_static_16384_taps", dp_t[:, None],
+                             False),
+                            ("q_scene_moving_16384_taps", dq_t,
+                             cfg.crossfade)):
+        idx_k, _ = _neighbours(long_traj, dirs_k, cfg)
+        chunk_k = bs.mix_chunk(S, nb_pq, n_o, sm_count(dev), B, cf)
+        renders[key]["bounds"] = {
+            "assemble_filters": assembly_work(long_traj, idx_k, n_o),
+            "block_spectra_mix": step_work(
+                S, nb_pq, B, n_o, idx_k.numel() // 4 * 2 * F_o, cf,
+                -(-S // chunk_k))}
+    nb_o = (1 << 20) // B
+    idx_o, _ = _neighbours(long_traj, torch.tensor([[123.4, 5.6]],
+                                                   device=dev), cfg)
+    renders["o_static_16384_taps"]["bounds"] = {
+        "assemble_filters": assembly_work(long_traj, idx_o, n_o),
+        "block_spectra": step_work(1, nb_o, B, n_o, 2 * F_o, False)}
+    idx_r, _ = _neighbours(long_streamed, torch.tensor([[123.4, 5.6]],
+                                                       device=dev), cfg)
+    renders["r_static_44100_taps_block_16384"]["bounds"] = {
+        "assemble_filters": assembly_work(long_streamed, idx_r, n_r),
+        "block_spectra": step_work(1, (1 << 20) // B_r, B_r, n_r,
+                                   n_r + 2, False)}
+    for key in ("o_static_16384_taps", "p_scene_static_16384_taps",
+                "q_scene_moving_16384_taps",
+                "r_static_44100_taps_block_16384"):
+        print(f"[render {key}] bounds: " + ", ".join(
+            f"{k} {v['bound_ms']:.4f} ms ({v['bound_by']})"
+            for k, v in renders[key]["bounds"].items()), flush=True)
 
     # 4b. the streaming and partitioned renders
     renders["d_serving"] = check_serving("d serving", table, 1024, 32, 1,
@@ -3096,7 +3364,10 @@ def main() -> int:
                          k_step_shapes["h"]["block_spectra"], True),
                      edges={key: step_extra(m["block_spectra"], True)
                             for key, m in k_step_shapes.items()
-                            if key != "h"}),
+                            if key != "h"},
+                     **pruned_extra(k_pruned, "block_spectra", renders,
+                                    ("o_static_16384_taps",
+                                     "r_static_44100_taps_block_16384"))),
         kernel_entry("spectra_inverse", INVERSE_SOURCE, FUSED_EPILOGUE,
                      launches["spectra_inverse"], k_step["spectra_inverse"],
                      summed_ms=k_mix["spectra_inverse_summed"]["ms"],
@@ -3117,7 +3388,10 @@ def main() -> int:
                         for f in ("ms", "device_ms", "bound_ms", "bound_by")},
                      edges={key: step_extra(m["block_spectra_mix"], True)
                             for key, m in k_step_shapes.items()
-                            if key != "h"}),
+                            if key != "h"},
+                     **pruned_extra(k_pruned, "block_spectra_mix", renders,
+                                    ("p_scene_static_16384_taps",
+                                     "q_scene_moving_16384_taps"))),
         kernel_entry("assembly_mac", MAC_SOURCE, FUSED_ASSEMBLY_MAC,
                      launches["assembly_mac"], k_mac["assembly_mac"],
                      run=k_mac["assembly_mac"]["run"],

@@ -28,7 +28,9 @@ every size, so the CPU can rehearse the inputs and calls (without
 timings). ``--kernels`` times the kernels alone and no render, and builds
 only the two sources they need (``csrc/block_step.cu`` and
 ``csrc/block_render.cu``), printing their ptxas lines: a quick way to
-compare edited copies of a tree.
+compare edited copies of a tree. ``--pruned`` adds both kernels at the
+shapes of chip_smoke.py's (o), (p) and (q) on the 16,384-tap table
+(n_fft 32768: the pruned mode, or the split mode on a tree without it).
 """
 
 from __future__ import annotations
@@ -107,11 +109,15 @@ def snr_db(ref, test) -> float:
                                   / (ref - test).pow(2).sum()))
 
 
-def chunk_of(S: int, nb: int, n_fft: int, dev) -> int:
-    """The source chunk of the tree's scene route (its mix_chunk took no
-    n_fft before the register body)."""
+def chunk_of(S: int, nb: int, n_fft: int, dev, crossfade: bool = True) -> int:
+    """The source chunk of the tree's scene route over blocks of B (its
+    mix_chunk took no n_fft before the register body, and no block length
+    or crossfade before the pruned mode)."""
     sms = _layout.sm_count(dev)
-    if len(inspect.signature(bs.mix_chunk).parameters) == 4:
+    params = len(inspect.signature(bs.mix_chunk).parameters)
+    if params >= 6:
+        return bs.mix_chunk(S, nb, n_fft, sms, B, crossfade)
+    if params == 4:
         return bs.mix_chunk(S, nb, n_fft, sms)
     return bs.mix_chunk(S, nb, sms)
 
@@ -172,6 +178,43 @@ def kernels(table, cut) -> list:
                 lambda: spectra_call(xh, H, n_fft, **kw),
                 lambda: bs.block_spectra_reference(xh.double(), H.cdouble(),
                                                    n_fft, **kw)))
+    return out
+
+
+def pruned_kernels(dev, cut) -> list:
+    """(name, kernel call, plain float64 call) of both kernels at the
+    shapes of chip_smoke.py's renders (o), (p) and (q) on the 16,384-tap
+    synthetic table (n_fft 32768; the pruned mode on a tree that has it,
+    else the split mode): (o)'s 1024 rows of one source under one filter
+    without crossfade, (p)'s 64 × 128 blocks under one filter a source
+    without it, (q)'s under a filter a block with it."""
+    table = tt.TorchTable.from_hrir_table(
+        tt.load_hrir_set("synthetic", taps=cut(16384, 256)), dev)
+    n_fft = cut(1 << 15, 2048)
+    rng = np.random.default_rng(4)
+    out = []
+    nb_o = cut(1024, 9)
+    xo = torch.tensor(rng.standard_normal((1, nb_o, B)), dtype=torch.float32,
+                      device=dev)
+    H = br.assemble_filters_reference(*rows(table, (1, 1), seed=5), table,
+                                      n_fft, **FLAGS)
+    kw_o = dict(crossfade=False, dir_rate=nb_o)
+    out.append(("o block_spectra", lambda: spectra_call(xo, H, n_fft, **kw_o),
+                lambda: bs.block_spectra_reference(xo.double(), H.cdouble(),
+                                                   n_fft, **kw_o)))
+    S, nb = cut(64, 3), cut(128, 5)
+    xbs = torch.tensor(rng.standard_normal((S, nb, B)), dtype=torch.float32,
+                       device=dev)
+    for key, one, cf in (("p", True, False), ("q", False, True)):
+        Hk = br.assemble_filters_reference(
+            *rows(table, (S, 1 if one else nb), seed=6), table, n_fft,
+            **FLAGS)
+        kw = dict(crossfade=cf, dir_rate=nb if one else 1,
+                  chunk=chunk_of(S, nb, n_fft, dev, cf))
+        out.append((f"{key} block_spectra_mix",
+                    lambda Hk=Hk, kw=kw: mix_call(xbs, Hk, n_fft, **kw),
+                    lambda Hk=Hk, kw=kw: bs.block_spectra_mix_reference(
+                        xbs.double(), Hk.cdouble(), n_fft, **kw)))
     return out
 
 
@@ -258,6 +301,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--small", action="store_true")
     ap.add_argument("--kernels", action="store_true")
+    ap.add_argument("--pruned", action="store_true")
     args = ap.parse_args()
     cut = (lambda n, m: m) if args.small else (lambda n, m: n)
     if args.small:
@@ -273,7 +317,8 @@ def main() -> None:
         if args.kernels:
             build_step_only()
     table = tt.TorchTable.from_hrir_table(tt.load_hrir_set("synthetic"), dev)
-    items = kernels(table, cut)
+    items = kernels(table, cut) + (pruned_kernels(dev, cut) if args.pruned
+                                   else [])
     res = []
     for name, kern, plain in items:
         res.append({"kernel": name, "snr_db_vs_plain_fp64": snr_db(plain(),

@@ -61,7 +61,7 @@ from tinaural_torch.ops.ola_plan import ola_plan
 from tinaural_torch.ops.partitions_plan import partitions_plan
 from tinaural_torch.ops.render_plan import filters_plan, mix_plan
 from tinaural_torch.ops.spectra_inverse import inverse_plan
-from tinaural_torch.ops.step_plan import step_plan
+from tinaural_torch.ops.step_plan import pruned_plan, step_plan
 
 from test_torch_mac_plan import _inputs as _random_inputs
 from test_torch_mac_plan import _table as _random_table
@@ -848,19 +848,39 @@ def test_block_step_register_kernels_every_size(cuda, log2n):
     for k in (1, 2, 8):
         xbs, H = _step_inputs(S, nb, n, k, seed=log2n * 10 + k, dev=cuda)
         for crossfade in (True, False):
-            for chunk in {bs.mix_chunk(S, nb, n, _layout.sm_count(cuda)), 2}:
+            for chunk in {bs.mix_chunk(S, nb, n, _layout.sm_count(cuda),
+                                            n // 2, crossfade), 2}:
                 _check_step_kernels(xbs, H, n, crossfade, k, chunk)
+
+
+def _spy_slices(monkeypatch) -> list:
+    """The split slices of every block-step launch's layout from now on (0:
+    no scratch, the register or pruned body)."""
+    seen, real = [], bs.layout
+
+    def spy(*args):
+        out = real(*args)
+        seen.append(out[1])
+        return out
+
+    monkeypatch.setattr(bs, "layout", spy)
+    return seen
 
 
 @pytest.mark.gpu
 def test_block_step_at_the_mode_boundaries(cuda, monkeypatch):
-    """n_fft 16384 (the largest register plan), 32768 (the split mode's
-    radix-2 body) and a forced split mode at 2048, on both kernels
-    against their plain versions; and B < 128 (n_fft 64) on the radix-2
-    body in shared memory."""
+    """n_fft 16384 (the largest register plan), 32768 at B 16384 (the
+    pruned mode at Q 16384, P 2: a block a residue) and a forced split
+    mode at 2048, on both kernels against their plain versions; and B <
+    128 (n_fft 64) on the radix-2 body in shared memory."""
+    slices = _spy_slices(monkeypatch)
     for n, force in ((16384, 0), (32768, 0), (2048, 64), (64, 0)):
         monkeypatch.setattr(_layout, "force_work", force)
         assert step_plan(n, True).register == (128 <= n <= 16384)
+        pruned = pruned_plan(n, True, n // 2) if n > 16384 else None
+        assert (pruned is not None) == (n == 32768)
+        assert pruned is None or (pruned.half and pruned.P == 2)
+        del slices[:]
         rng = np.random.default_rng(n)
         S, nb, F = 3, 4, n // 2 + 1
         xbs = torch.from_numpy(rng.standard_normal((S, nb, n // 2)).astype(
@@ -869,6 +889,53 @@ def test_block_step_at_the_mode_boundaries(cuda, monkeypatch):
                               + 1j * rng.standard_normal((S, nb, 2, F))
                               ).astype(np.complex64)).to(cuda)
         _check_step_kernels(xbs, H, n, True, 1, 2)
+        assert slices and all((s > 0) == bool(force) for s in slices)
+
+
+def _random_step_inputs(S, nb, B_, n, k, seed, dev):
+    """Seeded blocks and random filter spectra (⌈nb/k⌉ a source)."""
+    rng = np.random.default_rng(seed)
+    fnb, F = -(-nb // k), n // 2 + 1
+    xbs = torch.from_numpy(rng.standard_normal((S, nb, B_)).astype(
+        np.float32)).to(dev)
+    H = torch.from_numpy((rng.standard_normal((S, fnb, 2, F))
+                          + 1j * rng.standard_normal((S, fnb, 2, F))
+                          ).astype(np.complex64)).to(dev)
+    return xbs, H
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,B_", [(1 << 15, 1024), (1 << 16, 1024),
+                                  (1 << 18, 1024), (1 << 15, 64),
+                                  (1 << 16, 3000), (1 << 16, 16384)])
+def test_block_step_pruned_mode(cuda, n, B_, monkeypatch):
+    """Both kernels in the pruned mode (no scratch) at n_fft 32768, 65536
+    and 262144 with B 1024 (Q 1024), and at Q 128, 4096 and 16384 (P 4: a
+    block a residue, the mirror's transform first): 3 sources × 5 blocks,
+    crossfade on and off, dir_rate 1 and 4 (nb no multiple of k), the mix
+    in chunks of 2 and on the scene route's chunk, each against its plain
+    float32 and float64 versions (≥ 100 dB) and equal in bits over two
+    calls; then the split mode forced at the same shape (the radix-2 body
+    over a scratch), against the same plain versions."""
+    assert pruned_plan(n, False, B_) and pruned_plan(n, True, B_)
+    slices = _spy_slices(monkeypatch)
+    S, nb = 3, 5
+    for k in (1, 4):
+        xbs, H = _random_step_inputs(S, nb, B_, n, k, seed=n % 97 + B_ + k,
+                                     dev=cuda)
+        for crossfade in (True, False):
+            kw = dict(crossfade=crossfade, dir_rate=k)
+            Y = bs.block_spectra_cuda(xbs, H, n, **kw)
+            assert torch.equal(Y, bs.block_spectra_cuda(xbs, H, n, **kw))
+            chunks = {bs.mix_chunk(S, nb, n, _layout.sm_count(cuda), B_,
+                                    crossfade), 2}
+            for chunk in chunks:
+                _check_step_kernels(xbs, H, n, crossfade, k, chunk)
+    assert slices and not any(slices)
+    monkeypatch.setattr(_layout, "force_work", _layout.SPLIT_WORK)
+    xbs, H = _random_step_inputs(S, nb, B_, n, 1, seed=7, dev=cuda)
+    _check_step_kernels(xbs, H, n, True, 1, 2)
+    assert slices[-1] > 0 and slices[-2] > 0
 
 
 @pytest.mark.gpu

@@ -182,16 +182,16 @@ def test_mix_chunk_rule():
     once, a partial counted as one more round, then the fewest chunks;
     the radix-2 body's rule below n_fft 128 and above 16384; one chunk
     with no card."""
-    assert bs.mix_chunk(64, 128, 2048, 132) == 22  # (b), (c): 3 chunks
-    assert mix_launch(64, 128, 2048, 132) == (22, 2)  # 384 blocks, 6 a SM
-    assert mix_launch(64, 16, 2048, 132) == (8, 4)
-    assert bs.mix_chunk(3, 5, 2048, 132) == 2
-    assert bs.mix_chunk(64, 4096, 2048, 132) == 32
-    assert bs.mix_chunk(10, 300, 2048, 132) == 10  # 300 blocks of 2 groups
-    assert mix_launch(64, 128, 16384, 132) == (64, 1)  # 1024 threads a block
-    assert mix_launch(64, 128, 64, 132) == (8, 1)  # radix-2: 8 chunks
-    assert mix_launch(64, 128, 32768, 132) == (8, 1)
-    assert bs.mix_chunk(64, 128, 2048, 0) == 64
+    assert bs.mix_chunk(64, 128, 2048, 132, B, True) == 22  # (b), (c): 3 chunks
+    assert mix_launch(64, 128, 2048, 132, B, True) == (22, 2)  # 384 blocks, 6 a SM
+    assert mix_launch(64, 16, 2048, 132, B, True) == (8, 4)
+    assert bs.mix_chunk(3, 5, 2048, 132, B, True) == 2
+    assert bs.mix_chunk(64, 4096, 2048, 132, B, True) == 32
+    assert bs.mix_chunk(10, 300, 2048, 132, B, True) == 10  # 300 blocks of 2 groups
+    assert mix_launch(64, 128, 16384, 132, 8192, True) == (64, 1)  # 1024 threads a block
+    assert mix_launch(64, 128, 64, 132, 32, True) == (8, 1)  # radix-2: 8 chunks
+    assert mix_launch(64, 128, 32768, 132, 32768, True) == (8, 1)
+    assert bs.mix_chunk(64, 128, 2048, 0, B, True) == 64
 
 
 def test_mix_buffer_mode():
@@ -202,7 +202,7 @@ def test_mix_buffer_mode():
     limit = 232448
     for n_fft in (2048, 8192, 16384):
         plan = step_plan(n_fft, True)
-        groups = mix_launch(64, 128, n_fft, 132)[1]
+        groups = mix_launch(64, 128, n_fft, 132, n_fft // 2, True)[1]
         assert plan.register
         assert _layout.split_work(plan.shared_f2(groups), n_fft, limit) == 0
     assert step_plan(64, True).shared_f2(1) == 32 + 64 + 2 * 33

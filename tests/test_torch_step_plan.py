@@ -42,8 +42,9 @@ from tinaural_torch.ops.block_render import filter_rows
 from tinaural_torch.ops.ola import overlap_add
 from tinaural_torch.ops.spectra_inverse import MAX_REGISTER_N, twiddles
 from tinaural_torch.ops.step_plan import (RADIX2_THREADS, mix_groups,
-                                          mix_launch, radix2_plan,
-                                          spectra_rows, step_plan)
+                                          mix_launch, pruned_plan,
+                                          radix2_plan, spectra_rows,
+                                          step_plan)
 
 torch.set_num_threads(1)
 
@@ -71,8 +72,10 @@ def _compiled_unit_f2(n: int, mix: bool) -> int:
 def test_step_plans(log2n, mix):
     """Both plans match the compiled constants: the register body at
     n_fft 128 … 16384, whose largest block fits the H100's shared memory,
-    so the layout takes the shared mode; above, the radix-2 body, whose
-    shared figure does not fit, so the layout takes the split mode."""
+    so the layout takes the shared mode; above, the pruned body at block
+    1024 (Q 1024, `tests/test_torch_step_pruned_plan.py`), whose block
+    fits too, so the layout takes the pruned mode, and beside it the
+    radix-2 body of the split mode, whose shared figure does not fit."""
     n = 1 << log2n
     p = step_plan(n, mix)
     register = n <= MAX_REGISTER_N
@@ -92,6 +95,11 @@ def test_step_plans(log2n, mix):
         # 64 registers a thread under __launch_bounds__
         assert 65536 // (p.blocks_per_sm * p.max_per_block * threads) == 64
     else:
+        q = pruned_plan(n, mix, 1024)
+        assert q is not None and (q.Q, q.P) == (1024, n // 1024)
+        assert q.radices == _compiled_plan(1024)[0]
+        assert _layout.split_work(q.shared_f2, n, H100_SHARED_BYTES) == 0
+        assert q.scratch_f2 == p.scratch_f2
         assert p == radix2_plan(n, mix)
         assert (p.threads, p.max_per_block, p.blocks_per_sm) == (
             RADIX2_THREADS, 1, 1)
@@ -131,13 +139,13 @@ def test_launch_rules():
     assert spectra_rows(step_plan(512, False), 8192, 132) == 4
     m = step_plan(2048, True)
     assert [m.resident_blocks(g) for g in (1, 2, 4)] == [6, 3, 1]
-    assert mix_launch(64, 128, 2048, 132) == (22, 2)
+    assert mix_launch(64, 128, 2048, 132, 1024, True) == (22, 2)
     assert mix_groups(m, 22, 3 * 128, 132) == 2
     assert mix_groups(m, 22, 3 * 128, 0) == 1
     assert mix_groups(radix2_plan(2048, True), 22, 384, 132) == 1
     for S, nb, n in ((64, 128, 2048), (16, 1024, 2048), (5, 40, 512),
                      (200, 3, 128), (7, 9, 16384)):
-        chunk, groups = mix_launch(S, nb, n, 132)
+        chunk, groups = mix_launch(S, nb, n, 132, n // 2, True)
         plan = step_plan(n, True)
         assert 1 <= chunk <= S and groups & (groups - 1) == 0
         assert groups <= min(chunk, plan.max_per_block)

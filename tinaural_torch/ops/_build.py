@@ -38,8 +38,8 @@ _SIGNATURES = {
     "tt_stream_conv": [_P] * 14 + [_I] * 7 + _SPLIT,
     "tt_frame_spectra": [_P] * 3 + [_I] * 7 + [_P],
     "tt_partitioned_conv": [_P] * 6 + [_I] * 11 + _SPLIT,
-    "tt_block_spectra": [_P] * 4 + [_I] * 9 + _SPLIT,
-    "tt_block_spectra_mix": [_P] * 4 + [_I] * 10 + _SPLIT,
+    "tt_block_spectra": [_P] * 5 + [_I] * 9 + _SPLIT,
+    "tt_block_spectra_mix": [_P] * 5 + [_I] * 10 + _SPLIT,
     "tt_spectra_inverse": [_P] * 4 + [_I] * 6 + _SPLIT,
     "tt_assembly_mac": [_P] * 13 + [_I] * 11 + [_F] * 4 + _SPLIT,
     "tt_assembly_mac_clusters": [_I],

@@ -14,7 +14,12 @@ whose blocks hold a share of its buffers each (``csrc/fft_reg.cuh``
 so the shared-mode test below takes them too, and the kernel's entry
 point picks the cluster kernel from the sizes. Runs of rows come from the
 clusters the card places at once (`cluster_slots`, `run_length`); a
-cluster launch that the card cannot place raises.
+cluster launch that the card cannot place raises. The block step's two
+kernels, `block_spectra` and `block_spectra_mix`, have a pruned mode at
+n_fft above 16384 instead (``ops/step_plan.py`` `pruned_plan`): a block of
+B samples zero-padded to n is n/Q transforms of Q = max(next_pow2(B), 128)
+≤ 16384 points, a few of them in one block's shared memory; its plan's
+shared figure is one block's, so the shared-mode test takes it too.
 Above it the kernels run with their buffers in a device-memory scratch,
 one slice per CUDA block, the blocks walking the rows in a grid-stride loop
 and each n-point FFT split into two passes of at most `SPLIT_WORK` points

@@ -31,8 +31,10 @@ kernels of ``csrc/assemble_filters.cu``, ``csrc/block_step.cu``,
 ``csrc/spectra_inverse.cu`` and ``csrc/block_render.cu`` on CUDA tensors
 and run the plain versions on CPU tensors; any other device raises. The
 kernels take every FFT size (``ops/_layout.py``): `block_spectra` and
-`block_spectra_mix` run register bodies at n_fft 128 … 16384 and radix-2
-bodies elsewhere, their launches planned by ``ops/step_plan.py``.
+`block_spectra_mix` run register bodies at n_fft 128 … 16384, pruned
+bodies above (P transforms of Q = max(next_pow2(B), 128) ≤ 16384 points
+of the pre-twiddled block) and radix-2 bodies elsewhere, their launches
+planned by ``ops/step_plan.py``.
 ``launches`` counts the three kernels of this module.
 """
 
@@ -47,8 +49,8 @@ from .block_render import (_check_inputs, _cuda_inputs,
                            overlap_add_cuda)
 from .ola import overlap_add
 from .spectra_inverse import MAX_REGISTER_N, inverse_plan, twiddles
-from .step_plan import (mix_groups, mix_launch, radix2_plan, spectra_rows,
-                        step_plan)
+from .step_plan import (PrunedPlan, mix_groups, mix_launch, pruned_plan,
+                        radix2_plan, spectra_rows, step_plan)
 
 KERNELS = ("block_spectra", "spectra_inverse", "block_spectra_mix")
 launches = dict.fromkeys(KERNELS, 0)
@@ -117,7 +119,7 @@ def scene_step_render(xbs: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
                               apply_ild=apply_ild)
     P = block_spectra_mix_cuda(
         xbs, H, n_fft, crossfade=crossfade,
-        chunk=mix_chunk(S, nb, n_fft, sm_count(xbs.device)),
+        chunk=mix_chunk(S, nb, n_fft, sm_count(xbs.device), B, crossfade),
         dir_rate=dir_rate)
     frames = spectra_inverse_cuda(P, n_fft, summed=True)
     return overlap_add_cuda(frames[None], B)[0]
@@ -129,12 +131,14 @@ def scene_step_render(xbs: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
 scene_step_render_reference = block_render_reference
 
 
-def mix_chunk(S: int, nb: int, n_fft: int, sms: int) -> int:
-    """Sources per chunk of `block_spectra_mix` (C = ⌈S/chunk⌉ partials):
-    the chunk of ``ops/step_plan.py`` `mix_launch`, which picks it with
-    the groups per CUDA block from the kernel's occupancy on a card of
-    ``sms`` SMs (one chunk with no card)."""
-    return mix_launch(S, nb, n_fft, sms)[0]
+def mix_chunk(S: int, nb: int, n_fft: int, sms: int, B: int,
+              crossfade: bool) -> int:
+    """Sources per chunk of `block_spectra_mix` (C = ⌈S/chunk⌉ partials)
+    over blocks of B samples, with or without ``crossfade``: the chunk of
+    ``ops/step_plan.py`` `mix_launch`, which
+    picks it with the groups per CUDA block from the kernel's occupancy on
+    a card of ``sms`` SMs (one chunk with no card)."""
+    return mix_launch(S, nb, n_fft, sms, B, crossfade)[0]
 
 
 def _check_spectra_inputs(xbs: torch.Tensor, H: torch.Tensor, n_fft: int,
@@ -166,15 +170,19 @@ def block_spectra_cuda(xbs: torch.Tensor, H: torch.Tensor, n_fft: int, *,
     stream = _cuda_inputs(xbs, H)
     S, nb, B, F = _check_spectra_inputs(xbs, H, n_fft, dir_rate)
     Y = torch.empty((S, nb, 2, F), dtype=torch.complex64, device=xbs.device)
-    plan = step_plan(n_fft, False)
-    G = spectra_rows(plan, S * nb, sm_count(xbs.device))
-    *split, _keep = layout(xbs.device, plan.shared_f2(G), plan.scratch_f2,
-                           S * nb, n_fft)
+    plan = pruned_plan(n_fft, False, B)
+    if plan is not None:
+        G, shared = plan.residues, plan.shared_f2
+    else:
+        plan = step_plan(n_fft, False)
+        G = spectra_rows(plan, S * nb, sm_count(xbs.device))
+        shared = plan.shared_f2(G)
+    *split, _keep = layout(xbs.device, shared, plan.scratch_f2, S * nb, n_fft)
     if split[1]:
         plan, G = radix2_plan(n_fft, False), 1
-    tw = twiddles(n_fft, xbs.device).data_ptr() if plan.register else 0
+    tw, twq = _tables(plan, n_fft, xbs.device)
     _build.check(_build.library().tt_block_spectra(
-        xbs.data_ptr(), H.data_ptr(), Y.data_ptr(), tw, S, nb, B, n_fft,
+        xbs.data_ptr(), H.data_ptr(), Y.data_ptr(), tw, twq, S, nb, B, n_fft,
         dir_rate, int(crossfade), plan.threads, G, plan.blocks_per_sm,
         *split, stream), "block_spectra")
     launches["block_spectra"] += 1
@@ -196,19 +204,32 @@ def block_spectra_mix_cuda(xbs: torch.Tensor, H: torch.Tensor, n_fft: int,
         raise ValueError(f"chunk={chunk} must be positive")
     C = -(-S // chunk)
     P = torch.empty((C, nb, 2, F), dtype=torch.complex64, device=xbs.device)
-    plan = step_plan(n_fft, True)
-    groups = mix_groups(plan, chunk, C * nb, sm_count(xbs.device))
-    *split, _keep = layout(xbs.device, plan.shared_f2(groups),
-                           plan.scratch_f2, C * nb, n_fft)
+    plan = pruned_plan(n_fft, True, B)
+    if plan is not None:
+        groups, shared = plan.residues, plan.shared_f2
+    else:
+        plan = step_plan(n_fft, True)
+        groups = mix_groups(plan, chunk, C * nb, sm_count(xbs.device))
+        shared = plan.shared_f2(groups)
+    *split, _keep = layout(xbs.device, shared, plan.scratch_f2, C * nb, n_fft)
     if split[1]:
         plan, groups = radix2_plan(n_fft, True), 1
-    tw = twiddles(n_fft, xbs.device).data_ptr() if plan.register else 0
+    tw, twq = _tables(plan, n_fft, xbs.device)
     _build.check(_build.library().tt_block_spectra_mix(
-        xbs.data_ptr(), H.data_ptr(), P.data_ptr(), tw, S, nb, B, n_fft,
-        dir_rate, chunk, int(crossfade), plan.threads, groups,
+        xbs.data_ptr(), H.data_ptr(), P.data_ptr(), tw, twq, S, nb, B,
+        n_fft, dir_rate, chunk, int(crossfade), plan.threads, groups,
         plan.blocks_per_sm, *split, stream), "block_spectra_mix")
     launches["block_spectra_mix"] += 1
     return P
+
+
+def _tables(plan, n_fft: int, device: torch.device) -> tuple[int, int]:
+    """The twiddle tables a block-step launch reads: the n_fft-point one
+    (register and pruned bodies) and the Q-point one (pruned), else 0."""
+    if isinstance(plan, PrunedPlan):
+        return (twiddles(n_fft, device).data_ptr(),
+                twiddles(plan.Q, device).data_ptr())
+    return twiddles(n_fft, device).data_ptr() if plan.register else 0, 0
 
 
 def spectra_inverse_cuda(Y: torch.Tensor, n_fft: int, *,

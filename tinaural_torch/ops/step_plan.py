@@ -32,7 +32,27 @@ The figures here are the launch as the CUDA code computes it at compile
 time (`step_max_per_block`, `step_min_blocks`, `step_unit_f2`): the
 wrappers hand the entry points the plan's threads, rows or groups per
 block and blocks per SM, and the entry points refuse any other plan and
-launch nothing. Below `MIN_STEP_N`, above `MAX_REGISTER_N` and in the split
+launch nothing.
+
+Above `MAX_REGISTER_N` both kernels run their pruned bodies (`pruned_plan`)
+wherever Q = max(next_pow2(B), 128) ≤ `MAX_REGISTER_N`: a block of B
+samples zero-padded to n = P·Q has X[r + P·m] = Σ_{t<Q} (x[t]·ω_n^{r·t})·
+ω_Q^{m·t}, so the n-point transform is P independent Q-point register
+transforms of the pre-twiddled block (5·n·log2 Q operations, not
+5·n·log2 n), with no scratch and no cluster. Bin n − k of bin k = r + P·m
+lies in transform (P − r) mod P, so a CUDA block takes whole pairs of
+residues: pair p is p and P − p, pair 0 is 0 and P/2. Residue group j of
+a row (of a (chunk, block) for the mix kernel) is pairs j·g … j·g + g − 1
+(`PrunedPlan.block_residues`), each transform on its own Q/16 threads and
+buffer, and the MAC walks the group's bins so that g neighbouring threads
+take g neighbouring bins. Under crossfade a transform holds both ramps
+of a block, unpacked from bins k and n − k; without it the mix packs two
+sources' real blocks into each transform (so its rounds count pairs of
+sources, `pruned_rounds`), while `block_spectra` transforms a real block
+alone. At Q = 16384 a pair does not fit one block: a block takes one
+residue and, where it unpacks, runs its mirror's transform first.
+
+Below `MIN_STEP_N`, where Q exceeds `MAX_REGISTER_N`, and in the split
 buffer mode (``ops/_layout.py``; forced with ``_layout.force_work``) both
 kernels run their radix-2 body: one row (or one (chunk, block)) per CUDA
 block of `RADIX2_THREADS` threads, its FFT in ``csrc/common.cuh``
@@ -60,6 +80,10 @@ ROW_THREADS = 128
 ROW_FILL = 2
 # CUDA blocks an SM that the radix-2 body's source chunks aim at
 RADIX2_FILL = 8
+# the pruned bodies' block threads (each kernel's aim, below which a block
+# takes more pairs of residues)
+PRUNED_SPECTRA_THREADS = 512
+PRUNED_MIX_THREADS = 256
 # one SM of the H100, to count the blocks it holds at once: shared memory
 # (228 KB, 1 KB of it reserved per block), threads, registers, blocks
 SM_SHARED_BYTES = 233_472
@@ -184,18 +208,132 @@ def mix_groups(plan: StepPlan, chunk: int, blocks: int, sms: int) -> int:
     return best[1]
 
 
+@dataclass(frozen=True)
+class PrunedPlan:
+    """One launch of the pruned body of `block_spectra` (``mix`` False) or
+    `block_spectra_mix` at n_fft ``n`` = P·Q: P transforms of Q points a
+    row (a (chunk, block)), `residues` of them a CUDA block of
+    `threads`."""
+
+    n: int
+    Q: int
+    mix: bool
+    radices: tuple[int, ...]  # the Q-point register passes
+    transform_threads: int  # T = Q/16, one transform's
+    pairs: int  # g: pairs of residues a block (Q = 16384: one residue)
+    residues: int  # transforms a block: 2g, or 1 at Q = 16384
+    threads: int  # a block's: residues · T
+    blocks_per_sm: int  # that __launch_bounds__ asks for: 64 registers
+    slot_f2: int  # complex64 of one transform's buffer, one float2 past
+    shared_acc: bool  # the mix kernel's 18 sums a thread in shared memory
+    shared_f2: int  # complex64 of shared memory a block (Q = 16384: with
+    # the mirror's kept half, Q/2)
+    scratch_f2: int  # the split mode's slice (radix2_plan's)
+
+    @property
+    def P(self) -> int:
+        return self.n // self.Q
+
+    @property
+    def half(self) -> bool:
+        """Q = 16384: a block takes one residue."""
+        return self.residues == 1
+
+    @property
+    def groups(self) -> int:
+        """Residue groups (CUDA blocks) a row."""
+        return self.P // self.residues
+
+    def block_residues(self, j: int) -> tuple[int, ...]:
+        """The residues that residue group j transforms, slot by slot:
+        pairs j·g … j·g + g − 1, then their mirrors (pair 0's is P/2); at
+        Q = 16384 residue j alone."""
+        if self.half:
+            return (j,)
+        lo = [j * self.pairs + u for u in range(self.pairs)]
+        return (*lo, *(self.P - p if p else self.P // 2 for p in lo))
+
+    def resident_blocks(self) -> int:
+        """Blocks that one SM holds at once: its shared memory, threads,
+        registers (64 a thread) and block limit."""
+        return min(SM_SHARED_BYTES // (self.shared_f2 * 8
+                                       + BLOCK_RESERVED_BYTES),
+                   SM_THREADS // self.threads,
+                   SM_REGISTERS // (64 * self.threads), SM_BLOCKS)
+
+
+def pruned_q(B: int) -> int:
+    """Q of a block of B samples: max(next_pow2(B), MIN_STEP_N)."""
+    return max(MIN_STEP_N, 1 << max(0, B - 1).bit_length())
+
+
+@functools.cache
+def pruned_plan(n_fft: int, mix: bool, B: int) -> PrunedPlan | None:
+    """The pruned body's plan at n_fft above MAX_REGISTER_N for blocks of
+    B ≤ n_fft samples; None where it does not apply (n_fft ≤
+    MAX_REGISTER_N, or Q above it: the radix-2 body's split mode). The
+    figures are ``csrc/block_step.cu`` `pruned::Plan`'s."""
+    if n_fft < 2 or n_fft & (n_fft - 1):
+        raise ValueError(f"n_fft={n_fft} must be a power of two of at least 2")
+    if not 1 <= B <= n_fft:
+        raise ValueError(f"B={B} must be 1 … n_fft={n_fft}")
+    Q = pruned_q(B)
+    if n_fft <= MAX_REGISTER_N or Q > MAX_REGISTER_N:
+        return None
+    T = Q // POINTS
+    half = Q == MAX_REGISTER_N
+    aim = PRUNED_MIX_THREADS if mix else PRUNED_SPECTRA_THREADS
+    pairs = 1 if half or 2 * T >= aim else aim // (2 * T)
+    residues = 1 if half else 2 * pairs
+    threads = residues * T
+    slot = Q + Q // 16 + 1
+    shared_acc = mix and Q < MAX_REGISTER_N // 2
+    shared = (residues * slot + (Q // 2 if half else 0)
+              + (ACC_SLOTS * threads if shared_acc else 0))
+    return PrunedPlan(n_fft, Q, mix, inverse_plan(Q).radices, T, pairs,
+                      residues, threads, 1024 // threads, slot, shared_acc,
+                      shared, radix2_plan(n_fft, mix).scratch_f2)
+
+
+def pruned_rounds(plan: PrunedPlan, S: int, nb: int, chunk: int,
+                  sms: int, crossfade: bool) -> int:
+    """Rounds of transforms the busiest block slot of the card runs for
+    the pruned mix over chunks of ``chunk``: the waves of the C·nb·groups
+    blocks over the blocks the SMs hold at once, times the chunk's
+    transform sets (a source each under crossfade, else two) plus one for
+    the block's partial."""
+    blocks = -(-S // chunk) * nb * plan.groups
+    sets = chunk if crossfade else -(-chunk // 2)
+    return -(-blocks // (sms * plan.resident_blocks())) * (sets + 1)
+
+
 @functools.lru_cache(maxsize=1024)
-def mix_launch(S: int, nb: int, n_fft: int, sms: int) -> tuple[int, int]:
-    """(chunk, groups) of `block_spectra_mix` over S sources × nb blocks on
-    a card of ``sms`` SMs. The register body: the chunk whose launch
-    (groups by `mix_groups`) runs the fewest rounds, then the one of
-    fewest chunks C = ⌈S/chunk⌉. The radix-2 body: the fewest chunks whose
-    grid of C·nb blocks gives every SM RADIX2_FILL, at most S, the sources
-    spread evenly over them. With no card (sms 0): one chunk of all S
-    sources, one group."""
+def mix_launch(S: int, nb: int, n_fft: int, sms: int, B: int,
+               crossfade: bool) -> tuple[int, int]:
+    """(chunk, groups) of `block_spectra_mix` over S sources × nb blocks
+    of B samples on a card of ``sms`` SMs (B and ``crossfade`` matter
+    only to the pruned body, above MAX_REGISTER_N). The
+    register body: the chunk whose launch (groups by `mix_groups`) runs
+    the fewest rounds, then the one of fewest chunks C = ⌈S/chunk⌉. The
+    pruned body: likewise by `pruned_rounds` (``crossfade``: a source a
+    transform set, else two), its groups the plan's residues a block. The
+    radix-2 body: the fewest chunks whose grid of C·nb blocks gives every
+    SM RADIX2_FILL, at most S, the sources spread evenly over them. With
+    no card (sms 0): one chunk of all S sources, one group."""
+    pruned = pruned_plan(n_fft, True, B)
     plan = step_plan(n_fft, True)
     if sms <= 0:
         return S, 1
+    if pruned is not None:
+        best = None
+        for C in range(1, S + 1):
+            chunk = -(-S // C)
+            if -(-S // chunk) != C:
+                continue
+            key = pruned_rounds(pruned, S, nb, chunk, sms, crossfade)
+            if best is None or key < best[0]:
+                best = (key, chunk)
+        return best[1], pruned.residues
     if not plan.register:
         chunks = min(S, max(1, -(-RADIX2_FILL * sms // nb)))
         return -(-S // chunks), 1
