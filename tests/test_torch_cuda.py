@@ -26,8 +26,10 @@ mode, each against the float64 plain path at k = 1 on the snapped
 track; the CLI's `render` and `sweep` on the card (their launches, and
 within 1 int16 LSB of the API); `fit`'s step and loop on CUDA tensors
 (the loss's plain route), against the CPU's step; a `utils.profiling.trace`
-of a render naming its kernels; and the parallel layer in a group of one
-over NCCL against the unsharded entry points.
+of a render naming its kernels; the host syncs of a trajectory and a
+scene, counted by torch's sync debug mode and by the program; and the
+parallel layer in a group of one over NCCL against the unsharded entry
+points.
 
 This file imports neither the JAX package nor the shared conftest (which
 does), so it also runs where `tinaural` cannot be imported, as on a
@@ -1652,6 +1654,47 @@ def test_trace_names_the_render_kernels(table, tmp_path):
         names = " ".join(e.get("name", "") for e in json.load(f)["traceEvents"])
     for kernel in br.KERNELS:
         assert f"{kernel}_kernel" in names, kernel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry", ["render_trajectory", "render_scene"])
+def test_host_syncs_counts_every_sync(table, entry):
+    """One warm call of each offline entry point at a test size (B1's route
+    for the trajectory, B4's for the 8-source scene): the synchronising
+    operations torch's sync debug mode reports equal the growth of the
+    program's counter ``host_syncs``: the two pageable host-to-device
+    copies (blocks, directions) and `assemble_filters`' range check."""
+    import warnings
+
+    from tinaural_torch.utils import profiling
+
+    r = tinaural_torch.BinauralRenderer(table)
+    rng = np.random.default_rng(31)
+    nb, S = 64, 8
+    if entry == "render_trajectory":
+        args = (rng.standard_normal(nb * B).astype(np.float32),
+                np.stack([np.linspace(0, 300, nb), np.linspace(-30, 60, nb)],
+                         1).astype(np.float32))
+    else:
+        args = (rng.standard_normal((S, nb * B)).astype(np.float32),
+                np.stack([rng.uniform(0, 360, (S, nb)),
+                          rng.uniform(-40, 90, (S, nb))], -1
+                         ).astype(np.float32))
+    getattr(r, entry)(*args)  # built, its tables made
+    torch.cuda.synchronize()
+    before = profiling.counters()["host_syncs"]
+    with warnings.catch_warnings(record=True) as got:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            getattr(r, entry)(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message) for w in got
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    grown = profiling.counters()["host_syncs"] - before
+    assert len(syncs) == grown, (grown, syncs)
+    assert grown == 3
 
 
 @pytest.mark.gpu

@@ -13,7 +13,7 @@ import torch
 
 import tinaural_torch as tt
 from tinaural_torch.utils import (enable_debug_checks, fence, marginal_cost,
-                                  marginal_cost_ab, timeit, trace)
+                                  marginal_cost_ab, trace)
 
 torch.set_num_threads(1)
 
@@ -48,14 +48,6 @@ def test_fence_takes_the_last_tensor_leaf():
 
 
 def test_timers_are_positive_and_finite(render):
-    calls = {"n": 0}
-
-    def timed():
-        calls["n"] += 1
-        return fence(render())
-
-    best = timeit(timed, iters=3, warmup=1)
-    assert calls["n"] == 4 and 0 < best < math.inf
     m = marginal_cost(render, k1=1, k2=3, reps=3)
     assert 0 < m < math.inf
     ab = marginal_cost_ab({"a": render, "b": lambda: render()[:, :10]},

@@ -40,6 +40,7 @@ from ..ops.block_step import block_step_render, scene_step_render
 from ..ops.filters import effective_filter, next_pow2
 from ..ops.interp import direction_weights, gather_rows
 from ..ops.partitioned_conv import partitioned_render
+from ..utils.profiling import count, span
 
 # From this FFT size on, moving sources and render_batch take the
 # natural-order route: the shapes where the JAX package refuses its
@@ -74,13 +75,15 @@ def _group_dirs(dirs, dir_rate: int):
 
 def _neighbours(table: TorchTable, dirs: torch.Tensor, config: RenderConfig):
     """dirs (..., 2) → flat table rows idx (..., 4) int32 and bilinear (or
-    nearest) weights w (..., 4) f32, contiguous."""
-    lead = dirs.shape[:-1]
-    flat = dirs.reshape(-1, 2)
-    eidx, aidx, w = direction_weights(table.elevs, table.az_counts,
-                                      flat[:, 0], flat[:, 1], config.interp)
-    idx = (eidx * table.a_max + aidx).to(torch.int32).reshape(*lead, 4)
-    return idx, w.to(torch.float32).reshape(*lead, 4).contiguous()
+    nearest) weights w (..., 4) f32, contiguous. Span ``tt.lookup``."""
+    with span("tt.lookup"):
+        lead = dirs.shape[:-1]
+        flat = dirs.reshape(-1, 2)
+        eidx, aidx, w = direction_weights(table.elevs, table.az_counts,
+                                          flat[:, 0], flat[:, 1],
+                                          config.interp)
+        idx = (eidx * table.a_max + aidx).to(torch.int32).reshape(*lead, 4)
+        return idx, w.to(torch.float32).reshape(*lead, 4).contiguous()
 
 
 def _flags(table: TorchTable, config: RenderConfig) -> dict:
@@ -109,12 +112,14 @@ def _block_render(table: TorchTable, xbs: torch.Tensor, dirs: torch.Tensor,
                   config: RenderConfig, crossfade: bool, render,
                   dir_rate: int) -> torch.Tensor:
     """Neighbour rows/weights of each group of ``dir_rate`` blocks, then
-    one render call. xbs: (S, nb, B); dirs: (S, ⌈nb/dir_rate⌉, 2);
-    ``render`` is a route or, for checks, its plain version."""
+    one render call (span ``tt.route``). xbs: (S, nb, B); dirs: (S,
+    ⌈nb/dir_rate⌉, 2); ``render`` is a route or, for checks, its plain
+    version."""
     idx, w = _neighbours(table, dirs, config)
-    return render(xbs, idx, w, table, _n_fft(table, xbs.shape[-1]),
-                  crossfade=crossfade, dir_rate=dir_rate,
-                  **_flags(table, config))
+    with span("tt.route"):
+        return render(xbs, idx, w, table, _n_fft(table, xbs.shape[-1]),
+                      crossfade=crossfade, dir_rate=dir_rate,
+                      **_flags(table, config))
 
 
 def _static_core(table: TorchTable, x: torch.Tensor, dir2: torch.Tensor,
@@ -217,8 +222,9 @@ def _partitioned_core(table: TorchTable, xb: torch.Tensor,
     `partitioned_render` or, for checks, its plain version."""
     k = config.dir_rate
     idx, w = _neighbours(table, _group_dirs(dirs, k), config)
-    return render(xb, idx, w, table, crossfade=config.crossfade, dir_rate=k,
-                  **_flags(table, config))
+    with span("tt.route"):
+        return render(xb, idx, w, table, crossfade=config.crossfade,
+                      dir_rate=k, **_flags(table, config))
 
 
 def _dedupe_sources(xs: np.ndarray, dirs: np.ndarray, config: RenderConfig):
@@ -227,24 +233,25 @@ def _dedupe_sources(xs: np.ndarray, dirs: np.ndarray, config: RenderConfig):
     track. Exact by linearity — every source in a group convolves the same
     per-direction FIR. The deduped count is bucketed up to a multiple of
     scene_chunk with silent sources; if bucketing erases the win, the scene
-    is returned untouched."""
-    S = xs.shape[0]
-    static = dirs.ndim == 2
-    if static:
-        key = dirs
-    else:
-        key = np.stack([_snap_dirs(d, config.dir_rate) for d in dirs])
-    uniq, inv = np.unique(key.reshape(S, -1), axis=0, return_inverse=True)
-    U = uniq.shape[0]
-    ch = max(config.scene_chunk, 1)
-    Ub = -(-U // ch) * ch
-    if Ub >= S:
-        return xs, dirs
-    xs_u = np.zeros((Ub, xs.shape[1]), np.float32)
-    np.add.at(xs_u, np.asarray(inv).reshape(-1), xs)
-    dirs_u = uniq.reshape((U, 2) if static else (U, -1, 2))
-    pad = np.broadcast_to(dirs_u[-1:], (Ub - U, *dirs_u.shape[1:]))
-    return xs_u, np.concatenate([dirs_u, pad], axis=0).astype(np.float32)
+    is returned untouched. Span ``tt.dedupe``."""
+    with span("tt.dedupe"):
+        S = xs.shape[0]
+        static = dirs.ndim == 2
+        if static:
+            key = dirs
+        else:
+            key = np.stack([_snap_dirs(d, config.dir_rate) for d in dirs])
+        uniq, inv = np.unique(key.reshape(S, -1), axis=0, return_inverse=True)
+        U = uniq.shape[0]
+        ch = max(config.scene_chunk, 1)
+        Ub = -(-U // ch) * ch
+        if Ub >= S:
+            return xs, dirs
+        xs_u = np.zeros((Ub, xs.shape[1]), np.float32)
+        np.add.at(xs_u, np.asarray(inv).reshape(-1), xs)
+        dirs_u = uniq.reshape((U, 2) if static else (U, -1, 2))
+        pad = np.broadcast_to(dirs_u[-1:], (Ub - U, *dirs_u.shape[1:]))
+        return xs_u, np.concatenate([dirs_u, pad], axis=0).astype(np.float32)
 
 
 class BinauralRenderer:
@@ -277,17 +284,31 @@ class BinauralRenderer:
 
     def _blockify(self, x: np.ndarray) -> tuple[torch.Tensor, int]:
         """Zero-pad (..., N) to whole blocks → ((..., nb, B) f32 on the
-        table's device, N)."""
+        table's device, N). Span ``tt.blockify``: the pad, the copy (its
+        child ``tt.h2d``) and the release of the padded host copy."""
         B = self.config.block_size
-        x = np.asarray(x, dtype=np.float32)
-        N = x.shape[-1]
-        nb = self._true_nb(N)
-        pad = [(0, 0)] * (x.ndim - 1) + [(0, nb * B - N)]
-        xb = np.pad(x, pad).reshape(*x.shape[:-1], nb, B)
-        return torch.from_numpy(xb).to(self.device), N
+        with span("tt.blockify"):
+            x = np.asarray(x, dtype=np.float32)
+            N = x.shape[-1]
+            nb = self._true_nb(N)
+            pad = [(0, 0)] * (x.ndim - 1) + [(0, nb * B - N)]
+            xb = np.pad(x, pad).reshape(*x.shape[:-1], nb, B)
+            out = self._to_device(xb)
+            del xb  # its pages go back here, inside the span
+            return out, N
 
     def _dirs(self, dirs: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(dirs, np.float32)).to(self.device)
+        return self._to_device(np.ascontiguousarray(dirs, np.float32))
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        """A host array's copy to the table's device (span ``tt.h2d``,
+        counter ``h2d_bytes``). On the card it is a pageable copy, which
+        waits for the stream's work before it returns (``host_syncs``)."""
+        with span("tt.h2d"):
+            count("h2d_bytes", a.nbytes)
+            if self.device.type == "cuda":
+                count("host_syncs")
+            return torch.from_numpy(a).to(self.device)
 
     # Signals of at least this many blocks take the OLA block route, one
     # filter for every block; shorter ones one direct FFT convolution.
@@ -295,76 +316,85 @@ class BinauralRenderer:
 
     def render(self, x, az: float, el: float) -> torch.Tensor:
         """Render a mono signal at a fixed direction → (2, out_len)."""
-        x = np.asarray(x, dtype=np.float32)
-        if x.ndim != 1:
-            raise ValueError(f"x must be a mono signal (N,), got {x.shape}")
-        N = x.shape[0]
-        dir2 = self._dirs(np.array([az, el], np.float32))
-        if N >= self.STATIC_BLOCK_THRESHOLD_BLOCKS * self.config.block_size:
-            xb, _ = self._blockify(x)
-            y = _static_block_core(self.table, xb, dir2, self.config)
-        else:
-            n = next_pow2(N + self.t_eff - 1)
-            y = _static_core(self.table, torch.from_numpy(x).to(self.device),
-                             dir2, self.config, n)
-        return y[:, : self._out_len(N)]
+        with span("tt.render"):
+            x = np.asarray(x, dtype=np.float32)
+            if x.ndim != 1:
+                raise ValueError(
+                    f"x must be a mono signal (N,), got {x.shape}")
+            N = x.shape[0]
+            dir2 = self._dirs(np.array([az, el], np.float32))
+            if N >= (self.STATIC_BLOCK_THRESHOLD_BLOCKS
+                     * self.config.block_size):
+                xb, _ = self._blockify(x)
+                y = _static_block_core(self.table, xb, dir2, self.config)
+            else:
+                n = next_pow2(N + self.t_eff - 1)
+                y = _static_core(self.table, self._to_device(x), dir2,
+                                 self.config, n)
+            return y[:, : self._out_len(N)]
 
     def render_trajectory(self, x, dirs) -> torch.Tensor:
         """Moving-source render. x: (N,); dirs: (n_blocks, 2) per-block
         (az, el) → (2, out_len)."""
-        x = np.asarray(x, dtype=np.float32)
-        if x.ndim != 1:
-            raise ValueError(f"x must be a mono signal (N,), got {x.shape}")
-        xb, N = self._blockify(x)
-        dirs = np.asarray(dirs, dtype=np.float32)
-        if dirs.shape != (self._true_nb(N), 2):
-            raise ValueError(
-                f"dirs must be ({self._true_nb(N)}, 2), got {dirs.shape}")
-        y = _trajectory_core(self.table, xb, self._dirs(dirs), self.config)
-        return y[:, : self._out_len(N)]
+        with span("tt.render_trajectory"):
+            x = np.asarray(x, dtype=np.float32)
+            if x.ndim != 1:
+                raise ValueError(
+                    f"x must be a mono signal (N,), got {x.shape}")
+            xb, N = self._blockify(x)
+            dirs = np.asarray(dirs, dtype=np.float32)
+            if dirs.shape != (self._true_nb(N), 2):
+                raise ValueError(
+                    f"dirs must be ({self._true_nb(N)}, 2), got {dirs.shape}")
+            y = _trajectory_core(self.table, xb, self._dirs(dirs),
+                                 self.config)
+            return y[:, : self._out_len(N)]
 
     def render_scene(self, xs, dirs, dedupe: bool = True) -> torch.Tensor:
         """Multi-source scene → stereo mixdown. xs: (S, N); dirs: (S, 2)
         static or (S, n_blocks, 2) trajectories → (2, out_len).
         ``dedupe``: sources with identical snapped direction tracks are
         pre-mixed on the host and rendered once (exact by linearity)."""
-        xs = np.asarray(xs, dtype=np.float32)
-        if xs.ndim != 2:
-            raise ValueError(f"xs must be (S, N), got {xs.shape}")
-        S, N = xs.shape
-        dirs = np.asarray(dirs, dtype=np.float32)
-        static = dirs.ndim == 2
-        if static and dirs.shape != (S, 2):
-            raise ValueError(f"dirs must be ({S}, 2), got {dirs.shape}")
-        if not static and dirs.shape != (S, self._true_nb(N), 2):
-            raise ValueError(
-                f"dirs must be ({S}, {self._true_nb(N)}, 2), "
-                f"got {dirs.shape}")
-        if dedupe:
-            xs, dirs = _dedupe_sources(xs, dirs, self.config)
-        xbs, N = self._blockify(xs)
-        core = _scene_static_core if static else _scene_core
-        y = core(self.table, xbs, self._dirs(dirs), self.config)
-        return y[:, : self._out_len(N)]
+        with span("tt.render_scene"):
+            xs = np.asarray(xs, dtype=np.float32)
+            if xs.ndim != 2:
+                raise ValueError(f"xs must be (S, N), got {xs.shape}")
+            S, N = xs.shape
+            dirs = np.asarray(dirs, dtype=np.float32)
+            static = dirs.ndim == 2
+            if static and dirs.shape != (S, 2):
+                raise ValueError(f"dirs must be ({S}, 2), got {dirs.shape}")
+            if not static and dirs.shape != (S, self._true_nb(N), 2):
+                raise ValueError(
+                    f"dirs must be ({S}, {self._true_nb(N)}, 2), "
+                    f"got {dirs.shape}")
+            if dedupe:
+                xs, dirs = _dedupe_sources(xs, dirs, self.config)
+            xbs, N = self._blockify(xs)
+            core = _scene_static_core if static else _scene_core
+            y = core(self.table, xbs, self._dirs(dirs), self.config)
+            return y[:, : self._out_len(N)]
 
     def render_batch(self, xs, dirs) -> torch.Tensor:
         """S independent mono signals, each along its own path, in one
         call, with no mixdown → (S, 2, out_len). xs: (S, N); dirs: (S, 2)
         static (broadcast to every block, so (1, 2) serves all) or
         (S, n_blocks, 2)."""
-        xs = np.asarray(xs, dtype=np.float32)
-        if xs.ndim != 2:
-            raise ValueError(f"xs must be (S, N), got {xs.shape}")
-        S, N = xs.shape
-        nb = self._true_nb(N)
-        dirs = np.asarray(dirs, dtype=np.float32)
-        if dirs.ndim == 2:
-            dirs = np.broadcast_to(dirs[:, None, :], (S, nb, 2))
-        elif dirs.shape != (S, nb, 2):
-            raise ValueError(f"dirs must be ({S}, {nb}, 2), got {dirs.shape}")
-        xbs, N = self._blockify(xs)
-        y = _batch_core(self.table, xbs, self._dirs(dirs), self.config)
-        return y[:, :, : self._out_len(N)]
+        with span("tt.render_batch"):
+            xs = np.asarray(xs, dtype=np.float32)
+            if xs.ndim != 2:
+                raise ValueError(f"xs must be (S, N), got {xs.shape}")
+            S, N = xs.shape
+            nb = self._true_nb(N)
+            dirs = np.asarray(dirs, dtype=np.float32)
+            if dirs.ndim == 2:
+                dirs = np.broadcast_to(dirs[:, None, :], (S, nb, 2))
+            elif dirs.shape != (S, nb, 2):
+                raise ValueError(
+                    f"dirs must be ({S}, {nb}, 2), got {dirs.shape}")
+            xbs, N = self._blockify(xs)
+            y = _batch_core(self.table, xbs, self._dirs(dirs), self.config)
+            return y[:, :, : self._out_len(N)]
 
     def render_streamed(self, x, dirs) -> torch.Tensor:
         """What `Stream.push` would give block by block, as one batched
@@ -376,18 +406,22 @@ class BinauralRenderer:
         reads ``dir_rate`` (snapped track) and ignores
         ``stream_update_rate``; the streams do the reverse, so at either
         knob > 1 the two differ by design."""
-        B = self.config.stream_block
-        x = np.asarray(x, dtype=np.float32)
-        if x.ndim != 1:
-            raise ValueError(f"x must be a mono signal (N,), got {x.shape}")
-        if x.shape[0] == 0 or x.shape[0] % B:
-            raise ValueError(f"signal length must be a positive multiple of {B}")
-        nb = x.shape[0] // B
-        dirs = np.asarray(dirs, dtype=np.float32)
-        if dirs.shape != (nb, 2):
-            raise ValueError(f"dirs must be ({nb}, 2), got {dirs.shape}")
-        xb = torch.from_numpy(x.reshape(nb, B)).to(self.device)
-        return _partitioned_core(self.table, xb, self._dirs(dirs), self.config)
+        with span("tt.render_streamed"):
+            B = self.config.stream_block
+            x = np.asarray(x, dtype=np.float32)
+            if x.ndim != 1:
+                raise ValueError(
+                    f"x must be a mono signal (N,), got {x.shape}")
+            if x.shape[0] == 0 or x.shape[0] % B:
+                raise ValueError(
+                    f"signal length must be a positive multiple of {B}")
+            nb = x.shape[0] // B
+            dirs = np.asarray(dirs, dtype=np.float32)
+            if dirs.shape != (nb, 2):
+                raise ValueError(f"dirs must be ({nb}, 2), got {dirs.shape}")
+            xb = self._to_device(x.reshape(nb, B))
+            return _partitioned_core(self.table, xb, self._dirs(dirs),
+                                     self.config)
 
 
 def render(table: TorchTable, x, az: float, el: float,

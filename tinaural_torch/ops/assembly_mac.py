@@ -38,6 +38,7 @@ import torch
 
 from ..data.table import (ALIGN_GUARD, DELAY_PAD, MAX_RENDER_SHIFT,
                           TAPER_HI, TAPER_LO, TorchTable)
+from ..utils import profiling
 from . import _layout
 from ._layout import layout, run_length, sm_count
 from .block_render import (_check_inputs, _cuda_inputs,
@@ -49,6 +50,7 @@ from .spectra_inverse import MAX_REGISTER_N, twiddles
 
 KERNELS = ("assembly_mac",)
 launches = dict.fromkeys(KERNELS, 0)
+profiling.register(launches)
 
 
 def reset_launches() -> None:

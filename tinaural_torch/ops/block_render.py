@@ -41,6 +41,7 @@ import torch
 
 from ..data.table import (ALIGN_GUARD, DELAY_PAD, MAX_RENDER_SHIFT,
                           TAPER_HI, TAPER_LO, TorchTable)
+from ..utils import profiling
 from ._layout import cluster_slots, layout, run_length, sm_count
 from .filters import effective_filter
 from .interp import gather_rows
@@ -52,6 +53,7 @@ from .spectra_inverse import MAX_REGISTER_N, twiddles
 
 KERNELS = ("assemble_filters", "block_spectra_mix_inverse", "overlap_add")
 launches = dict.fromkeys(KERNELS, 0)
+profiling.register(launches)
 
 
 def reset_launches() -> None:
@@ -148,6 +150,7 @@ def assemble_filters_cuda(idx: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"n_fft={n_fft} must be a power of two of at least "
                          f"taps + {DELAY_PAD}")
     rows = table.h.shape[0] * table.h.shape[1]
+    profiling.count("host_syncs")  # the range check reads the card's answer
     if bool(((idx < 0) | (idx >= rows)).any()):
         raise ValueError(f"idx holds rows outside the table's {rows}")
     S, nb, _ = idx.shape

@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
 from ._layout import layout, sm_count
 from .block_render import (_check_inputs, _cuda_inputs,
                            assemble_filters_cuda, assemble_filters_reference,
@@ -54,6 +55,7 @@ from .step_plan import (PrunedPlan, mix_groups, mix_launch, pruned_plan,
 
 KERNELS = ("block_spectra", "spectra_inverse", "block_spectra_mix")
 launches = dict.fromkeys(KERNELS, 0)
+profiling.register(launches)
 
 
 def reset_launches() -> None:

@@ -47,6 +47,7 @@ import torch
 
 from ..data.table import (ALIGN_GUARD, MAX_RENDER_SHIFT, TAPER_HI,
                           TAPER_LO, TorchTable)
+from ..utils import profiling
 from ._layout import layout, max_shared_bytes, sm_count, split_work
 from .block_render import _cuda_inputs, filter_rows
 from .filters import (effective_filter, filter_partitions, n_parts,
@@ -63,6 +64,7 @@ from .spectra_inverse import twiddles
 KERNELS = ("assemble_partitions", "stream_conv", "frame_spectra",
            "partitioned_conv")
 launches = dict.fromkeys(KERNELS, 0)
+profiling.register(launches)
 
 # The CUDA route of `partitioned_render` assembles the partition planes of
 # at most this many bytes at a time (rows·P·2·F2·8): blocks go through

@@ -2,8 +2,9 @@
 
 from .log import configure as configure_logging, get_logger
 from .paths import circular_sweep, waypoints_to_block_dirs
-from .profiling import (enable_debug_checks, fence, marginal_cost,
-                        marginal_cost_ab, timeit, trace)
+from .profiling import (clear, count, counters, enable_debug_checks, fence,
+                        marginal_cost, marginal_cost_ab, span, spans, trace,
+                        tracing)
 
 __all__ = [
     "circular_sweep",
@@ -12,8 +13,13 @@ __all__ = [
     "enable_debug_checks",
     "marginal_cost",
     "marginal_cost_ab",
-    "timeit",
     "trace",
+    "span",
+    "tracing",
+    "count",
+    "counters",
+    "spans",
+    "clear",
     "get_logger",
     "configure_logging",
 ]
