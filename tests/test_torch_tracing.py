@@ -106,6 +106,38 @@ def test_tracing_nests_the_layers_under_one_root(renderer, entry):
     assert root.counts == {"h2d_bytes": nbytes}  # no launches, no sync
 
 
+@pytest.mark.parametrize("entry,layout", [
+    ("render_trajectory", "reversed"), ("render_trajectory", "strided"),
+    ("render_scene", "reversed"), ("render_scene", "fortran")])
+def test_non_contiguous_input_counts_its_host_copy(renderer, entry, layout):
+    """The one host copy `_blockify` makes, of an input that is not
+    C-contiguous, counts its float32 bytes as ``blockify_host_bytes``."""
+    rng = np.random.default_rng(23)
+    lead = () if entry == "render_trajectory" else (S,)
+    if layout == "strided":
+        x = rng.standard_normal((*lead, 2 * NB * B)).astype(np.float32)
+        x = x[..., ::2]
+    else:
+        x = rng.standard_normal((*lead, NB * B)).astype(np.float32)
+        x = x[..., ::-1] if layout == "reversed" else np.asfortranarray(x)
+    assert not x.flags.c_contiguous
+    dirs = np.stack([np.linspace(0, 300, NB), np.linspace(-30, 60, NB)],
+                    1).astype(np.float32)
+    if entry == "render_trajectory":
+        call, nbytes = lambda: renderer.render_trajectory(x, dirs), NB * 2 * 4
+    else:
+        sdirs = np.stack([dirs, dirs[::-1], dirs + 5.0])
+        call = lambda: renderer.render_scene(x, sdirs)  # noqa: E731
+        nbytes = S * NB * 2 * 4
+    profiling.clear()
+    with profiling.tracing():
+        call()
+    (root,) = _roots(profiling.spans())
+    host = x.size * 4
+    assert root.counts == {"h2d_bytes": host + nbytes,
+                           "blockify_host_bytes": host}
+
+
 @pytest.mark.parametrize("entry", ["render", "render_batch",
                                    "render_streamed"])
 def test_every_entry_point_has_its_root(renderer, entry):

@@ -283,19 +283,27 @@ class BinauralRenderer:
         return -(-N // self.config.block_size)
 
     def _blockify(self, x: np.ndarray) -> tuple[torch.Tensor, int]:
-        """Zero-pad (..., N) to whole blocks → ((..., nb, B) f32 on the
-        table's device, N). Span ``tt.blockify``: the pad, the copy (its
-        child ``tt.h2d``) and the release of the padded host copy."""
+        """(..., N) → ((..., nb, B) f32 on the table's device, zero past
+        N; N). The N samples a source cross unpadded and are framed on the
+        device: a view where N is whole blocks, else one device-side pad of
+        the tail. The host copies only an input that is not C-contiguous
+        (counter ``blockify_host_bytes``). On the CPU the blocks are always
+        a fresh tensor, never a view of the caller's array. Span
+        ``tt.blockify``; the copy is its child ``tt.h2d``."""
         B = self.config.block_size
         with span("tt.blockify"):
             x = np.asarray(x, dtype=np.float32)
+            if not x.flags.c_contiguous:
+                x = np.ascontiguousarray(x)
+                count("blockify_host_bytes", x.nbytes)
             N = x.shape[-1]
             nb = self._true_nb(N)
-            pad = [(0, 0)] * (x.ndim - 1) + [(0, nb * B - N)]
-            xb = np.pad(x, pad).reshape(*x.shape[:-1], nb, B)
-            out = self._to_device(xb)
-            del xb  # its pages go back here, inside the span
-            return out, N
+            out = self._to_device(x)
+            if nb * B > N:
+                out = torch.nn.functional.pad(out, (0, nb * B - N))
+            elif out.device.type == "cpu":
+                out = out.clone()
+            return out.reshape(*x.shape[:-1], nb, B), N
 
     def _dirs(self, dirs: np.ndarray) -> torch.Tensor:
         return self._to_device(np.ascontiguousarray(dirs, np.float32))
