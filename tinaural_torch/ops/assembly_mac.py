@@ -29,7 +29,11 @@ runs `fused_assembly_mac` on the snapped track.
 
 `assembly_mac_render` launches the hand-written CUDA kernels on CUDA
 tensors and runs the plain versions on CPU tensors; any other device
-raises. ``launches`` counts this module's kernel.
+raises. ``launches`` counts this module's kernel. On either device the
+render records span ``tt.input_spectra`` around step 1 and span
+``tt.epilogue`` around step 3 (children of the caller's ``tt.route``), and
+adds the rows step 2 assembles and multiplies, S·nb at every
+``dir_rate``, to counter ``mac_rows``.
 """
 
 from __future__ import annotations
@@ -75,12 +79,15 @@ def assembly_mac_render(xbs: torch.Tensor, idx: torch.Tensor,
     if xbs.dtype != torch.float32:  # before the first launch
         raise TypeError(f"the CUDA route takes float32 blocks, got {xbs.dtype}")
     S, nb, B = xbs.shape
-    Xu, Xd = _input_spectra(xbs, n_fft, crossfade)
+    with profiling.span("tt.input_spectra"):
+        Xu, Xd = _input_spectra(xbs, n_fft, crossfade)
+    profiling.count("mac_rows", S * nb)
     Y = assembly_mac_cuda(_block_rows(idx, nb, dir_rate),
                           _block_rows(w, nb, dir_rate), table, Xu, Xd,
                           _first_rows(S, nb, xbs.device), n_fft, **kw)
-    frames = spectra_inverse_cuda(Y.reshape(S, nb, 2, -1), n_fft)
-    return overlap_add_cuda(frames, B)
+    with profiling.span("tt.epilogue"):
+        frames = spectra_inverse_cuda(Y.reshape(S, nb, 2, -1), n_fft)
+        return overlap_add_cuda(frames, B)
 
 
 def assembly_mac_render_reference(xbs: torch.Tensor, idx: torch.Tensor,
@@ -91,14 +98,17 @@ def assembly_mac_render_reference(xbs: torch.Tensor, idx: torch.Tensor,
     """`assembly_mac_render` in plain torch, in xbs' precision (float32 or
     float64)."""
     S, nb, B = xbs.shape
-    Xu, Xd = _input_spectra(xbs, n_fft, crossfade)
+    with profiling.span("tt.input_spectra"):
+        Xu, Xd = _input_spectra(xbs, n_fft, crossfade)
+    profiling.count("mac_rows", S * nb)
     Y = assembly_mac_reference(_block_rows(idx, nb, dir_rate),
                                _block_rows(w, nb, dir_rate).to(xbs.dtype),
                                table, Xu, Xd, _first_rows(S, nb, xbs.device),
                                n_fft, crossfade=crossfade,
                                apply_itd=apply_itd, apply_ild=apply_ild)
-    frames = spectra_inverse_reference(Y.reshape(S, nb, 2, -1), n_fft)
-    return overlap_add(frames.transpose(1, 2), B)
+    with profiling.span("tt.epilogue"):
+        frames = spectra_inverse_reference(Y.reshape(S, nb, 2, -1), n_fft)
+        return overlap_add(frames.transpose(1, 2), B)
 
 
 def _block_rows(t: torch.Tensor, nb: int, dir_rate: int) -> torch.Tensor:

@@ -1,9 +1,10 @@
 """Direction → grid lookup, batched over a leading direction axis.
 
-Numerics follow `tinaural.ops.interp` (and so `golden.grid_weights`):
+Numerics follow `golden.grid_weights` (and `tinaural.ops.interp`'s rows):
 bracket the elevation rings, interpolate inside each ring at that ring's own
 azimuth spacing with 0/360 wraparound, lerp across rings. A pole ring
-(``az_counts == 1``) returns its one slot twice.
+(``az_counts == 1``) returns its one slot twice. The slot position is taken
+in float64, as the golden map's; `tinaural.ops.interp` takes it in float32.
 """
 
 from __future__ import annotations
@@ -22,14 +23,18 @@ def direction_weights(elevs: torch.Tensor, az_counts: torch.Tensor,
     → (eidx (N, 4) int64, aidx (N, 4) int64, w (N, 4) in az's dtype),
     weights sum to 1. ``mode`` is "nearest" or "bilinear".
     """
+    dt = az.dtype
     el = torch.clamp(el, elevs[0], elevs[-1])
-    az = torch.remainder(az, 360.0)
+    # The slot position az·c/360 in float64, as the golden map has it: in
+    # float32 the product (to 129,600 on a ring of 360) rounds to 1/128,
+    # up to 1.1e-5 of a slot in the weights.
+    az = torch.remainder(az.to(torch.float64), 360.0)
     counts = az_counts.long()
     E = elevs.shape[0]
 
     if E == 1:  # single-ring grid: no elevation interpolation
         e0 = e1 = torch.zeros_like(az, dtype=torch.long)
-        we = torch.zeros_like(az)
+        we = torch.zeros_like(az, dtype=dt)
     else:
         e1 = torch.clamp(torch.searchsorted(elevs, el, right=True), 1, E - 1)
         e0 = e1 - 1
@@ -37,9 +42,9 @@ def direction_weights(elevs: torch.Tensor, az_counts: torch.Tensor,
 
     def ring_floor(e):
         c = counts[e]
-        pos = az * c.to(az.dtype) / 360.0
+        pos = az * c / 360.0
         a0 = torch.floor(pos)
-        wa = pos - a0
+        wa = (pos - a0).to(dt)
         a0 = torch.remainder(a0.long(), c)
         a1 = torch.remainder(a0 + 1, c)
         return a0, a1, wa
@@ -47,9 +52,8 @@ def direction_weights(elevs: torch.Tensor, az_counts: torch.Tensor,
     if mode == "nearest":
         e = torch.where(we < 0.5, e0, e1)
         c = counts[e]
-        a = torch.remainder(
-            torch.floor(az * c.to(az.dtype) / 360.0 + 0.5).long(), c)
-        w = torch.zeros((az.shape[0], 4), dtype=az.dtype, device=az.device)
+        a = torch.remainder(torch.floor(az * c / 360.0 + 0.5).long(), c)
+        w = torch.zeros((az.shape[0], 4), dtype=dt, device=az.device)
         w[:, 0] = 1.0
         return e[:, None].expand(-1, 4), a[:, None].expand(-1, 4), w
     if mode != "bilinear":

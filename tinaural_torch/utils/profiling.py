@@ -10,13 +10,15 @@ is why a host clock needs the fence.
 
 The registry: the entry points and the layers under them open a `span` at
 each boundary (``tt.render_trajectory`` … ``tt.blockify``, ``tt.h2d``,
-``tt.dedupe``, ``tt.lookup``, ``tt.route``; a span's self time is its
+``tt.dedupe``, ``tt.lookup``, ``tt.route``, and inside the natural-order
+route ``tt.input_spectra``, ``tt.epilogue``; a span's self time is its
 duration less the spans it holds) and add to named counters with `count`
-(``h2d_bytes``, ``host_syncs``); the kernel wrappers' ``launches`` dicts
-are `register`-ed here and read as ``launches.<kernel>``. Counters always
-count. Spans record only while tracing is on: inside a `tracing()` block,
-or while a `torch.profiler` session records (so a `trace`, or any
-profiler window, gets them too). Off, a span costs two flag checks. On, it
+(``h2d_bytes``, ``host_syncs``, ``mac_rows``); the kernel wrappers'
+``launches`` dicts are `register`-ed here and read as
+``launches.<kernel>``. Counters always count. Spans record only while
+tracing is on: inside a `tracing()` block, or while a `torch.profiler`
+session records (so a `trace`, or any profiler window, gets them too).
+Off, a span costs two flag checks. On, it
 records a `Span` into a ring of the last `RING_SPANS`; inside a profiler
 session it also opens a `torch.profiler.record_function` range of its
 name, which the session puts on its timeline beside the kernels and
