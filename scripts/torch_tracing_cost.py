@@ -2,8 +2,8 @@
 """The cost of the port's spans, on one CUDA card, in one process: each
 benchmark cell's entry call (``kemar128.trajectory``: `render_trajectory`
 of 2^23 samples; ``kemar128.scene``: `render_scene` of 64 moving sources ×
-2^17) on the cell's own inputs, timed in interleaved blocks under three
-variants:
+2^17; ``kemar2048.batch``: `render_batch` of 64 × 2^17 at 2048 taps) on the
+cell's own inputs, timed in interleaved blocks under three variants:
 
 - ``parent``: another tree's `tinaural_torch` (``--parent <tree>``),
   loaded beside this one under another name, its spans (if it has any)
@@ -27,7 +27,7 @@ counts, as a scene call has, with no work inside), then one line per cell
 of its spans: self ms a call by span name (the root's: what no layer
 covers), first over K calls inside `tracing()` and then over four calls
 inside one `torch.profiler` session (the second and later calls; the first
-pays for the session's set-up).
+pays for the session's set-up), with each counter's change a call.
 ``--small`` cuts the sizes so the CPU can rehearse it (times then are the
 CPU's). The card's name and power limit come first; with ``--out`` the
 lines are also appended to that file.
@@ -58,7 +58,7 @@ from benchmark.harness import inputs, spec, system  # noqa: E402
 import tinaural_torch  # noqa: E402
 from tinaural_torch.utils import profiling  # noqa: E402
 
-CELLS = ("kemar128.trajectory", "kemar128.scene")
+CELLS = ("kemar128.trajectory", "kemar128.scene", "kemar2048.batch")
 SEED = 2**31 + 2207
 
 
@@ -137,6 +137,11 @@ def span_split(spans) -> dict:
     out = {k: v / n / 1e6 for k, v in sorted(by.items())}
     out["root_ms"] = sum(dur[r.id] for r in roots) / n / 1e6
     out["calls"] = n
+    counts = {}
+    for r in roots:
+        for k, v in r.counts.items():
+            counts[k] = counts.get(k, 0) + v / n
+    out["counts_a_call"] = dict(sorted(counts.items()))
     return out
 
 

@@ -3,7 +3,8 @@ CPU: spans record only inside `tracing()` or a profiler session, nest under
 one root a call with one call id (the blocks' ``tt.h2d`` inside
 ``tt.blockify``), lie on the profiler's timeline with the same nesting and
 durations, and the counters (``h2d_bytes``, the kernel wrappers'
-``launches``) count whether tracing is on or not."""
+``launches``) count whether tracing is on or not; a CPU table counts no
+``h2d_pinned_bytes``, and its `_to_device` copies are fresh tensors."""
 
 import numpy as np
 import pytest
@@ -151,6 +152,36 @@ def test_every_entry_point_has_its_root(renderer, entry):
     names = {s.name for s in spans if s is not root}
     assert {"tt.h2d", "tt.lookup", "tt.route"} <= names
     assert all(s.call == root.id for s in spans)
+
+
+@pytest.mark.parametrize("entry", ["render", "render_batch", "render_scene",
+                                   "render_streamed", "render_trajectory"])
+def test_cpu_table_counts_no_pinned_bytes(renderer, entry):
+    """Only a card's copies go through page-locked memory: a CPU table's
+    entry points count their bytes in ``h2d_bytes`` and none in
+    ``h2d_pinned_bytes``."""
+    call, nbytes = _calls(renderer)[entry]
+    before = profiling.counters()
+    call()
+    after = profiling.counters()
+    assert after["h2d_bytes"] - before.get("h2d_bytes", 0) == nbytes
+    assert after.get("h2d_pinned_bytes", 0) == before.get("h2d_pinned_bytes",
+                                                          0)
+
+
+@pytest.mark.parametrize("shape", [(7,), (3, 5)], ids=str)
+@pytest.mark.parametrize("layout", ["contiguous", "reversed"])
+def test_to_device_on_the_cpu_is_a_fresh_tensor(renderer, shape, layout):
+    a = np.arange(np.prod(shape), dtype=np.float32).reshape(shape)
+    if layout == "reversed":
+        a = a[..., ::-1]
+    kept = a.copy()
+    t = renderer._to_device(a)
+    assert t.device.type == "cpu" and np.array_equal(t.numpy(), kept)
+    a[...] = -1.0  # the caller's array changes, the tensor does not
+    assert np.array_equal(t.numpy(), kept)
+    t.add_(1.0)  # nor do the tensor's changes reach the caller's array
+    assert np.all(a == -1.0)
 
 
 @pytest.mark.parametrize("entry", sorted(CHILDREN))

@@ -287,9 +287,9 @@ class BinauralRenderer:
         N; N). The N samples a source cross unpadded and are framed on the
         device: a view where N is whole blocks, else one device-side pad of
         the tail. The host copies only an input that is not C-contiguous
-        (counter ``blockify_host_bytes``). On the CPU the blocks are always
-        a fresh tensor, never a view of the caller's array. Span
-        ``tt.blockify``; the copy is its child ``tt.h2d``."""
+        (counter ``blockify_host_bytes``). The blocks are always the
+        program's own memory (`_to_device`), never a view of the caller's
+        array. Span ``tt.blockify``; the copy is its child ``tt.h2d``."""
         B = self.config.block_size
         with span("tt.blockify"):
             x = np.asarray(x, dtype=np.float32)
@@ -301,22 +301,33 @@ class BinauralRenderer:
             out = self._to_device(x)
             if nb * B > N:
                 out = torch.nn.functional.pad(out, (0, nb * B - N))
-            elif out.device.type == "cpu":
-                out = out.clone()
             return out.reshape(*x.shape[:-1], nb, B), N
 
     def _dirs(self, dirs: np.ndarray) -> torch.Tensor:
         return self._to_device(np.ascontiguousarray(dirs, np.float32))
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        """A host array's copy to the table's device (span ``tt.h2d``,
-        counter ``h2d_bytes``). On the card it is a pageable copy, which
-        waits for the stream's work before it returns (``host_syncs``)."""
+        """A host array's copy to the table's device, always a fresh tensor
+        (span ``tt.h2d``, counter ``h2d_bytes``). On the card the array is
+        copied into page-locked memory from torch's process-wide caching
+        host allocator, on torch's intra-op threads, before this returns,
+        then sent on the current stream without waiting for it (counter
+        ``h2d_pinned_bytes``): the caller may overwrite its array at once,
+        and the allocator hands the block out again only after the copy's
+        recorded event has passed. One block for the whole array: on the
+        H100's host more blocks, each overlapping the last one's copy to
+        the card, made the host's part slower."""
         with span("tt.h2d"):
             count("h2d_bytes", a.nbytes)
-            if self.device.type == "cuda":
-                count("host_syncs")
-            return torch.from_numpy(a).to(self.device)
+            host = torch.from_numpy(np.ascontiguousarray(a))
+            if self.device.type != "cuda":
+                return host.to(self.device, copy=True)
+            count("h2d_pinned_bytes", a.nbytes)
+            # not `pin_memory()`, which hands back an array already in
+            # page-locked memory as it is: the caller's own memory
+            stage = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+            stage.copy_(host)
+            return stage.to(self.device, non_blocking=True)
 
     # Signals of at least this many blocks take the OLA block route, one
     # filter for every block; shorter ones one direct FFT convolution.
