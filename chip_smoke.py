@@ -363,12 +363,23 @@ def trajectory_dirs(nb: int):
                     axis=1).astype(np.float32)
 
 
-def b1_mode(plan, forced: bool) -> str:
-    """The buffer mode that a kernel with a cluster mode (B1's FFT
-    kernels, `assembly_mac`) runs at ``plan``."""
-    if forced or not (plan.register or plan.cluster):
-        return "split"
-    return "register" if plan.register else "cluster"
+def launch_mode(body: str, shared_f2: int, largest_fft: int,
+                forced: bool) -> str:
+    """The launch mode a wrapper takes on cuda:0 (`_layout.launch_mode`);
+    ``forced``: the split mode forced."""
+    import torch
+
+    from tinaural_torch.ops import _layout
+
+    limit = _layout.shared_limit(torch.device("cuda", 0))
+    with forced_split(forced):
+        return _layout.launch_mode(body, shared_f2, largest_fft, limit)[0]
+
+
+def b1_mode(plan, shared_f2: int, forced: bool) -> str:
+    """The launch mode of a kernel with a cluster mode (B1's FFT kernels,
+    `assembly_mac`) at ``plan`` and ``shared_f2``."""
+    return launch_mode(plan.body, shared_f2, plan.n, forced)
 
 
 @contextlib.contextmanager
@@ -402,7 +413,9 @@ def check_kernels(table, S: int, nb: int, crossfade: bool, label: str,
     from tinaural_torch.models.renderer import (_group_dirs, _n_fft,
                                                 _neighbours)
     from tinaural_torch.ops import block_render as br
-    from tinaural_torch.ops.render_plan import filters_plan, mix_plan
+    from tinaural_torch.ops._layout import sm_count
+    from tinaural_torch.ops.render_plan import (filters_plan, mix_groups,
+                                                mix_plan)
 
     dev = table.device
     n_fft = _n_fft(table, B)
@@ -419,9 +432,11 @@ def check_kernels(table, S: int, nb: int, crossfade: bool, label: str,
                        device=dev)
     flags = dict(apply_itd=True, apply_ild=True)
     mix = dict(crossfade=crossfade, dir_rate=dir_rate)
-    modes = {"assemble_filters": b1_mode(filters_plan(table.taps, n_fft),
-                                         forced),
-             "block_spectra_mix_inverse": b1_mode(mix_plan(n_fft), forced)}
+    fp, mp = filters_plan(table.taps, n_fft), mix_plan(n_fft)
+    groups = mix_groups(S, nb, mp, sm_count(dev))
+    modes = {"assemble_filters": b1_mode(fp, fp.shared_f2, forced),
+             "block_spectra_mix_inverse": b1_mode(mp, groups * mp.group_f2,
+                                                  forced)}
     fl = l2_flush(dev) if flush else None
 
     def assemble():
@@ -803,9 +818,9 @@ def conv_mode(B: int, P: int, rows: int, dev, stream: bool) -> str:
     else:
         (threads, f2), G = conv_launch(B, P, rows, sms), 1
     plan = conv_plan(B, P)
-    if not plan.register:
-        split = _layout.split_work(f2, 2 * B, _layout.max_shared_bytes(0))
-        return "radix-2 body" + (", split mode" if split else "")
+    mode = launch_mode(plan.body, f2, 2 * B, False)
+    if mode != _layout.REGISTER:
+        return "radix-2 body" + (", split mode" * (mode == _layout.SPLIT))
     return (f"register body, G {G}, {threads} threads a block, "
             f"{plan.part_groups(G, threads)} partition groups")
 
@@ -925,9 +940,9 @@ def check_partition_assembly(table, rows: int, B: int, label: str,
 
     plan = partitions_plan(table.taps, B)
     G, T, _ = launch(table.taps, B, rows, sm_count(table.device))
-    mode = (f"cluster mode, {plan.ranks} blocks per row" if plan.cluster
-            else f"register body, {G} rows per block of {T} threads"
-            if plan.register else "radix-2 body")
+    mode = {"cluster": f"cluster mode, {plan.ranks} blocks per row",
+            "register": f"register body, {G} rows per block of {T} threads",
+            }.get(plan.body, "radix-2 body")
     print(f"[{label}] L {plan.L}, P {plan.parts}, {mode}", flush=True)
     idx, w = _rows(table, (rows,), seed=5)
     kern = lambda: pc.assemble_partitions_cuda(idx, w, table, B, **PART_FLAGS)
@@ -947,7 +962,7 @@ def check_partition_assembly(table, rows: int, B: int, label: str,
     out.update(snr_fp64_db=s64, ranks=plan.ranks, rows_per_block=G)
     KERNEL_PROFILES.append((label, out, "device_ms", kern, None,
                             "assemble_partitions"))
-    if variants and plan.register:
+    if variants and plan.body == "register":
         real = pc.sm_count
         for sms in (0, rows):  # the most rows per block, then one
             g, t, _ = launch(table.taps, B, rows, sms)
@@ -1141,7 +1156,7 @@ def check_partitioned_kernels(table, nb: int, B: int, label: str,
     print(f"[{label}] partitioned_conv: P {P}, {mode}", flush=True)
     conv = dict(crossfade=True, dir_rate=dir_rate)
     X = None
-    if conv_plan(B, P).register:
+    if conv_plan(B, P).body == "register":
         X = pc.frame_spectra_cuda(xb, 0, nb)
         fs = lambda: pc.frame_spectra_cuda(xb, 0, nb)
         # the library's one call: the STFT of frames 2B apart by B, padded
@@ -1260,7 +1275,8 @@ def step_body(n_fft: int, mix: bool, rows: int, dev, chunk: int = 1,
                                               spectra_rows, step_plan)
 
     pruned = pruned_plan(n_fft, mix, B_ or n_fft)
-    if pruned is not None and not forced:
+    if pruned is not None and launch_mode(pruned.body, pruned.shared_f2, n_fft,
+                                          forced) == _layout.PRUNED:
         return (f"pruned body, Q {pruned.Q}, P {pruned.P}: "
                 f"{pruned.groups} residue groups of {pruned.residues} "
                 f"transforms a row, {pruned.threads} threads a block, "
@@ -1270,11 +1286,9 @@ def step_body(n_fft: int, mix: bool, rows: int, dev, chunk: int = 1,
     sms = _layout.sm_count(dev)
     per = (mix_groups(plan, chunk, rows, sms) if mix
            else spectra_rows(plan, rows, sms))
-    with forced_split(forced):
-        split = _layout.split_work(plan.shared_f2(per), n_fft,
-                                   _layout.max_shared_bytes(0))
-    if split or not plan.register:
-        return "radix-2 body" + (", split mode" if split else "")
+    mode = launch_mode(plan.body, plan.shared_f2(per), n_fft, forced)
+    if mode != _layout.REGISTER:
+        return "radix-2 body" + (", split mode" * (mode == _layout.SPLIT))
     what = "groups" if mix else "rows"
     return (f"register body, {per} {what} of {plan.threads} threads a block, "
             f"{plan.resident_blocks(per)} blocks an SM"
@@ -1674,7 +1688,7 @@ def check_assembly_mac(table, S: int, nb: int, label: str, reps: int,
     Xu, Xd = am._input_spectra(xbs, n_fft, True)
     first = am._first_rows(S, nb, table.device)
     plan = mac_plan(table.taps, n_fft)
-    mode = b1_mode(plan, forced)
+    mode = b1_mode(plan, plan.shared_f2, forced)
     slots = (_layout.cluster_slots(table.device, "tt_assembly_mac_clusters",
                                    n_fft) if mode == "cluster"
              else _layout.sm_count(table.device) * plan.blocks_per_sm)
@@ -3043,8 +3057,9 @@ def main() -> int:
     # (n): a moving scene of 64 sources × 2^18 samples at 16,384 taps:
     # 256 blocks, more than the SMs, so B1's route at n_fft 32768, both
     # FFT kernels in the cluster mode (16,384 filter rows, H 4.3 GB)
-    require(filters_plan(long_traj.taps, 1 << 15).cluster
-            and mix_plan(1 << 15).cluster, "(n)'s shapes leave the cluster mode")
+    require(filters_plan(long_traj.taps, 1 << 15).body
+            == mix_plan(1 << 15).body == "cluster",
+            "(n)'s shapes leave the cluster mode")
     rng_n = np.random.default_rng(3)
     S, N = 64, 1 << 18
     xs_n = rng_n.standard_normal((S, N)).astype(np.float32)

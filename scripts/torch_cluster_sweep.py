@@ -111,7 +111,7 @@ def check_partitions(dev) -> bool:
             r64, i64 = pc.assemble_partitions_reference(idx, w.double(), t, B,
                                                         **FLAGS)
             s = snr_db(torch.complex(r64, i64), torch.complex(hr, hi))
-            ok &= s >= 100 and plan.cluster
+            ok &= s >= 100 and plan.body == "cluster"
             emit(kernel="assemble_partitions", taps=taps, L=plan.L, B=B,
                  ranks=plan.ranks, snr_db_fp64=s)
     return ok

@@ -150,15 +150,15 @@ def bound_ms(table, idx, rows: int, n_fft: int) -> tuple[float, str]:
 
 def mode(taps: int, n_fft: int, forced: bool) -> str:
     """The buffer mode the tree's plan takes ("split" for a tree whose
-    plan has no cluster mode)."""
+    plan has no cluster mode; a tree whose plans state no ``body`` reads
+    their ``register`` and ``cluster`` properties)."""
     from tinaural_torch.ops.mac_plan import mac_plan
 
     plan = mac_plan(taps, n_fft)
-    if forced:
-        return "split"
-    if plan.register:
-        return "register"
-    return "cluster" if getattr(plan, "cluster", False) else "split"
+    body = getattr(plan, "body", None) or (
+        "register" if plan.register
+        else "cluster" if getattr(plan, "cluster", False) else "split")
+    return "split" if forced or body not in ("register", "cluster") else body
 
 
 def mac_call(idx, w, table, Xu, Xd, first, n_fft, forced):

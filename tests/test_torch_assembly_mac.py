@@ -17,7 +17,7 @@ from tinaural.models.renderer import BinauralRenderer as JaxRenderer
 from tinaural.reference import golden
 from tinaural_torch.data import TorchTable
 from tinaural_torch.models.renderer import (NATURAL_ORDER_MIN_FFT, _n_fft,
-                                            _natural_order, _neighbours,
+                                            _neighbours, route,
                                             _trajectory_core)
 from tinaural_torch.ops import _layout
 from tinaural_torch.ops import assembly_mac as am
@@ -114,7 +114,7 @@ def test_trajectory_on_the_natural_order_route(tables, taps, B, crossfade):
     """n_fft 4096 — 128 taps at block 2048, 2048 taps at block 256 — takes
     the natural-order route, against JAX and golden."""
     arrays, t = tables[taps]
-    assert _natural_order(_n_fft(t, B))
+    assert route("trajectory", 1, 5, _n_fft(t, B), 0) is am.assembly_mac_render
     cfg = tinaural_torch.RenderConfig(block_size=B, crossfade=crossfade)
     jcfg = _jax_config(taps, block_size=B, crossfade=crossfade)
     N = 5 * B - 100
@@ -184,7 +184,9 @@ def test_natural_order_rule():
     assert NATURAL_ORDER_MIN_FFT == 4096
     for n_fft, want in ((2048, False), (1024, False), (4096, True),
                         (32768, True)):
-        assert _natural_order(n_fft) is want
+        for kind in ("trajectory", "batch"):
+            natural = route(kind, 1, 8, n_fft, 132) is am.assembly_mac_render
+            assert natural is want
 
 
 def test_run_length_rule():
@@ -211,18 +213,20 @@ def test_assembly_mac_buffer_mode(monkeypatch):
     for taps, n_fft in ((2048, 4096), (128, 4096), (4096, 8192),
                         (8192, 16384), (128, 16384)):
         p = mac_plan(taps, n_fft)
-        assert _layout.split_work(p.shared_f2, n_fft, limit) == 0
+        assert _layout.launch_mode(p.body, p.shared_f2, n_fft,
+                                   limit) == (_layout.REGISTER, 0)
     p = mac_plan(16384, 32768)
-    assert p.cluster and p.ranks == 2
-    assert _layout.split_work(p.shared_f2, 32768, limit) == 0
+    assert p.body == _layout.CLUSTER and p.ranks == 2
+    assert _layout.launch_mode(p.body, p.shared_f2, 32768,
+                               limit) == (_layout.CLUSTER, 0)
+    split = (_layout.SPLIT, _layout.SPLIT_WORK)
     for taps, n_fft in ((128, 32768), (200000, 1 << 18)):
         p = mac_plan(taps, n_fft)
-        assert not p.cluster
-        assert _layout.split_work(p.shared_f2, n_fft,
-                                  limit) == _layout.SPLIT_WORK
+        assert p.body != _layout.CLUSTER
+        assert _layout.launch_mode(p.body, p.shared_f2, n_fft, limit) == split
     monkeypatch.setattr(_layout, "force_work", _layout.SPLIT_WORK)
     p = mac_plan(16384, 32768)
-    assert _layout.split_work(p.shared_f2, 32768, limit) == _layout.SPLIT_WORK
+    assert _layout.launch_mode(p.body, p.shared_f2, 32768, limit) == split
 
 
 def test_assembly_mac_render_rejects_bad_inputs(tables):

@@ -225,23 +225,24 @@ def test_buffer_mode_follows_the_shapes():
     """Shared memory up to the H100's 227 KB per block, the split mode
     above; the issue's large shapes all split, the main path's do not."""
     limit = 232448
+    mode = lambda f2, n: _layout.launch_mode(_layout.RADIX2, f2, n, limit)
+    shared, split = (_layout.RADIX2, 0), (_layout.SPLIT, _layout.SPLIT_WORK)
     # assemble_filters at 128 taps, B = 1024 (n_fft 2048, L 256)
-    assert _layout.split_work(1024 + 2048 + 512, 2048, limit) == 0
+    assert mode(1024 + 2048 + 512, 2048) == shared
     # assemble_filters at 16,384 taps, B = 1024 (n_fft = L = 32768)
-    assert _layout.split_work(16384 + 32768 + 65536, 32768,
-                              limit) == _layout.SPLIT_WORK
+    assert mode(16384 + 32768 + 65536, 32768) == split
     # assemble_partitions at 44,100 taps, B = 512 (L = 65536)
-    assert _layout.split_work(32768 + 131072 + 1024, 65536,
-                              limit) == _layout.SPLIT_WORK
+    assert mode(32768 + 131072 + 1024, 65536) == split
     # partitioned_conv at stream_block 4096: (9·B + 4) complex64; 2048 fits
-    assert _layout.split_work(9 * 4096 + 4, 8192, limit) == _layout.SPLIT_WORK
-    assert _layout.split_work(9 * 2048 + 4, 4096, limit) == 0
+    assert mode(9 * 4096 + 4, 8192) == split
+    assert mode(9 * 2048 + 4, 4096) == shared
     with pytest.raises(ValueError):
-        _layout.split_work(1 << 26, 1 << 25, limit)
+        mode(1 << 26, 1 << 25)
 
 
 def test_forced_split_work(monkeypatch):
     monkeypatch.setattr(_layout, "force_work", 64)
-    assert _layout.split_work(100, 4096, 232448) == 64
+    assert _layout.launch_mode(_layout.REGISTER, 100, 4096,
+                               232448) == (_layout.SPLIT, 64)
     with pytest.raises(ValueError):
-        _layout.split_work(100, 8192, 232448)
+        _layout.launch_mode(_layout.REGISTER, 100, 8192, 232448)

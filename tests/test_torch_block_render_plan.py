@@ -35,6 +35,7 @@ from tinaural_torch.data import TorchTable
 from tinaural_torch.data.table import DELAY_PAD
 from tinaural_torch.models.renderer import _n_fft
 from tinaural_torch.ops import _layout
+from tinaural_torch.ops._layout import CLUSTER, REGISTER
 from tinaural_torch.ops import block_render as br
 from tinaural_torch.ops.ola import overlap_add
 from tinaural_torch.ops.render_plan import (FILTERS_SPLIT_THREADS,
@@ -72,14 +73,15 @@ def test_filters_and_mix_plans(log2n):
         p = filters_plan(taps, n)
         assert (p.taps, p.n, p.t_pad) == (taps, n, taps + DELAY_PAD)
         assert p.L == 1 << (taps + DELAY_PAD - 1).bit_length() <= n
-        assert p.register == register
-        assert p.cluster == (clusters and p.L == n)
+        assert (p.body == REGISTER) == register
+        assert (p.body == CLUSTER) == (clusters and p.L == n)
         fits = p.shared_f2 * 8 + _layout._STATIC_SMEM <= H100_SHARED_BYTES
-        assert fits == (register or p.cluster)
-        assert _layout.split_work(p.shared_f2, n, H100_SHARED_BYTES) == (
-            0 if fits else _layout.SPLIT_WORK)
+        assert fits == (register or p.body == CLUSTER)
+        assert _layout.launch_mode(p.body, p.shared_f2, n, H100_SHARED_BYTES
+                                   ) == ((p.body, 0) if fits else
+                                         (_layout.SPLIT, _layout.SPLIT_WORK))
         assert p.scratch_f2 == n + 2 * p.L
-        if p.cluster:
+        if p.body == CLUSTER:
             assert p.ranks == n // MAX_REGISTER_N
             assert (p.threads, p.rows_per_block, p.blocks_per_sm) == (
                 1024, 1, 1)
@@ -102,8 +104,8 @@ def test_filters_and_mix_plans(log2n):
         else:
             assert (p.threads, p.rows_per_block) == (FILTERS_SPLIT_THREADS, 1)
     m = mix_plan(n)
-    assert m.register == register
-    assert m.cluster == clusters
+    assert (m.body == REGISTER) == register
+    assert (m.body == CLUSTER) == clusters
     fits = m.group_f2 * 8 + _layout._STATIC_SMEM <= H100_SHARED_BYTES
     assert fits == (register or clusters)
     assert m.scratch_f2 == n + 2 * (n // 2 + 1)

@@ -31,6 +31,7 @@ from test_torch_mac_plan import (_ramp, _read, _reg_passes, _snr_db,
                                  _table, _unpack)
 from tinaural_torch.data.table import ALIGN_GUARD, MAX_RENDER_SHIFT
 from tinaural_torch.ops import _layout
+from tinaural_torch.ops._layout import CLUSTER
 from tinaural_torch.ops import partitioned_conv as pc
 from tinaural_torch.ops.filters import n_parts
 from tinaural_torch.ops.mac_plan import ramp_taper
@@ -73,17 +74,20 @@ def test_cluster_inverse_plan(log2n):
     assert p.radices == (p.ranks, *inverse_plan(SHARE).radices)
     assert p.shared_f2 * 8 == 139_264
     assert p.shared_f2 * 8 + _layout._STATIC_SMEM <= H100_SHARED_BYTES
-    assert _layout.split_work(p.shared_f2, n, H100_SHARED_BYTES) == 0
+    assert _layout.launch_mode(p.body, p.shared_f2, n,
+                               H100_SHARED_BYTES) == (CLUSTER, 0)
     assert MAX_CLUSTER_N == 1 << 17
 
 
 def test_forced_split_reaches_the_cluster_sizes(monkeypatch):
     monkeypatch.setattr(_layout, "force_work", 256)
     for n in (1 << 15, 1 << 16):
-        assert _layout.split_work(inverse_plan(n).shared_f2, n,
-                                  H100_SHARED_BYTES) == 256
+        p = inverse_plan(n)
+        assert _layout.launch_mode(p.body, p.shared_f2, n, H100_SHARED_BYTES
+                                   ) == (_layout.SPLIT, 256)
     p = partitions_plan(44100, 512)
-    assert _layout.split_work(p.shared_f2, p.L, H100_SHARED_BYTES) == 256
+    assert _layout.launch_mode(p.body, p.shared_f2, p.L, H100_SHARED_BYTES
+                               ) == (_layout.SPLIT, 256)
 
 
 @pytest.mark.parametrize("taps,block", [
@@ -103,7 +107,7 @@ def test_partitions_plan(taps, block):
     fits = shared_f2 * 8 + _layout._STATIC_SMEM <= H100_SHARED_BYTES
     cluster = (MIN_CLUSTER_L <= p.L <= MAX_CLUSTER_L
                and MIN_CLUSTER_BLOCK <= block <= MAX_CLUSTER_BLOCK)
-    assert p.cluster == cluster
+    assert (p.body == CLUSTER) == cluster
     assert fits == (cluster or p.L <= 8192)
     if cluster:
         assert p.ranks == p.L // SHARE and p.threads == THREADS
@@ -113,9 +117,10 @@ def test_partitions_plan(taps, block):
         assert p.shared_f2 * 8 + 1024 == 196 * 1024
         assert p.slots * (2 * block // 16) == THREADS
         assert p.slots * (2 * block + 2 * block // 16) == SHARE_F2
-    work = _layout.split_work(shared_f2, max(p.L, 2 * block),
-                              H100_SHARED_BYTES)
+    mode, work = _layout.launch_mode(p.body, shared_f2, max(p.L, 2 * block),
+                                     H100_SHARED_BYTES)
     assert work == (0 if fits else _layout.SPLIT_WORK)
+    assert mode == (p.body if fits else _layout.SPLIT)
 
 
 # ------------------------------------------------------------------ models
@@ -430,7 +435,7 @@ def test_partitions_model_matches_reference(taps, B):
     (110 dB at L = 16384, 105 dB at 65536)."""
     table = _table(taps, seed=taps + B)
     plan = partitions_plan(taps, B)
-    assert plan.cluster and plan.L in (16384, 65536)
+    assert plan.body == CLUSTER and plan.L in (16384, 65536)
     rng = np.random.default_rng(B)
     idx = torch.from_numpy(rng.integers(0, 8, (2, 4)).astype(np.int32))
     w = rng.uniform(0.1, 1.0, (2, 4))

@@ -44,6 +44,7 @@ from test_torch_mac_plan import (CPU, H100_SHARED_BYTES, _compiled_plan,
                                  _exchange, _last_positions, _read, _snr_db,
                                  _unpack)
 from tinaural_torch.ops import _layout
+from tinaural_torch.ops._layout import REGISTER
 from tinaural_torch.ops import partitioned_conv as pc
 from tinaural_torch.ops.conv_plan import (MAX_CONV_BLOCK, MIN_CONV_BLOCK,
                                           chunk_frames, conv_launch,
@@ -109,8 +110,9 @@ def test_conv_plans(log2B):
     log2n = log2B + 1
     for P in PARTS:
         plan = conv_plan(B, P)
-        assert plan.register == (MIN_CONV_BLOCK <= B <= MAX_CONV_BLOCK)
-        if not plan.register:
+        assert (plan.body == REGISTER) == (MIN_CONV_BLOCK <= B
+                                           <= MAX_CONV_BLOCK)
+        if plan.body != REGISTER:
             assert stream_launch(B, P, 100, H100_SMS) == (0, 256, 7 * B)
             assert conv_launch(B, P, 100, H100_SMS) == (0, 9 * B + 4)
             with pytest.raises(ValueError):

@@ -55,6 +55,7 @@ from tinaural_torch.models.streaming import (StreamState, _batch_scan_core,
                                              init_state)
 from tinaural_torch.models.renderer import _partitioned_core, _trajectory_core
 from tinaural_torch.ops import _layout
+from tinaural_torch.ops._layout import CLUSTER, REGISTER
 from tinaural_torch.ops import assembly_mac as am
 from tinaural_torch.ops import block_render as br
 from tinaural_torch.ops import block_step as bs
@@ -161,7 +162,7 @@ def test_block_render_register_kernels_every_size(log2n):
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
     n = 1 << log2n
-    assert filters_plan(16, n).register and mix_plan(n).register
+    assert filters_plan(16, n).body == mix_plan(n).body == REGISTER
     for taps in {n - 67, 16}:  # L == n, and L = 128
         t = _random_table(taps, seed=taps, device=dev)
         for rows in (1, 7) + ((8193,) if n <= 4096 else ()):
@@ -199,10 +200,10 @@ def test_block_render_at_the_mode_boundary(long_tables):
     t = long_tables[2048]
     xbs, idx, w = _inputs(t, 2, 6, seed=11)
     for n in (16384, 32768):
-        assert filters_plan(t.taps, n).register == (n == 16384)
-        assert not filters_plan(t.taps, n).cluster
-        assert mix_plan(n).register == (n == 16384)
-        assert mix_plan(n).cluster == (n == 32768)
+        assert (filters_plan(t.taps, n).body == REGISTER) == (n == 16384)
+        assert filters_plan(t.taps, n).body != CLUSTER
+        assert (mix_plan(n).body == REGISTER) == (n == 16384)
+        assert (mix_plan(n).body == CLUSTER) == (n == 32768)
         H = br.assemble_filters_cuda(idx, w, t, n, **FLAGS)
         H64 = br.assemble_filters_reference(idx, w.double(), t, n, **FLAGS)
         assert _snr_db(H64, H) >= 100, n
@@ -294,7 +295,7 @@ def test_block_render_cluster_mode_matches_plain(long_tables, taps, n_fft, S,
     one launch of each kernel."""
     t, xbs, idx, w = _cluster_rows(long_tables, taps, S, nb, k,
                                    seed=taps + S * 100 + nb + k)
-    assert filters_plan(t.taps, n_fft).cluster and mix_plan(n_fft).cluster
+    assert filters_plan(t.taps, n_fft).body == mix_plan(n_fft).body == CLUSTER
     assert _n_fft(t, B) == n_fft
     H = br.assemble_filters_cuda(idx, w, t, n_fft, **FLAGS)
     H64 = br.assemble_filters_reference(idx, w.double(), t, n_fft, **FLAGS)
@@ -411,7 +412,7 @@ def test_assemble_partitions_matches_plain(long_tables, taps, B):
     4096), the cluster mode at 16,384 taps (L 32768, 2 blocks per row)
     and 44,100 (L 65536, 4 blocks)."""
     t = long_tables[taps]
-    assert partitions_plan(taps, B).cluster == (taps > 8128)
+    assert (partitions_plan(taps, B).body == CLUSTER) == (taps > 8128)
     idx, w = _rows(t, (6,), seed=B)
     hr, hi = pc.assemble_partitions_cuda(idx, w, t, B, **FLAGS)
     r64, i64 = pc.assemble_partitions_reference(idx, w.double(), t, B, **FLAGS)
@@ -451,7 +452,7 @@ def test_assemble_partitions_register_every_size(long_tables, log2L):
     for i, B in enumerate(64 << k for k in range(6)):
         taps = L - 64 if i % 2 else max(1, L // 2 - 63)
         plan = partitions_plan(taps, B)
-        assert plan.register and plan.L == L
+        assert plan.body == REGISTER and plan.L == L
         for rows in (1, 7, plan.rows_per_block(10 ** 6, 0) + 1):
             t, idx, w = _exact_delay_inputs(taps, rows, i, dev)
             hr, hi = pc.assemble_partitions_cuda(idx, w, t, B, **FLAGS)
@@ -553,7 +554,7 @@ def test_partitioned_conv_matches_plain(long_tables, taps, B, crossfade,
     xb = torch.from_numpy(np.random.default_rng(B).standard_normal(
         (nb, B)).astype(np.float32)).to(t.device)
     hr, hi = pc.assemble_partitions_cuda(idx, w, t, B, **FLAGS)
-    register = conv_plan(B, hr.shape[1]).register
+    register = conv_plan(B, hr.shape[1]).body == REGISTER
     if register:  # frames 6 … 39; transforms pair frames 2m and 2m + 1
         X = pc.frame_spectra_cuda(xb, 6, nb)
         X64 = pc.frame_spectra_reference(xb.double(), 6, nb)
@@ -847,7 +848,7 @@ def test_block_step_register_kernels_every_size(cuda, log2n):
     ≥ nb, the mix on the scene route's chunk and in chunks of 2 (the last
     of one source); ≥ 100 dB, equal bits over two calls."""
     n = 1 << log2n
-    assert step_plan(n, False).register and step_plan(n, True).register
+    assert step_plan(n, False).body == step_plan(n, True).body == REGISTER
     S, nb = 3, 5
     for k in (1, 2, 8):
         xbs, H = _step_inputs(S, nb, n, k, seed=log2n * 10 + k, dev=cuda)
@@ -880,7 +881,7 @@ def test_block_step_at_the_mode_boundaries(cuda, monkeypatch):
     slices = _spy_slices(monkeypatch)
     for n, force in ((16384, 0), (32768, 0), (2048, 64), (64, 0)):
         monkeypatch.setattr(_layout, "force_work", force)
-        assert step_plan(n, True).register == (128 <= n <= 16384)
+        assert (step_plan(n, True).body == REGISTER) == (128 <= n <= 16384)
         pruned = pruned_plan(n, True, n // 2) if n > 16384 else None
         assert (pruned is not None) == (n == 32768)
         assert pruned is None or (pruned.half and pruned.P == 2)
@@ -1033,7 +1034,7 @@ def test_assembly_mac_matches_plain(long_tables, taps, n_fft, rows, firsts,
         t = _random_table(taps, seed=taps, device=dev)
         idx, w, Xu, Xd = (x.to(dev) for x in _random_inputs(t, rows, n_fft,
                                                             seed=rows))
-    assert mac_plan(t.taps, n_fft).cluster == (n_fft > 16384)
+    assert (mac_plan(t.taps, n_fft).body == CLUSTER) == (n_fft > 16384)
     first = torch.zeros(rows, device=dev)
     first[list(firsts)] = 1.0
     kw = dict(crossfade=crossfade, **FLAGS)
@@ -1062,9 +1063,9 @@ def test_assembly_mac_at_the_mode_boundary(long_tables, monkeypatch):
                                       _layout.SPLIT_WORK)):
         t = long_tables[taps]
         plan = mac_plan(t.taps, n_fft)
-        assert (plan.register, plan.cluster) == (mode == "register",
-                                                 mode == "cluster" or
-                                                 bool(force))
+        assert (plan.body == REGISTER,
+                plan.body == CLUSTER) == (mode == "register",
+                                          mode == "cluster" or bool(force))
         monkeypatch.setattr(_layout, "force_work", force)
         idx, w, Xu, Xd = _mac_inputs(t, 40, n_fft, seed=9)
         first = torch.zeros(40, device=t.device)
@@ -1434,7 +1435,7 @@ def test_cluster_mode_boundaries(long_tables):
         assert _snr_db(f64, bs.spectra_inverse_cuda(Y, n)) >= 120, n
     for taps, L in ((8000, 8192), (9000, 16384)):
         plan = partitions_plan(taps, 512)
-        assert plan.L == L and plan.cluster == (L == 16384)
+        assert plan.L == L and (plan.body == CLUSTER) == (L == 16384)
         t = long_tables[taps]
         idx, w = _rows(t, (5,), seed=taps)
         hr, hi = pc.assemble_partitions_cuda(idx, w, t, 512, **FLAGS)

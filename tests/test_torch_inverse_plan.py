@@ -51,8 +51,10 @@ def test_inverse_plan(log2n):
     cluster = MAX_REGISTER_N < n <= MAX_CLUSTER_N
     fits = p.shared_f2 * 8 + _layout._STATIC_SMEM <= H100_SHARED_BYTES
     assert fits == (register or cluster)
-    work = _layout.split_work(p.shared_f2, n, H100_SHARED_BYTES)
+    mode, work = _layout.launch_mode(p.body, p.shared_f2, n,
+                                     H100_SHARED_BYTES)
     assert work == (0 if fits else _layout.SPLIT_WORK)
+    assert mode == (p.body if fits else _layout.SPLIT)
     assert p.ranks == (n // MAX_REGISTER_N if cluster else 1)
     if cluster:  # a radix-C step, then each block's 16384-point plan
         assert (p.points, p.threads, p.rows_per_block) == (16, 1024, 1)

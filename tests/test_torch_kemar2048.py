@@ -105,7 +105,8 @@ def test_bfloat16_control_fails_the_tolerance(tables, crossfade):
 
 def test_render_batch_takes_the_natural_order_route(tables, monkeypatch):
     port, _ = tables
-    assert rd._n_fft(port, B) == 4096 and rd._natural_order(4096)
+    assert rd._n_fft(port, B) == 4096
+    assert rd.route("batch", S, NB, 4096, 132) is rd.assembly_mac_render
     calls = []
 
     def spy(xbs, *a, **k):

@@ -33,8 +33,9 @@ from test_torch_cluster_plan import (SHARE, SHARE_F2, THREADS, Cluster,
 from test_torch_mac_plan import _inputs, _read, _snr_db, _table, _unpack
 from tinaural.models.renderer import BinauralRenderer as JaxRenderer
 from tinaural_torch.data import TorchTable
-from tinaural_torch.models.renderer import _n_fft, _natural_order
+from tinaural_torch.models.renderer import _n_fft, route
 from tinaural_torch.ops import _layout
+from tinaural_torch.ops._layout import CLUSTER, REGISTER
 from tinaural_torch.ops import assembly_mac as am
 from tinaural_torch.ops.mac_plan import mac_plan
 from tinaural_torch.ops.spectra_inverse import (MAX_CLUSTER_N,
@@ -89,7 +90,7 @@ def test_cluster_plan_equals_the_cuda_constants(log2n):
     c = _constants()
     n = 1 << log2n
     p = mac_plan(n - 64, n)
-    assert p.L == n and p.cluster and not p.register
+    assert p.L == n and p.body == CLUSTER and p.body != REGISTER
     assert p.ranks == n >> c["kRegMaxLog2N"] <= 8
     assert p.threads == c["kClusterThreads"] and p.blocks_per_sm == 1
     assert p.shared_f2 == c["kMacClusterShared"]
@@ -97,11 +98,13 @@ def test_cluster_plan_equals_the_cuda_constants(log2n):
     assert 2 * c["kClusterPairs"] + 2 <= p.shared_f2
     assert p.ranks * c["kClusterPairs"] == n // 2
     assert log2n <= c["kClusterMaxLog2N"] and MAX_CLUSTER_N == 1 << 17
-    assert _layout.split_work(p.shared_f2, n, H100_SHARED_BYTES) == 0
+    assert _layout.launch_mode(p.body, p.shared_f2, n,
+                               H100_SHARED_BYTES) == (CLUSTER, 0)
     short = mac_plan(n // 2 - 64, n)  # L = n/2: the split mode
-    assert short.L == n // 2 and not short.cluster
-    assert _layout.split_work(short.shared_f2, n,
-                              H100_SHARED_BYTES) == _layout.SPLIT_WORK
+    assert short.L == n // 2 and short.body != CLUSTER
+    assert _layout.launch_mode(short.body, short.shared_f2, n,
+                               H100_SHARED_BYTES) == (_layout.SPLIT,
+                                                      _layout.SPLIT_WORK)
 
 
 # ------------------------------------------------------------------ model
@@ -111,7 +114,7 @@ def _model_mac(idx, w, table, Xu, Xd, first, n, run, crossfade):
     """The cluster kernel's map, one cluster per run: → Y (rows, 2, F)
     complex64; every final output bin written once."""
     p = mac_plan(table.taps, n)
-    assert p.cluster
+    assert p.body == CLUSTER
     C, M, span, t_pad = p.ranks, SHARE, SHARE // p.ranks, p.t_pad
     arrays = (idx.numpy(), w.numpy(),
               table.h.reshape(-1, 2, table.taps).numpy(),
@@ -184,7 +187,7 @@ def _model_mac(idx, w, table, Xu, Xd, first, n, run, crossfade):
 
 def _check(taps, n, rows, run, firsts, crossfade, seed):
     table = _table(taps, seed=seed)
-    assert mac_plan(taps, n).cluster
+    assert mac_plan(taps, n).body == CLUSTER
     idx, w, Xu, Xd = _inputs(table, rows, n, seed=seed)
     first = torch.zeros(rows)
     first[list(firsts)] = 1.0
@@ -236,8 +239,8 @@ def test_natural_order_route_at_32768_matches_jax():
     table = TorchTable.from_hrir_table(arrays, "cpu")
     B = 1024
     n = _n_fft(table, B)
-    assert n == 1 << 15 and _natural_order(n) and mac_plan(table.taps,
-                                                           n).cluster
+    assert n == 1 << 15 and mac_plan(table.taps, n).body == CLUSTER
+    assert route("trajectory", 1, 3, n, 0) is am.assembly_mac_render
     assert n > MAX_REGISTER_N
     N = 3 * B - 100
     rng = np.random.default_rng(5)

@@ -27,6 +27,7 @@ from test_torch_inverse_plan import _dft, _pad
 from tinaural_torch.data import TorchTable
 from tinaural_torch.data.table import ALIGN_GUARD, DELAY_PAD, MAX_RENDER_SHIFT
 from tinaural_torch.ops import _layout
+from tinaural_torch.ops._layout import CLUSTER, REGISTER
 from tinaural_torch.ops import assembly_mac as am
 from tinaural_torch.ops.filters import delay_ramp
 from tinaural_torch.ops.mac_plan import SPLIT_THREADS, mac_plan, ramp_taper
@@ -69,14 +70,16 @@ def test_mac_plan(log2n):
         assert p.L == 1 << math.ceil(math.log2(taps + DELAY_PAD)) <= n
         assert math.prod(p.radices_L) == p.L and math.prod(p.radices_n) == n
         register = n <= MAX_REGISTER_N
-        assert p.register == register
+        assert (p.body == REGISTER) == register
         cluster = MAX_REGISTER_N < n <= 1 << 17 and p.L == n
-        assert p.cluster == cluster
+        assert (p.body == CLUSTER) == cluster
         assert p.ranks == (n // MAX_REGISTER_N if cluster else 0)
         fits = p.shared_f2 * 8 + _layout._STATIC_SMEM <= H100_SHARED_BYTES
         assert fits == (register or cluster)
-        work = _layout.split_work(p.shared_f2, n, H100_SHARED_BYTES)
+        mode, work = _layout.launch_mode(p.body, p.shared_f2, n,
+                                         H100_SHARED_BYTES)
         assert work == (0 if register or cluster else _layout.SPLIT_WORK)
+        assert mode == (p.body if work == 0 else _layout.SPLIT)
         assert p.scratch_f2 == n + 2 * p.L + 4 * (n // 2 + 1)
         if register:
             radices, threads, blocks = _compiled_plan(n)

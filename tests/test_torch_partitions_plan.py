@@ -33,6 +33,7 @@ from test_torch_mac_plan import (CPU, H100_SHARED_BYTES, _compiled_plan,
                                  _table, _unpack)
 from tinaural_torch.data.table import DELAY_PAD
 from tinaural_torch.ops import _layout
+from tinaural_torch.ops._layout import CLUSTER, REGISTER
 from tinaural_torch.ops import partitioned_conv as pc
 from tinaural_torch.ops.filters import partition_spectra
 from tinaural_torch.ops.partitions_plan import (MAX_CLUSTER_BLOCK,
@@ -92,14 +93,16 @@ def test_shared_mode_plans(log2L):
         for taps in _taps(L, log2B):
             p = partitions_plan(taps, B)
             assert (p.L, p.t_pad, p.ranks) == (L, taps + DELAY_PAD, 0)
-            assert p.parts == -(-p.t_pad // B) and not p.cluster
+            assert p.parts == -(-p.t_pad // B) and p.body != CLUSTER
             reg = MIN_CLUSTER_BLOCK <= B <= MAX_CLUSTER_BLOCK
-            assert p.register == reg
+            assert (p.body == REGISTER) == reg
             # the launch at the most rows per block (no card)
             G, T, f2 = launch(taps, B, 1000, 0)
             fits = f2 * 8 + _layout._STATIC_SMEM <= H100_SHARED_BYTES
-            work = _layout.split_work(f2, max(L, 2 * B), H100_SHARED_BYTES)
+            mode, work = _layout.launch_mode(p.body, f2, max(L, 2 * B),
+                                             H100_SHARED_BYTES)
             assert work == (0 if fits else _layout.SPLIT_WORK)
+            assert mode == (p.body if fits else _layout.SPLIT)
             if not reg:
                 assert (p.threads, p.max_rows) == (SHARED_THREADS, 1)
                 assert p.shared_f2 == max(L, 2 * B) // 2 + 2 * L + 2 * B
@@ -163,7 +166,8 @@ def test_cluster_and_split_modes_keep_their_plans():
     assert MAX_REGISTER_L == 8192
     for B, cluster in ((32, False), (64, True), (2048, True), (4096, False)):
         p = partitions_plan(9000, B)
-        assert (p.L, p.cluster, p.register) == (16384, cluster, False)
+        assert (p.L, p.body == CLUSTER,
+                p.body == REGISTER) == (16384, cluster, False)
         assert p.rows_per_block(5000, H100_SMS) == 1
 
 
@@ -221,7 +225,7 @@ def _model_shared(idx, w, table, B: int, G: int) -> np.ndarray:
     """The register body's map by its index maps, G rows per CUDA block:
     → H (rows, P, 2, B+1) complex64."""
     p = partitions_plan(table.taps, B)
-    assert p.register
+    assert p.body == REGISTER
     L, P, t_pad = p.L, p.parts, p.t_pad
     TL, size = L // 16, p.block_shared_f2(G)
     arrays = (idx.numpy(), w.numpy(),

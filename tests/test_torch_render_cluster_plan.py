@@ -37,8 +37,9 @@ from test_torch_cluster_plan import (SHARE, SHARE_F2, THREADS, Cluster,
 from test_torch_mac_plan import _read, _snr_db, _table, _unpack
 from tinaural.models.renderer import BinauralRenderer as JaxRenderer
 from tinaural_torch.data import TorchTable
-from tinaural_torch.models.renderer import _n_fft, _scene_mixes
+from tinaural_torch.models.renderer import _n_fft, route
 from tinaural_torch.ops import _layout
+from tinaural_torch.ops._layout import CLUSTER, REGISTER
 from tinaural_torch.ops import block_render as br
 from tinaural_torch.ops.ola import overlap_add
 from tinaural_torch.ops.render_plan import filters_plan, mix_groups, mix_plan
@@ -113,25 +114,27 @@ def test_cluster_plans_equal_the_cuda_constants(log2n, monkeypatch):
     plans = (filters_plan(n - 64, n), mix_plan(n))
     f, m = plans
     for p, share in ((f, f.shared_f2), (m, m.group_f2)):
-        assert p.cluster and not p.register
+        assert p.body == CLUSTER and p.body != REGISTER
         assert p.ranks == n // M <= 8
         assert p.threads == c["kClusterThreads"] and p.blocks_per_sm == 1
         assert share == c["share_f2"] and share * 8 == 139_264
         assert 2 * PAIRS + 2 <= share and p.ranks * PAIRS == n // 2
-        assert _layout.split_work(share, n, H100_SHARED_BYTES) == 0
+        assert _layout.launch_mode(CLUSTER, share, n,
+                                   H100_SHARED_BYTES) == (CLUSTER, 0)
     assert f.L == n and f.rows_per_block == 1
     assert f.radices_n == f.radices_L == (f.ranks, 16, 16, 16, 4)
     assert m.radices == (m.ranks, *inverse_plan(M).radices)
     assert m.max_groups == 1 and mix_groups(64, 256, m, 132) == 1
     # L < n: the filters stay split, the mix does not depend on L
     short = filters_plan(n // 2 - 64, n)
-    assert short.L == n // 2 and not short.cluster
-    assert _layout.split_work(short.shared_f2, n,
-                              H100_SHARED_BYTES) == _layout.SPLIT_WORK
+    assert short.L == n // 2 and short.body != CLUSTER
+    split = (_layout.SPLIT, _layout.SPLIT_WORK)
+    assert _layout.launch_mode(short.body, short.shared_f2, n,
+                               H100_SHARED_BYTES) == split
     monkeypatch.setattr(_layout, "force_work", _layout.SPLIT_WORK)
     for share in (f.shared_f2, m.group_f2):
-        assert _layout.split_work(share, n,
-                                  H100_SHARED_BYTES) == _layout.SPLIT_WORK
+        assert _layout.launch_mode(CLUSTER, share, n,
+                                   H100_SHARED_BYTES) == split
 
 
 def test_the_gap_and_the_routes():
@@ -149,10 +152,10 @@ def test_the_gap_and_the_routes():
                                 (44100, 65536, 65536, True)):
         assert _n_fft(table(taps), B) == n
         p = filters_plan(taps, n)
-        assert p.L == L and p.cluster == cluster
-        assert mix_plan(n).cluster == (n > MAX_REGISTER_N)
-    assert not _scene_mixes(64, 256, False, 132)  # render (n): B1
-    assert _scene_mixes(64, 131, False, 132)
+        assert p.L == L and (p.body == CLUSTER) == cluster
+        assert (mix_plan(n).body == CLUSTER) == (n > MAX_REGISTER_N)
+    assert route("scene", 64, 256, 1 << 15, 132) is br.block_render  # (n): B1
+    assert route("scene", 64, 131, 1 << 15, 132) is not br.block_render
 
 
 # ------------------------------------------------------------------ models
@@ -194,7 +197,7 @@ def _model_filters(idx, w, table, n: int) -> np.ndarray:
     (rows, 2, F) complex64, one row after another on a cluster; every
     output bin written once."""
     p = filters_plan(table.taps, n)
-    assert p.cluster
+    assert p.body == CLUSTER
     C, M, span = p.ranks, SHARE, SHARE // p.ranks
     arrays = (idx.numpy(), w.numpy(),
               table.h.reshape(-1, 2, table.taps).numpy(),
@@ -324,7 +327,7 @@ def test_models_match_the_block_render(taps, n, crossfade, dir_rate):
     predecessor's row the one before); 4 gives one filter a source."""
     table, idx, w, x = _scene_inputs(taps, n, dir_rate, seed=taps + n
                                      + dir_rate + crossfade)
-    assert filters_plan(taps, n).cluster and mix_plan(n).cluster
+    assert filters_plan(taps, n).body == mix_plan(n).body == CLUSTER
     S, fnb, _ = idx.shape
     H = _model_filters(idx.reshape(-1, 4), w.reshape(-1, 4), table,
                        n).reshape(S, fnb, 2, -1)
@@ -359,7 +362,7 @@ def test_moving_scene_at_32768_matches_jax():
     arrays = tinaural.load_hrir_set("synthetic", taps=16384)
     table = TorchTable.from_hrir_table(arrays, "cpu")
     n = _n_fft(table, B)
-    assert n == 1 << 15 and filters_plan(table.taps, n).cluster
+    assert n == 1 << 15 and filters_plan(table.taps, n).body == CLUSTER
     rng = np.random.default_rng(11)
     S, nb = 2, 3
     N = nb * B - 200

@@ -16,8 +16,8 @@ from tinaural.models.renderer import BinauralRenderer as JaxRenderer
 from tinaural.reference import golden
 from tinaural_torch.data import TorchTable
 from tinaural_torch.models.renderer import (_n_fft, _neighbours,
-                                            _scene_core, _scene_mixes,
-                                            _scene_static_core)
+                                            _scene_core, _scene_static_core,
+                                            route)
 from tinaural_torch.ops import _layout
 from tinaural_torch.ops import block_render as br
 from tinaural_torch.ops import block_step as bs
@@ -166,14 +166,21 @@ def test_scene_route_rule():
     several sources mix below the SM count; off the card (0 SMs) moving
     scenes take B1."""
     sms = 132
-    assert _scene_mixes(64, 128, False, sms)        # (b): 128 blocks < 132
-    assert not _scene_mixes(16, 1024, False, sms)   # (m): 1024 blocks
-    assert not _scene_mixes(64, 132, False, sms)
-    assert not _scene_mixes(1, 8, False, sms)       # one source: a trajectory
-    assert _scene_mixes(64, 128, True, sms)         # (c)
-    assert _scene_mixes(1, 4096, True, sms)
-    assert not _scene_mixes(64, 128, False, 0)
-    assert _scene_mixes(64, 128, True, 0)
+
+    def mixes(S, nb, static, sms):
+        kind = "static_scene" if static else "scene"
+        got = route(kind, S, nb, 2048, sms)
+        assert got in (bs.scene_step_render, br.block_render)
+        return got is bs.scene_step_render
+
+    assert mixes(64, 128, False, sms)        # (b): 128 blocks < 132
+    assert not mixes(16, 1024, False, sms)   # (m): 1024 blocks
+    assert not mixes(64, 132, False, sms)
+    assert not mixes(1, 8, False, sms)       # one source: a trajectory
+    assert mixes(64, 128, True, sms)         # (c)
+    assert mixes(1, 4096, True, sms)
+    assert not mixes(64, 128, False, 0)
+    assert mixes(64, 128, True, 0)
 
 
 def test_mix_chunk_rule():
@@ -203,12 +210,14 @@ def test_mix_buffer_mode():
     for n_fft in (2048, 8192, 16384):
         plan = step_plan(n_fft, True)
         groups = mix_launch(64, 128, n_fft, 132, n_fft // 2, True)[1]
-        assert plan.register
-        assert _layout.split_work(plan.shared_f2(groups), n_fft, limit) == 0
+        assert plan.body == _layout.REGISTER
+        assert _layout.launch_mode(plan.body, plan.shared_f2(groups), n_fft,
+                                   limit) == (_layout.REGISTER, 0)
     assert step_plan(64, True).shared_f2(1) == 32 + 64 + 2 * 33
-    assert _layout.split_work(step_plan(64, True).shared_f2(1), 64,
-                              limit) == 0
+    assert _layout.launch_mode(step_plan(64, True).body,
+                               step_plan(64, True).shared_f2(1), 64,
+                               limit) == (_layout.RADIX2, 0)
     plan = step_plan(32768, True)
-    assert not plan.register
-    assert _layout.split_work(plan.shared_f2(1), 32768,
-                              limit) == _layout.SPLIT_WORK
+    assert plan.body != _layout.REGISTER
+    assert _layout.launch_mode(plan.body, plan.shared_f2(1), 32768,
+                               limit) == (_layout.SPLIT, _layout.SPLIT_WORK)

@@ -36,6 +36,7 @@ from test_torch_mac_plan import (CPU, H100_SHARED_BYTES, LOG2_SIZES,
 from tinaural_torch.data import TorchTable
 from tinaural_torch.models.renderer import _n_fft, _neighbours
 from tinaural_torch.ops import _layout
+from tinaural_torch.ops._layout import REGISTER
 from tinaural_torch.ops import block_render as br
 from tinaural_torch.ops import block_step as bs
 from tinaural_torch.ops.block_render import filter_rows
@@ -79,7 +80,7 @@ def test_step_plans(log2n, mix):
     n = 1 << log2n
     p = step_plan(n, mix)
     register = n <= MAX_REGISTER_N
-    assert p.register == register and p.n == n
+    assert (p.body == REGISTER) == register and p.n == n
     F = n // 2 + 1
     assert p.scratch_f2 == n + (2 * F if mix else 0)
     if register:
@@ -91,21 +92,24 @@ def test_step_plans(log2n, mix):
         assert p.max_per_block * threads <= 512 or threads == 1024
         big = p.shared_f2(p.max_per_block)
         assert big * 8 + _layout._STATIC_SMEM <= H100_SHARED_BYTES
-        assert _layout.split_work(big, n, H100_SHARED_BYTES) == 0
+        assert _layout.launch_mode(p.body, big, n,
+                                   H100_SHARED_BYTES) == (REGISTER, 0)
         # 64 registers a thread under __launch_bounds__
         assert 65536 // (p.blocks_per_sm * p.max_per_block * threads) == 64
     else:
         q = pruned_plan(n, mix, 1024)
         assert q is not None and (q.Q, q.P) == (1024, n // 1024)
         assert q.radices == _compiled_plan(1024)[0]
-        assert _layout.split_work(q.shared_f2, n, H100_SHARED_BYTES) == 0
+        assert _layout.launch_mode(q.body, q.shared_f2, n,
+                                   H100_SHARED_BYTES) == (_layout.PRUNED, 0)
         assert q.scratch_f2 == p.scratch_f2
         assert p == radix2_plan(n, mix)
         assert (p.threads, p.max_per_block, p.blocks_per_sm) == (
             RADIX2_THREADS, 1, 1)
         assert p.unit_f2 == n // 2 + n + (2 * F if mix else 0)
-        assert _layout.split_work(p.shared_f2(1), n, H100_SHARED_BYTES) == (
-            _layout.SPLIT_WORK)
+        assert _layout.launch_mode(p.body, p.shared_f2(1), n,
+                                   H100_SHARED_BYTES) == (_layout.SPLIT,
+                                                          _layout.SPLIT_WORK)
 
 
 @pytest.mark.parametrize("n", [2, 16, 64])
@@ -114,8 +118,9 @@ def test_small_sizes_take_the_radix2_body(n):
     memory."""
     for mix in (False, True):
         p = step_plan(n, mix)
-        assert not p.register and p.threads == RADIX2_THREADS
-        assert _layout.split_work(p.shared_f2(1), n, H100_SHARED_BYTES) == 0
+        assert p.body != REGISTER and p.threads == RADIX2_THREADS
+        assert _layout.launch_mode(p.body, p.shared_f2(1), n,
+                                   H100_SHARED_BYTES) == (_layout.RADIX2, 0)
     with pytest.raises(ValueError):
         step_plan(96, False)
 

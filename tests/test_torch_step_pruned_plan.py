@@ -43,6 +43,7 @@ from tinaural.models.renderer import BinauralRenderer as JaxRenderer
 from tinaural_torch.data import TorchTable
 from tinaural_torch.models.renderer import _n_fft, _scene_core
 from tinaural_torch.ops import _layout
+from tinaural_torch.ops._layout import REGISTER
 from tinaural_torch.ops import block_render as br
 from tinaural_torch.ops import block_step as bs
 from tinaural_torch.ops.ola import overlap_add
@@ -141,7 +142,8 @@ def test_pruned_plans_equal_the_cuda_constants(log2n, B_, monkeypatch):
         assert p.threads <= 1024 and 65536 // (p.blocks_per_sm
                                                * p.threads) == 64
         assert p.shared_f2 * 8 + _layout._STATIC_SMEM <= H100_SHARED_BYTES
-        assert _layout.split_work(p.shared_f2, n, H100_SHARED_BYTES) == 0
+        assert _layout.launch_mode(p.body, p.shared_f2, n,
+                                   H100_SHARED_BYTES) == (_layout.PRUNED, 0)
         assert p.scratch_f2 == radix2_plan(n, mix).scratch_f2
         if not p.half:
             assert c["kBins"] * p.threads == p.pairs * Q
@@ -154,8 +156,9 @@ def test_pruned_plans_equal_the_cuda_constants(log2n, B_, monkeypatch):
             assert p.half or res == {(p.P - r) % p.P for r in res}
             assert len(p.block_residues(j)) == p.residues
         monkeypatch.setattr(_layout, "force_work", _layout.SPLIT_WORK)
-        assert _layout.split_work(p.shared_f2, n, H100_SHARED_BYTES) == (
-            _layout.SPLIT_WORK)
+        assert _layout.launch_mode(p.body, p.shared_f2, n,
+                                   H100_SHARED_BYTES) == (_layout.SPLIT,
+                                                          _layout.SPLIT_WORK)
         monkeypatch.setattr(_layout, "force_work", 0)
 
 
@@ -167,7 +170,7 @@ def test_the_mode_flips_at_q_above_16384():
         assert pruned_plan(n, False, 16384) is not None
         assert pruned_plan(n, False, 16385) is None
         assert pruned_plan(n, True, n) is None
-        assert not step_plan(n, True).register
+        assert step_plan(n, True).body != REGISTER
     assert pruned_plan(16384, False, 1024) is None
     assert pruned_plan(1 << 15, False, 1).Q == 128
     assert pruned_plan(1 << 15, False, 129).Q == 256

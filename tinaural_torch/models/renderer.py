@@ -2,14 +2,16 @@
 
 Counterpart of `tinaural.models.renderer`'s default route. Each render
 ends in one call of a route — the hand-written CUDA kernels for tensors on
-the card, the plain torch versions for tensors on the CPU — picked from the
-shapes and the device:
+the card, the plain torch versions for tensors on the CPU — that `route`
+picks from the kind of render, the shapes and the device:
 - a moving source and `render_batch`: `block_render` and
   `block_step_render` below an FFT of 4096 points, `assembly_mac_render`
-  (the natural-order route) from there (`_natural_order`);
-- a static scene, and a moving scene of fewer blocks than the card has SMs:
-  `scene_step_render`; a larger moving scene `block_render`
-  (`_scene_mixes`);
+  (the natural-order route) from there;
+- a static scene, and a moving scene of several sources and fewer blocks
+  than the card has SMs (where `block_render`'s grid of nb CUDA blocks
+  would underfill the card and the mix kernel's (source chunk, block)
+  grid does not): `scene_step_render`; another moving scene
+  `block_render`;
 - a long static `render`: `block_step_render`; `render_streamed`:
   `partitioned_render`.
 A short static `render` is one direct FFT convolution in `torch.fft` on
@@ -92,34 +94,41 @@ def _flags(table: TorchTable, config: RenderConfig) -> dict:
                 apply_ild=bool(table.decomposed and config.apply_ild))
 
 
-def _natural_order(n_fft: int) -> bool:
-    """Whether moving sources and render_batch take the natural-order
-    route (`assembly_mac_render`) at this FFT size."""
-    return n_fft >= NATURAL_ORDER_MIN_FFT
+def route(kind: str, S: int, nb: int, n_fft: int, sms: int):
+    """THE route rule, as the module's docstring lists it: the route a
+    render of ``kind`` ("trajectory", "batch", "scene", "static_scene",
+    "static" or "streamed") takes over S sources × nb blocks at FFT size
+    ``n_fft`` on a device of ``sms`` SMs (0 off the card), read from the
+    module's globals at each call."""
+    if kind in ("trajectory", "batch"):
+        if n_fft >= NATURAL_ORDER_MIN_FFT:
+            return assembly_mac_render
+        return block_render if kind == "trajectory" else block_step_render
+    if kind == "static_scene" or (kind == "scene" and S > 1 and nb < sms):
+        return scene_step_render
+    if kind == "scene":
+        return block_render
+    if kind == "static":
+        return block_step_render
+    if kind == "streamed":
+        return partitioned_render
+    raise ValueError(f"no route for a render of kind {kind!r}")
 
 
-def _scene_mixes(S: int, nb: int, static: bool, sms: int) -> bool:
-    """Whether a scene takes the mixdown route (`scene_step_render`)
-    rather than `block_render`: always for static sources, which then
-    assemble one filter each instead of one per block; for moving sources
-    when there are several and fewer blocks than SMs (``sms``, 0 off the
-    card), where `block_render`'s grid of nb CUDA blocks underfills the
-    card and the mix kernel's (source chunk, block) grid does not."""
-    return static or (S > 1 and nb < sms)
-
-
-def _block_render(table: TorchTable, xbs: torch.Tensor, dirs: torch.Tensor,
-                  config: RenderConfig, crossfade: bool, render,
-                  dir_rate: int) -> torch.Tensor:
+def _block_render(kind: str, table: TorchTable, xbs: torch.Tensor,
+                  dirs: torch.Tensor, config: RenderConfig, crossfade: bool,
+                  render, dir_rate: int) -> torch.Tensor:
     """Neighbour rows/weights of each group of ``dir_rate`` blocks, then
     one render call (span ``tt.route``). xbs: (S, nb, B); dirs: (S,
     ⌈nb/dir_rate⌉, 2); ``render`` is a route or, for checks, its plain
-    version."""
+    version; None takes the one `route` picks for ``kind``."""
+    S, nb, B = xbs.shape
+    n_fft = _n_fft(table, B)
+    render = render or route(kind, S, nb, n_fft, sm_count(xbs.device))
     idx, w = _neighbours(table, dirs, config)
     with span("tt.route"):
-        return render(xbs, idx, w, table, _n_fft(table, xbs.shape[-1]),
-                      crossfade=crossfade, dir_rate=dir_rate,
-                      **_flags(table, config))
+        return render(xbs, idx, w, table, n_fft, crossfade=crossfade,
+                      dir_rate=dir_rate, **_flags(table, config))
 
 
 def _static_core(table: TorchTable, x: torch.Tensor, dir2: torch.Tensor,
@@ -136,14 +145,13 @@ def _static_core(table: TorchTable, x: torch.Tensor, dir2: torch.Tensor,
 
 def _static_block_core(table: TorchTable, xb: torch.Tensor,
                        dir2: torch.Tensor, config: RenderConfig,
-                       render=block_step_render) -> torch.Tensor:
+                       render=None) -> torch.Tensor:
     """OLA block convolution at one fixed direction: one filter, assembled
     once, serves every block (dir_rate nb), with no crossfade (between
     equal filters it is the identity). xb: (nb, B); dir2: (2,) → (2,
-    (nb−1)·B + n_fft). ``render`` is `block_step_render` or, for checks,
-    its plain version."""
-    return _block_render(table, xb[None], dir2[None, None], config, False,
-                         render, xb.shape[0])[0]
+    (nb−1)·B + n_fft). ``render`` as in `_batch_core`."""
+    return _block_render("static", table, xb[None], dir2[None, None], config,
+                         False, render, xb.shape[0])[0]
 
 
 def _batch_core(table: TorchTable, xbs: torch.Tensor, dirs: torch.Tensor,
@@ -152,17 +160,13 @@ def _batch_core(table: TorchTable, xbs: torch.Tensor, dirs: torch.Tensor,
     (S, 2, (nb−1)·B + n_fft). Crossfades per ``config.crossfade`` even
     where a source's track is constant, as the JAX package does.
     ``render`` (a route, or its plain version for checks) defaults to
-    the one the shapes pick. One filter per group of ``dir_rate`` blocks
+    the one `route` picks. One filter per group of ``dir_rate`` blocks
     of each source at every S: the JAX package keeps k = 1 above one
     source, where its kernel's matmuls over chunk/k rows per source would
     run too few rows for the TPU's matrix unit; a CUDA block here takes
     one row at a time."""
-    if render is None:
-        render = (assembly_mac_render
-                  if _natural_order(_n_fft(table, xbs.shape[-1]))
-                  else block_step_render)
     k = config.dir_rate
-    return _block_render(table, xbs, _group_dirs(dirs, k), config,
+    return _block_render("batch", table, xbs, _group_dirs(dirs, k), config,
                          config.crossfade, render, k)
 
 
@@ -171,13 +175,10 @@ def _trajectory_core(table: TorchTable, xb: torch.Tensor, dirs: torch.Tensor,
     """Crossfaded OLA block convolution. xb: (nb, B); dirs: (nb, 2) →
     (2, (nb−1)·B + n_fft). ``render`` as in `_batch_core`; one filter per
     group of ``dir_rate`` blocks."""
-    if render is None:
-        render = (assembly_mac_render
-                  if _natural_order(_n_fft(table, xb.shape[-1]))
-                  else block_render)
     k = config.dir_rate
     # one source: (2, out) mixed or (1, 2, out) per source, as the route has it
-    return _block_render(table, xb[None], _group_dirs(dirs, k)[None], config,
+    return _block_render("trajectory", table, xb[None],
+                         _group_dirs(dirs, k)[None], config,
                          config.crossfade, render, k).reshape(2, -1)
 
 
@@ -186,13 +187,8 @@ def _scene_core(table: TorchTable, xbs: torch.Tensor, dirs: torch.Tensor,
     """Moving scene + stereo mixdown. xbs: (S, nb, B); dirs: (S, nb, 2) →
     (2, out). ``render`` as in `_batch_core`; one filter per group of
     ``dir_rate`` blocks of each source."""
-    S, nb, _ = xbs.shape
-    if render is None:
-        render = (scene_step_render
-                  if _scene_mixes(S, nb, False, sm_count(xbs.device))
-                  else block_render)
     k = config.dir_rate
-    return _block_render(table, xbs, _group_dirs(dirs, k), config,
+    return _block_render("scene", table, xbs, _group_dirs(dirs, k), config,
                          config.crossfade, render, k)
 
 
@@ -203,23 +199,20 @@ def _scene_static_core(table: TorchTable, xbs: torch.Tensor,
     One filter per source serves all its blocks (dir_rate nb); between
     equal filters the crossfade is the identity, so it is skipped.
     ``render`` as in `_batch_core`."""
-    S, nb, _ = xbs.shape
-    if render is None:
-        render = (scene_step_render
-                  if _scene_mixes(S, nb, True, sm_count(xbs.device))
-                  else block_render)
-    return _block_render(table, xbs, dirs[:, None, :], config, False, render,
-                         nb)
+    return _block_render("static_scene", table, xbs, dirs[:, None, :],
+                         config, False, render, xbs.shape[1])
 
 
 def _partitioned_core(table: TorchTable, xb: torch.Tensor,
                       dirs: torch.Tensor, config: RenderConfig,
-                      render=partitioned_render) -> torch.Tensor:
+                      render=None) -> torch.Tensor:
     """Batched partitioned convolution: the streaming renderer's map with
     every block at once. xb: (nb, B); dirs: (nb, 2) → (2, nb·B). Reads
     ``dir_rate`` (snapped track, one filter per group of k blocks);
-    ``stream_update_rate`` is the streams' knob. ``render`` is
-    `partitioned_render` or, for checks, its plain version."""
+    ``stream_update_rate`` is the streams' knob. ``render`` as in
+    `_batch_core`."""
+    nb, B = xb.shape
+    render = render or route("streamed", 1, nb, 2 * B, sm_count(xb.device))
     k = config.dir_rate
     idx, w = _neighbours(table, _group_dirs(dirs, k), config)
     with span("tt.route"):

@@ -44,13 +44,13 @@ from ..data.table import (ALIGN_GUARD, DELAY_PAD, MAX_RENDER_SHIFT,
                           TAPER_HI, TAPER_LO, TorchTable)
 from ..utils import profiling
 from . import _layout
-from ._layout import layout, run_length, sm_count
-from .block_render import (_check_inputs, _cuda_inputs,
-                           assemble_filters_reference, overlap_add_cuda)
+from ._layout import (CLUSTER, check_inputs, cuda_inputs, layout,
+                      run_length, sm_count)
+from .block_render import (assemble_filters_reference, assembly_tables,
+                           overlap_add_cuda)
 from .block_step import spectra_inverse_cuda, spectra_inverse_reference
-from .mac_plan import mac_plan, ramp_taper
+from .mac_plan import mac_plan
 from .ola import overlap_add
-from .spectra_inverse import MAX_REGISTER_N, twiddles
 
 KERNELS = ("assembly_mac",)
 launches = dict.fromkeys(KERNELS, 0)
@@ -69,7 +69,7 @@ def assembly_mac_render(xbs: torch.Tensor, idx: torch.Tensor,
     """xbs (S, nb, B) f32; idx (S, ⌈nb/k⌉, 4) int32 flat table rows, one
     per group of k = ``dir_rate`` blocks; w of idx's shape → (S, 2,
     (nb−1)·B + n_fft) f32, one render per source."""
-    _check_inputs(xbs, idx, w, table, n_fft, dir_rate)
+    check_inputs(xbs, idx, w, table, n_fft, dir_rate)
     kw = dict(crossfade=crossfade, apply_itd=apply_itd, apply_ild=apply_ild)
     if xbs.device.type == "cpu":
         return assembly_mac_render_reference(xbs, idx, w, table, n_fft,
@@ -149,8 +149,8 @@ def assembly_mac_cuda(idx: torch.Tensor, w: torch.Tensor, table: TorchTable,
     2, F) complex64."""
     from . import _build
 
-    stream = _cuda_inputs(idx, w, table.h, table.delays, table.gains, Xu, Xd,
-                          first)
+    stream = cuda_inputs(idx, w, table.h, table.delays, table.gains, Xu, Xd,
+                         first)
     if (idx.dtype != torch.int32 or w.dtype != torch.float32
             or first.dtype != torch.float32):
         raise TypeError("idx must be int32, w and first float32")
@@ -168,25 +168,20 @@ def assembly_mac_cuda(idx: torch.Tensor, w: torch.Tensor, table: TorchTable,
     Y = torch.empty((rows, 2, F), dtype=torch.complex64, device=idx.device)
     plan = mac_plan(table.taps, n_fft)
     run = run_length(rows, sm_count(idx.device) * plan.blocks_per_sm)
-    *split, _keep = layout(idx.device, plan.shared_f2, plan.scratch_f2,
-                           -(-rows // run), n_fft)
-    cluster = plan.cluster and not split[1]
-    if cluster:  # a run per cluster, from the clusters that run at once
+    lay = layout(idx.device, plan.body, plan.shared_f2, plan.scratch_f2,
+                 -(-rows // run), n_fft)
+    if lay.mode == CLUSTER:  # a run per cluster, from the clusters at once
         run = run_length(rows, _layout.cluster_slots(
             idx.device, "tt_assembly_mac_clusters", n_fft))
-    tables = (0, 0, 0, 0) if split[1] else (
-        twiddles(plan.L, idx.device).data_ptr(),
-        twiddles(n_fft, idx.device).data_ptr(),
-        twiddles(MAX_REGISTER_N, idx.device).data_ptr() if cluster else 0,
-        ramp_taper(plan.L, idx.device).data_ptr())
     _build.check(_build.library().tt_assembly_mac(
         idx.data_ptr(), w.data_ptr(), table.h.data_ptr(),
         table.delays.data_ptr(), table.gains.data_ptr(), Xu.data_ptr(),
-        Xd.data_ptr(), first.data_ptr(), Y.data_ptr(), *tables, rows, run,
+        Xd.data_ptr(), first.data_ptr(), Y.data_ptr(),
+        *assembly_tables(lay.mode, plan.L, n_fft, idx.device), rows, run,
         table.taps, plan.t_pad, n_fft, int(crossfade), int(apply_itd),
         int(apply_ild), plan.ranks, plan.threads, plan.blocks_per_sm,
-        ALIGN_GUARD, MAX_RENDER_SHIFT, TAPER_LO, TAPER_HI, *split, stream),
-        "assembly_mac")
+        ALIGN_GUARD, MAX_RENDER_SHIFT, TAPER_LO, TAPER_HI, *lay.split_args,
+        stream), "assembly_mac")
     launches["assembly_mac"] += 1
     return Y
 

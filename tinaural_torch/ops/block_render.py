@@ -42,7 +42,8 @@ import torch
 from ..data.table import (ALIGN_GUARD, DELAY_PAD, MAX_RENDER_SHIFT,
                           TAPER_HI, TAPER_LO, TorchTable)
 from ..utils import profiling
-from ._layout import cluster_slots, layout, run_length, sm_count
+from ._layout import (CLUSTER, SPLIT, check_inputs, cluster_slots,
+                      cuda_inputs, filter_rows, layout, run_length, sm_count)
 from .filters import effective_filter
 from .interp import gather_rows
 from .mac_plan import ramp_taper
@@ -61,37 +62,6 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def filter_rows(nb: int, dir_rate: int) -> int:
-    """Filter rows per source of ``nb`` blocks at ``dir_rate`` blocks a
-    filter: ⌈nb/dir_rate⌉."""
-    if dir_rate < 1:
-        raise ValueError(f"dir_rate={dir_rate} must be at least 1")
-    return -(-nb // dir_rate)
-
-
-def _check_inputs(xbs, idx, w, table: TorchTable, n_fft: int,
-                  dir_rate: int) -> None:
-    """Shapes, types and devices of a block render's inputs: idx and w
-    hold ⌈nb/dir_rate⌉ rows per source."""
-    if xbs.dim() != 3:
-        raise ValueError(f"xbs must be (S, nb, B), got {tuple(xbs.shape)}")
-    S, nb, B = xbs.shape
-    want = (S, filter_rows(nb, dir_rate), 4)
-    for name, t in (("idx", idx), ("w", w)):
-        if tuple(t.shape) != want:
-            raise ValueError(f"{name} must be {want} at dir_rate={dir_rate}, "
-                             f"got {tuple(t.shape)}")
-    if idx.dtype != torch.int32:
-        raise TypeError(f"idx must be int32, got {idx.dtype}")
-    if n_fft & (n_fft - 1) or n_fft % B or n_fft < B + table.taps + DELAY_PAD - 1:
-        raise ValueError(
-            f"n_fft={n_fft} must be a power of two, a multiple of B={B} and "
-            f"at least B + taps + {DELAY_PAD} - 1")
-    devs = {t.device for t in (xbs, idx, w, table.h, table.delays, table.gains)}
-    if len(devs) != 1:
-        raise ValueError(f"inputs and table lie on different devices: {devs}")
-
-
 def block_render(xbs: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
                  table: TorchTable, n_fft: int, *, crossfade: bool,
                  apply_itd: bool, apply_ild: bool,
@@ -99,7 +69,7 @@ def block_render(xbs: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     """xbs (S, nb, B) f32; idx (S, ⌈nb/k⌉, 4) int32 flat table rows
     (e·A_max + a), one per group of k = ``dir_rate`` blocks; w of idx's
     shape, f32 → (2, (nb−1)·B + n_fft) f32, sources mixed down."""
-    _check_inputs(xbs, idx, w, table, n_fft, dir_rate)
+    check_inputs(xbs, idx, w, table, n_fft, dir_rate)
     kw = dict(crossfade=crossfade, apply_itd=apply_itd, apply_ild=apply_ild,
               dir_rate=dir_rate)
     if xbs.device.type == "cpu":
@@ -122,20 +92,6 @@ def _block_render_cuda(xbs, idx, w, table: TorchTable, n_fft: int, *,
     return overlap_add_cuda(frames[None], xbs.shape[-1])[0]
 
 
-def _cuda_inputs(*tensors: torch.Tensor) -> int:
-    """Check that kernel inputs are contiguous float32/int32 CUDA tensors
-    on one device; → the stream handle to launch on."""
-    dev = tensors[0].device
-    for t in tensors:
-        if t.device != dev or t.device.type != "cuda":
-            raise ValueError(f"kernel inputs must lie on one CUDA device, got {t.device}")
-        if t.dtype not in (torch.float32, torch.int32, torch.complex64):
-            raise TypeError(f"kernel inputs are float32/int32/complex64, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError("kernel inputs must be contiguous")
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 def assemble_filters_cuda(idx: torch.Tensor, w: torch.Tensor,
                           table: TorchTable, n_fft: int, *, apply_itd: bool,
                           apply_ild: bool) -> torch.Tensor:
@@ -143,7 +99,7 @@ def assemble_filters_cuda(idx: torch.Tensor, w: torch.Tensor,
     f32 → H (S, rows, 2, F) complex64, one filter per row."""
     from . import _build
 
-    stream = _cuda_inputs(idx, w, table.h, table.delays, table.gains)
+    stream = cuda_inputs(idx, w, table.h, table.delays, table.gains)
     if idx.dtype != torch.int32 or w.dtype != torch.float32:
         raise TypeError("idx must be int32 and w float32")
     if n_fft & (n_fft - 1) or n_fft < table.taps + DELAY_PAD:
@@ -157,26 +113,34 @@ def assemble_filters_cuda(idx: torch.Tensor, w: torch.Tensor,
     H = torch.empty((S, nb, 2, n_fft // 2 + 1), dtype=torch.complex64,
                     device=idx.device)
     plan = filters_plan(table.taps, n_fft)
-    *split, _keep = layout(idx.device, plan.shared_f2, plan.scratch_f2,
-                           S * nb, n_fft)
-    cluster = plan.cluster and not split[1]
-    # a run of rows per cluster, from the clusters that run at once
-    run = run_length(S * nb, cluster_slots(
-        idx.device, "tt_assemble_filters_clusters", n_fft)) if cluster else 1
-    tables = (0, 0, 0, 0) if split[1] else (
-        twiddles(plan.L, idx.device).data_ptr(),
-        twiddles(n_fft, idx.device).data_ptr(),
-        twiddles(MAX_REGISTER_N, idx.device).data_ptr() if cluster else 0,
-        ramp_taper(plan.L, idx.device).data_ptr())
+    lay = layout(idx.device, plan.body, plan.shared_f2, plan.scratch_f2,
+                 S * nb, n_fft)
+    run = 1
+    if lay.mode == CLUSTER:  # a run per cluster, from the clusters at once
+        run = run_length(S * nb, cluster_slots(
+            idx.device, "tt_assemble_filters_clusters", n_fft))
     _build.check(_build.library().tt_assemble_filters(
         idx.data_ptr(), w.data_ptr(), table.h.data_ptr(),
         table.delays.data_ptr(), table.gains.data_ptr(), H.data_ptr(),
-        *tables, S * nb, run, table.taps, plan.t_pad, n_fft, int(apply_itd),
+        *assembly_tables(lay.mode, plan.L, n_fft, idx.device), S * nb, run,
+        table.taps, plan.t_pad, n_fft, int(apply_itd),
         int(apply_ild), plan.ranks, plan.threads, plan.rows_per_block,
         plan.blocks_per_sm, ALIGN_GUARD, MAX_RENDER_SHIFT, TAPER_LO,
-        TAPER_HI, *split, stream), "assemble_filters")
+        TAPER_HI, *lay.split_args, stream), "assemble_filters")
     launches["assemble_filters"] += 1
     return H
+
+
+def assembly_tables(mode: str, L: int, n_fft: int,
+                    device: torch.device) -> tuple[int, int, int, int]:
+    """The tables `assemble_filters` and `assembly_mac` read in launch
+    mode ``mode``: twiddles at L, at n_fft and (the cluster mode) at
+    MAX_REGISTER_N, and the ramp's taper at L; none in the split mode."""
+    if mode == SPLIT:
+        return 0, 0, 0, 0
+    return (twiddles(L, device).data_ptr(), twiddles(n_fft, device).data_ptr(),
+            twiddles(MAX_REGISTER_N, device).data_ptr()
+            if mode == CLUSTER else 0, ramp_taper(L, device).data_ptr())
 
 
 def block_spectra_mix_inverse_cuda(xbs: torch.Tensor, H: torch.Tensor,
@@ -187,7 +151,7 @@ def block_spectra_mix_inverse_cuda(xbs: torch.Tensor, H: torch.Tensor,
     ``dir_rate`` → frames (nb, 2, n_fft) f32."""
     from . import _build
 
-    stream = _cuda_inputs(xbs, H)
+    stream = cuda_inputs(xbs, H)
     S, nb, B = xbs.shape
     if xbs.dtype != torch.float32 or H.dtype != torch.complex64:
         raise TypeError("xbs must be float32 and H complex64")
@@ -202,16 +166,17 @@ def block_spectra_mix_inverse_cuda(xbs: torch.Tensor, H: torch.Tensor,
                          device=xbs.device)
     plan = mix_plan(n_fft)
     groups = mix_groups(S, nb, plan, sm_count(xbs.device))
-    *split, _keep = layout(xbs.device, groups * plan.group_f2,
-                           plan.scratch_f2, nb, n_fft)
-    cluster = plan.cluster and not split[1]
-    tables = (0, 0) if split[1] else (
+    lay = layout(xbs.device, plan.body, groups * plan.group_f2,
+                 plan.scratch_f2, nb, n_fft)
+    tables = (0, 0) if lay.mode == SPLIT else (
         twiddles(n_fft, xbs.device).data_ptr(),
-        twiddles(MAX_REGISTER_N, xbs.device).data_ptr() if cluster else 0)
+        twiddles(MAX_REGISTER_N, xbs.device).data_ptr()
+        if lay.mode == CLUSTER else 0)
     _build.check(_build.library().tt_block_spectra_mix_inverse(
         xbs.data_ptr(), H.data_ptr(), frames.data_ptr(), *tables, S, nb, B,
         n_fft, int(crossfade), dir_rate, plan.ranks, plan.threads, groups,
-        plan.blocks_per_sm, *split, stream), "block_spectra_mix_inverse")
+        plan.blocks_per_sm, *lay.split_args, stream),
+        "block_spectra_mix_inverse")
     launches["block_spectra_mix_inverse"] += 1
     return frames
 
@@ -230,7 +195,7 @@ def overlap_add_cuda(frames: torch.Tensor, hop: int) -> torch.Tensor:
                          f"{tuple(frames.shape)}")
     S, nb, _, n_fft = frames.shape
     out_len = check_rows(S, nb, hop, n_fft)  # from the shape alone
-    stream = _cuda_inputs(frames)
+    stream = cuda_inputs(frames)
     out = torch.empty((S, 2, out_len), dtype=torch.float32,
                       device=frames.device)
     aligned = (frames.data_ptr() % ALIGN_BYTES == 0
@@ -254,13 +219,30 @@ def assemble_filters_reference(idx, w, table: TorchTable, n_fft: int, *,
     return torch.fft.rfft(effective_filter(h, d, g, table.taps), n=n_fft)
 
 
+def block_spectra_reference(xbs: torch.Tensor, H: torch.Tensor, n_fft: int,
+                            *, crossfade: bool,
+                            dir_rate: int = 1) -> torch.Tensor:
+    """Plain version of `block_spectra` (``ops/block_step.py``), in xbs'
+    precision: xbs (S, nb, B), H (S, ⌈nb/k⌉, 2, F) → Y (S, nb, 2, F),
+    block b under H[:, ⌊b/k⌋] and, crossfading, H[:, ⌊(b−1)/k⌋] (block
+    0: its own)."""
+    nb, B = xbs.shape[-2:]
+    b = torch.arange(nb, device=xbs.device)
+    Hc = H[:, b // dir_rate]
+    if not crossfade:
+        return torch.fft.rfft(xbs, n=n_fft)[:, :, None] * Hc
+    u = (torch.arange(B, dtype=xbs.dtype, device=xbs.device) + 0.5) / B
+    Xu = torch.fft.rfft(xbs * u, n=n_fft)[:, :, None]
+    Xd = torch.fft.rfft(xbs * (1.0 - u), n=n_fft)[:, :, None]
+    Hp = H[:, (b - 1).clamp(min=0) // dir_rate]
+    return Xu * Hc + Xd * Hp
+
+
 def block_spectra_mix_inverse_reference(xbs, H, n_fft: int, *,
                                         crossfade: bool,
                                         dir_rate: int = 1) -> torch.Tensor:
     """Plain version of `block_spectra_mix_inverse`: xbs (S, nb, B) and
     H (S, ⌈nb/k⌉, 2, F) → frames (nb, 2, n_fft)."""
-    from .block_step import block_spectra_reference  # which imports this
-
     Y = block_spectra_reference(xbs, H, n_fft, crossfade=crossfade,
                                 dir_rate=dir_rate)
     return torch.fft.irfft(Y.sum(0), n=n_fft)

@@ -43,15 +43,15 @@ from __future__ import annotations
 import torch
 
 from ..utils import profiling
-from ._layout import layout, sm_count
-from .block_render import (_check_inputs, _cuda_inputs,
-                           assemble_filters_cuda, assemble_filters_reference,
-                           block_render_reference, filter_rows,
+from ._layout import (CLUSTER, PRUNED, REGISTER, SPLIT, check_inputs,
+                      cuda_inputs, filter_rows, layout, sm_count)
+from .block_render import (assemble_filters_cuda, assemble_filters_reference,
+                           block_render_reference, block_spectra_reference,
                            overlap_add_cuda)
 from .ola import overlap_add
 from .spectra_inverse import MAX_REGISTER_N, inverse_plan, twiddles
-from .step_plan import (PrunedPlan, mix_groups, mix_launch, pruned_plan,
-                        radix2_plan, spectra_rows, step_plan)
+from .step_plan import (mix_groups, mix_launch, pruned_plan, radix2_plan,
+                        spectra_rows, step_plan)
 
 KERNELS = ("block_spectra", "spectra_inverse", "block_spectra_mix")
 launches = dict.fromkeys(KERNELS, 0)
@@ -70,7 +70,7 @@ def block_step_render(xbs: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     (e·A_max + a), one per group of k = ``dir_rate`` blocks; w the weights
     of idx's shape → (S, 2, (nb−1)·B + n_fft) f32, one render per
     source."""
-    _check_inputs(xbs, idx, w, table, n_fft, dir_rate)
+    check_inputs(xbs, idx, w, table, n_fft, dir_rate)
     kw = dict(crossfade=crossfade, apply_itd=apply_itd, apply_ild=apply_ild,
               dir_rate=dir_rate)
     if xbs.device.type == "cpu":
@@ -107,7 +107,7 @@ def scene_step_render(xbs: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     """xbs (S, nb, B) f32; idx (S, ⌈nb/k⌉, 4) int32 flat table rows, one
     per group of k = ``dir_rate`` blocks; w the weights of idx's shape →
     (2, (nb−1)·B + n_fft) f32, the sources mixed down."""
-    _check_inputs(xbs, idx, w, table, n_fft, dir_rate)
+    check_inputs(xbs, idx, w, table, n_fft, dir_rate)
     kw = dict(crossfade=crossfade, apply_itd=apply_itd, apply_ild=apply_ild,
               dir_rate=dir_rate)
     if xbs.device.type == "cpu":
@@ -169,7 +169,7 @@ def block_spectra_cuda(xbs: torch.Tensor, H: torch.Tensor, n_fft: int, *,
     nb, 2, F) complex64. Its launch: ``ops/step_plan.py``."""
     from . import _build
 
-    stream = _cuda_inputs(xbs, H)
+    stream = cuda_inputs(xbs, H)
     S, nb, B, F = _check_spectra_inputs(xbs, H, n_fft, dir_rate)
     Y = torch.empty((S, nb, 2, F), dtype=torch.complex64, device=xbs.device)
     plan = pruned_plan(n_fft, False, B)
@@ -179,14 +179,14 @@ def block_spectra_cuda(xbs: torch.Tensor, H: torch.Tensor, n_fft: int, *,
         plan = step_plan(n_fft, False)
         G = spectra_rows(plan, S * nb, sm_count(xbs.device))
         shared = plan.shared_f2(G)
-    *split, _keep = layout(xbs.device, shared, plan.scratch_f2, S * nb, n_fft)
-    if split[1]:
+    lay = layout(xbs.device, plan.body, shared, plan.scratch_f2, S * nb, n_fft)
+    if lay.mode == SPLIT:
         plan, G = radix2_plan(n_fft, False), 1
-    tw, twq = _tables(plan, n_fft, xbs.device)
+    tw, twq = _tables(lay.mode, plan, n_fft, xbs.device)
     _build.check(_build.library().tt_block_spectra(
         xbs.data_ptr(), H.data_ptr(), Y.data_ptr(), tw, twq, S, nb, B, n_fft,
         dir_rate, int(crossfade), plan.threads, G, plan.blocks_per_sm,
-        *split, stream), "block_spectra")
+        *lay.split_args, stream), "block_spectra")
     launches["block_spectra"] += 1
     return Y
 
@@ -200,7 +200,7 @@ def block_spectra_mix_cuda(xbs: torch.Tensor, H: torch.Tensor, n_fft: int,
     − 1 summed. Its launch (groups per block): ``ops/step_plan.py``."""
     from . import _build
 
-    stream = _cuda_inputs(xbs, H)
+    stream = cuda_inputs(xbs, H)
     S, nb, B, F = _check_spectra_inputs(xbs, H, n_fft, dir_rate)
     if chunk < 1:
         raise ValueError(f"chunk={chunk} must be positive")
@@ -213,25 +213,27 @@ def block_spectra_mix_cuda(xbs: torch.Tensor, H: torch.Tensor, n_fft: int,
         plan = step_plan(n_fft, True)
         groups = mix_groups(plan, chunk, C * nb, sm_count(xbs.device))
         shared = plan.shared_f2(groups)
-    *split, _keep = layout(xbs.device, shared, plan.scratch_f2, C * nb, n_fft)
-    if split[1]:
+    lay = layout(xbs.device, plan.body, shared, plan.scratch_f2, C * nb, n_fft)
+    if lay.mode == SPLIT:
         plan, groups = radix2_plan(n_fft, True), 1
-    tw, twq = _tables(plan, n_fft, xbs.device)
+    tw, twq = _tables(lay.mode, plan, n_fft, xbs.device)
     _build.check(_build.library().tt_block_spectra_mix(
         xbs.data_ptr(), H.data_ptr(), P.data_ptr(), tw, twq, S, nb, B,
         n_fft, dir_rate, chunk, int(crossfade), plan.threads, groups,
-        plan.blocks_per_sm, *split, stream), "block_spectra_mix")
+        plan.blocks_per_sm, *lay.split_args, stream), "block_spectra_mix")
     launches["block_spectra_mix"] += 1
     return P
 
 
-def _tables(plan, n_fft: int, device: torch.device) -> tuple[int, int]:
-    """The twiddle tables a block-step launch reads: the n_fft-point one
-    (register and pruned bodies) and the Q-point one (pruned), else 0."""
-    if isinstance(plan, PrunedPlan):
+def _tables(mode: str, plan, n_fft: int,
+            device: torch.device) -> tuple[int, int]:
+    """The twiddle tables a block-step launch in ``mode`` reads: the
+    n_fft-point one (register and pruned bodies) and the Q-point one
+    (pruned), else 0."""
+    if mode == PRUNED:
         return (twiddles(n_fft, device).data_ptr(),
                 twiddles(plan.Q, device).data_ptr())
-    return twiddles(n_fft, device).data_ptr() if plan.register else 0, 0
+    return twiddles(n_fft, device).data_ptr() if mode == REGISTER else 0, 0
 
 
 def spectra_inverse_cuda(Y: torch.Tensor, n_fft: int, *,
@@ -242,7 +244,7 @@ def spectra_inverse_cuda(Y: torch.Tensor, n_fft: int, *,
     and the frames are the irfft of Σ_t Y[t], added in order of t."""
     from . import _build
 
-    stream = _cuda_inputs(Y)
+    stream = cuda_inputs(Y)
     F = n_fft // 2 + 1
     if Y.dtype != torch.complex64:
         raise TypeError(f"Y must be complex64, got {Y.dtype}")
@@ -257,35 +259,17 @@ def spectra_inverse_cuda(Y: torch.Tensor, n_fft: int, *,
     frames = torch.empty((*Y.shape[lead:-1], n_fft), dtype=torch.float32,
                          device=Y.device)
     plan = inverse_plan(n_fft)
-    *split, _keep = layout(Y.device, plan.shared_f2, n_fft, rows, n_fft)
-    tw = 0 if split[1] else twiddles(n_fft, Y.device).data_ptr()
+    lay = layout(Y.device, plan.body, plan.shared_f2, n_fft, rows, n_fft)
+    tw = 0 if lay.mode == SPLIT else twiddles(n_fft, Y.device).data_ptr()
     # the cluster mode's local transforms take the 16384-point table
     twM = (twiddles(MAX_REGISTER_N, Y.device).data_ptr()
-           if plan.ranks > 1 and not split[1] else 0)
+           if lay.mode == CLUSTER else 0)
     _build.check(_build.library().tt_spectra_inverse(
         Y.data_ptr(), frames.data_ptr(), tw, twM, rows, n_fft, terms,
-        plan.rows_per_block, plan.points, plan.ranks, *split, stream),
+        plan.rows_per_block, plan.points, plan.ranks, *lay.split_args, stream),
         "spectra_inverse")
     launches["spectra_inverse"] += 1
     return frames
-
-
-def block_spectra_reference(xbs: torch.Tensor, H: torch.Tensor, n_fft: int,
-                            *, crossfade: bool,
-                            dir_rate: int = 1) -> torch.Tensor:
-    """Plain version of `block_spectra`, in xbs' precision: xbs (S, nb, B),
-    H (S, ⌈nb/k⌉, 2, F) → Y (S, nb, 2, F), block b under H[:, ⌊b/k⌋] and,
-    crossfading, H[:, ⌊(b−1)/k⌋] (block 0: its own)."""
-    nb, B = xbs.shape[-2:]
-    b = torch.arange(nb, device=xbs.device)
-    Hc = H[:, b // dir_rate]
-    if not crossfade:
-        return torch.fft.rfft(xbs, n=n_fft)[:, :, None] * Hc
-    u = (torch.arange(B, dtype=xbs.dtype, device=xbs.device) + 0.5) / B
-    Xu = torch.fft.rfft(xbs * u, n=n_fft)[:, :, None]
-    Xd = torch.fft.rfft(xbs * (1.0 - u), n=n_fft)[:, :, None]
-    Hp = H[:, (b - 1).clamp(min=0) // dir_rate]
-    return Xu * Hc + Xd * Hp
 
 
 def block_spectra_mix_reference(xbs: torch.Tensor, H: torch.Tensor,

@@ -46,6 +46,7 @@ from __future__ import annotations
 import functools
 from dataclasses import dataclass
 
+from ._layout import RADIX2, REGISTER
 from .spectra_inverse import inverse_plan
 
 # the register range: 2B = 128 … 4096, as assemble_partitions' register body
@@ -79,10 +80,7 @@ class ConvPlan:
     block: int  # B
     parts: int  # P
     radices: tuple[int, ...]  # the 2B-point passes; () outside the range
-
-    @property
-    def register(self) -> bool:
-        return bool(self.radices)
+    body: str  # REGISTER or RADIX2 (``ops/_layout.py``)
 
     @property
     def n(self) -> int:
@@ -173,9 +171,10 @@ def conv_plan(block: int, parts: int) -> ConvPlan:
     if block < 2 or block & (block - 1) or parts < 1:
         raise ValueError(f"block={block} must be a power of two of at least "
                          f"2 and parts={parts} positive")
-    radices = (inverse_plan(2 * block).radices
-               if MIN_CONV_BLOCK <= block <= MAX_CONV_BLOCK else ())
-    return ConvPlan(block, parts, radices)
+    if MIN_CONV_BLOCK <= block <= MAX_CONV_BLOCK:
+        return ConvPlan(block, parts, inverse_plan(2 * block).radices,
+                        REGISTER)
+    return ConvPlan(block, parts, (), RADIX2)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -186,7 +185,7 @@ def stream_launch(block: int, parts: int, S: int,
     of the radix-2 body outside the register range. Cached, as the
     serving paths launch one shape per push."""
     plan = conv_plan(block, parts)
-    if not plan.register:
+    if plan.body != REGISTER:
         return 0, RADIX2_THREADS, plan.stream_radix2_f2
     G = plan.streams_per_block(S, sms)
     threads = plan.threads(G)
@@ -200,7 +199,7 @@ def conv_launch(block: int, parts: int, n_blocks: int,
     ``n_blocks`` output blocks, one per CUDA block, on a card of ``sms``
     SMs; (0, radix-2 shared figure) outside the register range."""
     plan = conv_plan(block, parts)
-    if not plan.register:
+    if plan.body != REGISTER:
         return 0, plan.conv_radix2_f2
     threads = plan.part_threads(n_blocks, sms)
     return threads, plan.shared_f2(1, threads, False)
@@ -212,7 +211,7 @@ def frames_launch(block: int, transforms: int,
     """(transforms per block, threads, shared figure) of one
     `frame_spectra` launch of ``transforms`` two-frame transforms."""
     plan = conv_plan(block, 1)
-    if not plan.register:
+    if plan.body != REGISTER:
         raise ValueError(f"frame_spectra takes blocks {MIN_CONV_BLOCK} … "
                          f"{MAX_CONV_BLOCK}, not {block}")
     G = plan.frame_groups(transforms, sms)
@@ -246,7 +245,7 @@ def stream_forward_transforms(block: int, parts: int, S: int,
     of G streams (the last block's live streams), in the register body;
     one per stream in the radix-2 body."""
     plan = conv_plan(block, parts)
-    if not plan.register:
+    if plan.body != REGISTER:
         return S
     G = plan.streams_per_block(S, sms)
     return S // G * -(-G // 2) + -(-(S % G) // 2)

@@ -23,14 +23,11 @@ rows, each transform a radix-``ranks`` step across the cluster and each
 block's 16384-point register FFT (``csrc/fft_reg.cuh`` `ClusterPlan`), so
 the radices are ``(ranks, 16, 16, 16, 4)``; the chain is
 `assemble_partitions`' cluster chain, and the twiddles come at L = n and
-at 16384. Its shared figure is one block's share, so the layout takes it
-unless the split mode is forced; its runs come from the clusters the card
-runs at once (`_layout.cluster_slots`). Every other shape above
-`MAX_REGISTER_N` (n_fft above `MAX_CLUSTER_N`, or L < n_fft) runs the split
-buffer mode of ``csrc/common.cuh``: radix-2 passes over a device scratch,
-`SPLIT_THREADS` threads per block. The plan describes that launch, and its
-shared figure is the full radix-2 layout, which no card's shared memory
-holds, so the layout picks the split mode.
+at 16384. Its shared figure is one block's share; its runs come from the
+clusters the card runs at once (`_layout.cluster_slots`). Every other
+shape above `MAX_REGISTER_N` (n_fft above `MAX_CLUSTER_N`, or L < n_fft)
+has the `RADIX2` body, `SPLIT_THREADS` threads per block, whose shared
+figure no card holds, so ``ops/_layout.py`` always splits it.
 """
 
 from __future__ import annotations
@@ -42,6 +39,7 @@ from dataclasses import dataclass
 import torch
 
 from ..data.table import DELAY_PAD, TAPER_HI, TAPER_LO
+from ._layout import CLUSTER, RADIX2, REGISTER
 from .filters import next_pow2
 from .spectra_inverse import (CLUSTER_THREADS, MAX_CLUSTER_N,
                               MAX_REGISTER_N, inverse_plan)
@@ -72,15 +70,8 @@ class MacPlan:
     shared_f2: int  # complex64 of shared memory per block, shared or
     # cluster mode
     scratch_f2: int  # complex64 of one scratch slice, split mode
+    body: str  # REGISTER, CLUSTER or RADIX2 (``ops/_layout.py``)
     ranks: int = 0  # blocks per cluster in the cluster mode, else 0
-
-    @property
-    def register(self) -> bool:
-        return self.n <= MAX_REGISTER_N
-
-    @property
-    def cluster(self) -> bool:
-        return self.ranks > 0
 
 
 @functools.cache
@@ -100,12 +91,13 @@ def mac_plan(taps: int, n_fft: int) -> MacPlan:
         ranks = n_fft // MAX_REGISTER_N
         radices = (ranks, *local.radices)
         return MacPlan(taps, n_fft, L, t_pad, radices, radices,
-                       CLUSTER_THREADS, 1, local.shared_f2, scratch, ranks)
+                       CLUSTER_THREADS, 1, local.shared_f2, scratch, CLUSTER,
+                       ranks)
     if n_fft > MAX_REGISTER_N:
         log2 = lambda m: m.bit_length() - 1
         return MacPlan(taps, n_fft, L, t_pad, (2,) * log2(L),
                        (2,) * log2(n_fft), SPLIT_THREADS, 1,
-                       n_fft // 2 + scratch, scratch)
+                       n_fft // 2 + scratch, scratch, RADIX2)
     threads = n_fft // POINTS
     blocks = 1 if threads >= SM_THREADS else min(MAX_BLOCKS_PER_SM,
                                                  SM_THREADS // threads)
@@ -115,7 +107,7 @@ def mac_plan(taps: int, n_fft: int) -> MacPlan:
     carry = CARRY_SLOTS * threads if n_fft < MAX_REGISTER_N else 0
     return MacPlan(taps, n_fft, L, t_pad, inverse_plan(L).radices,
                    inverse_plan(n_fft).radices, threads, blocks,
-                   n_fft + n_fft // 16 + carry, scratch)
+                   n_fft + n_fft // 16 + carry, scratch, REGISTER)
 
 
 _TAPERS: dict[tuple[torch.device, int], torch.Tensor] = {}

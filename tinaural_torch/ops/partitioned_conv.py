@@ -48,8 +48,8 @@ import torch
 from ..data.table import (ALIGN_GUARD, MAX_RENDER_SHIFT, TAPER_HI,
                           TAPER_LO, TorchTable)
 from ..utils import profiling
-from ._layout import layout, max_shared_bytes, sm_count, split_work
-from .block_render import _cuda_inputs, filter_rows
+from ._layout import (CLUSTER, REGISTER, cuda_inputs, filter_rows,
+                      launch_mode, layout, shared_limit, sm_count)
 from .filters import (effective_filter, filter_partitions, n_parts,
                       partition_spectra)
 from .conv_plan import (chunk_frames, conv_launch, conv_plan, frames_launch,
@@ -188,15 +188,11 @@ def _render_spectra(xb: torch.Tensor, parts: int) -> torch.Tensor | None:
     """The frame spectra of every block of a CUDA render whose
     `partitioned_conv` launches take the register body; else None."""
     nb, B = xb.shape
-    plan = conv_plan(B, parts)
-    if not plan.register:
+    if conv_plan(B, parts).body != REGISTER:
         return None
     _, shared_f2 = conv_launch(B, parts, nb, sm_count(xb.device))
-    index = (xb.device.index if xb.device.index is not None
-             else torch.cuda.current_device())
-    if split_work(shared_f2, 2 * B, max_shared_bytes(index)):
-        return None
-    return frame_spectra_cuda(xb, 0, nb)
+    mode, _ = launch_mode(REGISTER, shared_f2, 2 * B, shared_limit(xb.device))
+    return frame_spectra_cuda(xb, 0, nb) if mode == REGISTER else None
 
 
 def render_chunks(nb: int, dir_rate: int, chunk: int
@@ -286,7 +282,7 @@ def assemble_partitions_cuda(idx: torch.Tensor, w: torch.Tensor,
     → (h_re, h_im), each (..., P, 2, block+1) f32."""
     from . import _build
 
-    stream = _cuda_inputs(idx, w, table.h, table.delays, table.gains)
+    stream = cuda_inputs(idx, w, table.h, table.delays, table.gains)
     if idx.dtype != torch.int32 or w.dtype != torch.float32:
         raise TypeError("idx must be int32 and w float32")
     if idx.shape[-1:] != (4,) or w.shape != idx.shape or idx.numel() == 0:
@@ -301,16 +297,16 @@ def assemble_partitions_cuda(idx: torch.Tensor, w: torch.Tensor,
     rows = idx.numel() // 4
     G, block_threads, shared_f2 = launch(table.taps, block, rows,
                                          sm_count(idx.device))
-    *split, _keep = layout(idx.device, shared_f2, plan.scratch_f2, rows,
-                           max(L, 2 * block))
-    # the split mode takes the radix-2 body, and neither tables nor plan
+    lay = layout(idx.device, plan.body, shared_f2, plan.scratch_f2, rows,
+                 max(L, 2 * block))
+    # the split mode and the radix-2 body take neither tables nor plan
     tables, ranks, threads, rows_per_block = (0, 0, 0, 0), 0, 0, 0
-    if plan.cluster and not split[1]:
+    if lay.mode == CLUSTER:
         ranks = plan.ranks
         tables = tuple(t.data_ptr() for t in (
             twiddles(L, idx.device), twiddles(RANK_SAMPLES, idx.device),
             twiddles(2 * block, idx.device), ramp_taper(L, idx.device)))
-    elif plan.register and not split[1]:
+    elif lay.mode == REGISTER:
         threads, rows_per_block = block_threads, G
         tables = (twiddles(L, idx.device).data_ptr(), 0,
                   twiddles(2 * block, idx.device).data_ptr(),
@@ -320,8 +316,8 @@ def assemble_partitions_cuda(idx: torch.Tensor, w: torch.Tensor,
         table.delays.data_ptr(), table.gains.data_ptr(), h_re.data_ptr(),
         h_im.data_ptr(), *tables, rows, table.taps, plan.t_pad, block, P,
         int(apply_itd), int(apply_ild), ranks, threads, rows_per_block,
-        ALIGN_GUARD, MAX_RENDER_SHIFT, TAPER_LO, TAPER_HI, *split, stream),
-        "assemble_partitions")
+        ALIGN_GUARD, MAX_RENDER_SHIFT, TAPER_LO, TAPER_HI, *lay.split_args,
+        stream), "assemble_partitions")
     launches["assemble_partitions"] += 1
     return h_re, h_im
 
@@ -334,7 +330,7 @@ def stream_conv_cuda(xb, prev_in, fdl_re, fdl_im, h_re, h_im, hp_re, hp_im,
     from . import _build
 
     ins = (xb, prev_in, fdl_re, fdl_im, h_re, h_im, hp_re, hp_im, started)
-    stream = _cuda_inputs(*ins)
+    stream = cuda_inputs(*ins)
     if any(t.dtype != torch.float32 for t in ins):
         raise TypeError("stream_conv takes float32 tensors")
     S, B = xb.shape
@@ -355,17 +351,17 @@ def stream_conv_cuda(xb, prev_in, fdl_re, fdl_im, h_re, h_im, hp_re, hp_im,
     fi = torch.empty_like(fdl_im)
     plan = conv_plan(B, P)
     G, threads, shared_f2 = stream_launch(B, P, S, sm_count(xb.device))
-    *split, _keep = layout(xb.device, shared_f2, plan.stream_scratch_f2, S,
-                           2 * B)
+    lay = layout(xb.device, plan.body, shared_f2, plan.stream_scratch_f2, S,
+                 2 * B)
     # the split mode and the radix-2 body take no table and no plan
     tw, reg = 0, (0, 0, 0)
-    if plan.register and not split[1]:
+    if lay.mode == REGISTER:
         tw = twiddles(2 * B, xb.device).data_ptr()
         reg = (G, threads, shared_f2)
     _build.check(_build.library().tt_stream_conv(
         *(t.data_ptr() for t in ins), y.data_ptr(), pin.data_ptr(),
         fr.data_ptr(), fi.data_ptr(), tw, S, B, P, int(crossfade), *reg,
-        *split, stream), "stream_conv")
+        *lay.split_args, stream), "stream_conv")
     launches["stream_conv"] += 1
     return y, pin, fr, fi
 
@@ -379,7 +375,7 @@ def frame_spectra_cuda(xb: torch.Tensor, start: int,
     register range)."""
     from . import _build
 
-    stream = _cuda_inputs(xb)
+    stream = cuda_inputs(xb)
     if xb.dtype != torch.float32:
         raise TypeError("frame_spectra takes float32 blocks")
     nb, B = xb.shape
@@ -415,7 +411,7 @@ def partitioned_conv_cuda(xb: torch.Tensor, h_re: torch.Tensor,
     computes those of its own frames first."""
     from . import _build
 
-    stream = _cuda_inputs(xb, h_re, h_im)
+    stream = cuda_inputs(xb, h_re, h_im)
     if any(t.dtype != torch.float32 for t in (xb, h_re, h_im)):
         raise TypeError("partitioned_conv takes float32 tensors")
     nb, B = xb.shape
@@ -427,22 +423,22 @@ def partitioned_conv_cuda(xb: torch.Tensor, h_re: torch.Tensor,
     stop = _conv_span(nb, h_re.shape[0], start, stop, dir_rate)
     if out is None:
         out = torch.empty((2, nb * B), dtype=torch.float32, device=xb.device)
-    _cuda_inputs(out)
+    cuda_inputs(out)
     if tuple(out.shape) != (2, nb * B) or out.dtype != torch.float32:
         raise ValueError(f"out must be float32 (2, {nb * B})")
     P = h_re.shape[1]
     plan = conv_plan(B, P)
     threads, shared_f2 = conv_launch(B, P, stop - start, sm_count(xb.device))
-    *split, _keep = layout(xb.device, shared_f2, plan.conv_scratch_f2,
-                           stop - start, 2 * B)
+    lay = layout(xb.device, plan.body, shared_f2, plan.conv_scratch_f2,
+                 stop - start, 2 * B)
     # the split mode and the radix-2 body take no spectra, table or plan
     f0, tw, reg = 0, 0, (0, 0)
-    if plan.register and not split[1]:
+    if lay.mode == REGISTER:
         if spectra is None:
             f0 = pair_start(chunk_frames(start, stop, P)[0])
             spectra = frame_spectra_cuda(xb, f0, stop)
         else:
-            _cuda_inputs(spectra)
+            cuda_inputs(spectra)
             if (tuple(spectra.shape) != (nb, B + 1)
                     or spectra.dtype != torch.complex64):
                 raise ValueError(f"spectra must be complex64 ({nb}, {B + 1})")
@@ -454,7 +450,7 @@ def partitioned_conv_cuda(xb: torch.Tensor, h_re: torch.Tensor,
         xb.data_ptr(), 0 if spectra is None else spectra.data_ptr(),
         h_re.data_ptr(), h_im.data_ptr(), out.data_ptr(), tw, nb, start,
         stop - start, int(start > 0), dir_rate, f0, B, P, int(crossfade),
-        *reg, *split, stream), "partitioned_conv")
+        *reg, *lay.split_args, stream), "partitioned_conv")
     launches["partitioned_conv"] += 1
     return out
 

@@ -42,6 +42,7 @@ import functools
 from dataclasses import dataclass
 
 from ..data.table import DELAY_PAD
+from ._layout import CLUSTER, RADIX2, REGISTER
 from .filters import n_parts, next_pow2
 from .spectra_inverse import MAX_REGISTER_N, inverse_plan
 
@@ -80,6 +81,7 @@ class PartitionsPlan:
     L: int  # next_pow2(t_pad)
     t_pad: int  # taps + DELAY_PAD
     parts: int  # P = ⌈t_pad / B⌉
+    body: str  # CLUSTER, REGISTER or RADIX2 (``ops/_layout.py``)
     ranks: int  # blocks per row in the cluster mode, else 0
     radices_L: tuple[int, ...]  # the register or cluster mode's L-point
     # passes
@@ -90,15 +92,6 @@ class PartitionsPlan:
     shared_f2: int  # complex64 of shared memory per block of the radix-2
     # body or the cluster mode (the register body's: `block_shared_f2`)
     scratch_f2: int  # complex64 of one scratch slice, split mode
-
-    @property
-    def cluster(self) -> bool:
-        return self.ranks > 0
-
-    @property
-    def register(self) -> bool:
-        """The shared mode's register body."""
-        return not self.cluster and bool(self.radices_L)
 
     @property
     def slots(self) -> int:
@@ -153,19 +146,20 @@ def partitions_plan(taps: int, block: int) -> PartitionsPlan:
         # 8192/B · (2B + 2B/16), from KEEP_SAMPLES below its second half
         rounds_f2 = (ROUND_SAMPLES - KEEP_SAMPLES
                      + RANK_SAMPLES + RANK_SAMPLES // 16)
-        return PartitionsPlan(taps, block, L, t_pad, P, L // RANK_SAMPLES,
+        return PartitionsPlan(taps, block, L, t_pad, P, CLUSTER,
+                              L // RANK_SAMPLES,
                               inverse_plan(L).radices,
                               inverse_plan(2 * block).radices,
                               CLUSTER_THREADS, 1, rounds_f2, scratch)
     if L <= MAX_REGISTER_L and MIN_CLUSTER_BLOCK <= block <= MAX_CLUSTER_BLOCK:
-        return PartitionsPlan(taps, block, L, t_pad, P, 0,
+        return PartitionsPlan(taps, block, L, t_pad, P, REGISTER, 0,
                               inverse_plan(L).radices,
                               inverse_plan(2 * block).radices, 0,
                               min(MAX_ROWS, REGISTER_THREADS * POINTS // L),
                               0, scratch)
-    return PartitionsPlan(taps, block, L, t_pad, P, 0, (), (), SHARED_THREADS,
-                          1, max(L, 2 * block) // 2 + 2 * L + 2 * block,
-                          scratch)
+    return PartitionsPlan(taps, block, L, t_pad, P, RADIX2, 0, (), (),
+                          SHARED_THREADS, 1,
+                          max(L, 2 * block) // 2 + 2 * L + 2 * block, scratch)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -176,7 +170,7 @@ def launch(taps: int, block: int, rows: int, sms: int) -> tuple[int, int, int]:
     plan in the other modes. Cached, as the serving paths launch one
     shape per push."""
     plan = partitions_plan(taps, block)
-    if not plan.register:
+    if plan.body != REGISTER:
         return 1, plan.threads, plan.shared_f2
     G = plan.rows_per_block(rows, sms)
     return G, plan.block_threads(G), plan.block_shared_f2(G)

@@ -42,14 +42,10 @@ one output block (`block_spectra_mix_inverse`, at any L), each n-point
 transform a radix-``ranks`` step across the cluster and each block's
 16384-point register FFT, so the radices are ``(ranks, 16, 16, 16, 4)``.
 Their shared figure (``shared_f2``; the mix plan's ``group_f2``, one group
-a block) is one block's share, so the layout takes it unless the split
-mode is forced. Every other shape above `MAX_REGISTER_N` (n_fft above
-`MAX_CLUSTER_N`, or `assemble_filters` with L < n_fft, as at block 1024
-and 15,298 … 16,320 taps) runs the split buffer mode of
-``csrc/common.cuh`` (radix-2 passes over a device scratch); the plans
-describe that launch, and their shared figure is the full radix-2 layout,
-which no card's shared memory holds, so the layout (``ops/_layout.py``)
-picks the split mode there.
+a block) is one block's share. Every other shape above `MAX_REGISTER_N`
+(n_fft above `MAX_CLUSTER_N`, or `assemble_filters` with L < n_fft, as at
+block 1024 and 15,298 … 16,320 taps) has the `RADIX2` body, whose shared
+figure no card holds, so ``ops/_layout.py`` always splits it.
 """
 
 from __future__ import annotations
@@ -58,6 +54,7 @@ import functools
 from dataclasses import dataclass
 
 from ..data.table import DELAY_PAD
+from ._layout import CLUSTER, RADIX2, REGISTER
 from .filters import next_pow2
 from .spectra_inverse import (CLUSTER_THREADS, MAX_CLUSTER_N,
                               MAX_REGISTER_N, inverse_plan)
@@ -106,15 +103,8 @@ class FiltersPlan:
     shared_f2: int  # complex64 of shared memory per block, shared or
     # cluster mode
     scratch_f2: int  # complex64 of one scratch slice, split mode
+    body: str  # REGISTER, CLUSTER or RADIX2 (``ops/_layout.py``)
     ranks: int = 0  # blocks per cluster in the cluster mode, else 0
-
-    @property
-    def register(self) -> bool:
-        return self.n <= MAX_REGISTER_N
-
-    @property
-    def cluster(self) -> bool:
-        return self.ranks > 0
 
 
 def _cluster_radices(n_fft: int) -> tuple[int, tuple[int, ...]]:
@@ -139,19 +129,19 @@ def filters_plan(taps: int, n_fft: int) -> FiltersPlan:
         return FiltersPlan(taps, n_fft, L, t_pad, radices, radices,
                            CLUSTER_THREADS, 1, 1,
                            inverse_plan(MAX_REGISTER_N).shared_f2,
-                           n_fft + 2 * L, ranks)
+                           n_fft + 2 * L, CLUSTER, ranks)
     if n_fft > MAX_REGISTER_N:
         log2 = lambda m: m.bit_length() - 1
         return FiltersPlan(taps, n_fft, L, t_pad, (2,) * log2(L),
                            (2,) * log2(n_fft), FILTERS_SPLIT_THREADS, 1, 1,
-                           n_fft // 2 + n_fft + 2 * L, n_fft + 2 * L)
+                           n_fft // 2 + n_fft + 2 * L, n_fft + 2 * L, RADIX2)
     threads = n_fft // POINTS
     # one exchange buffer, n + n/16 complex64 (a float2 of padding after
     # every 16, csrc/fft_reg.cuh): the G group buffers of L + L/16 fill it
     return FiltersPlan(taps, n_fft, L, t_pad, inverse_plan(L).radices,
                        inverse_plan(n_fft).radices, threads,
                        min(n_fft // L, MAX_ROWS), min_blocks(threads),
-                       n_fft + n_fft // 16, n_fft + 2 * L)
+                       n_fft + n_fft // 16, n_fft + 2 * L, REGISTER)
 
 
 @dataclass(frozen=True)
@@ -166,15 +156,8 @@ class MixPlan:
     group_f2: int  # complex64 of shared memory per group, shared mode;
     # one block's share in the cluster mode
     scratch_f2: int  # complex64 of one scratch slice, split mode
+    body: str  # REGISTER, CLUSTER or RADIX2 (``ops/_layout.py``)
     ranks: int = 0  # blocks per cluster in the cluster mode, else 0
-
-    @property
-    def register(self) -> bool:
-        return self.n <= MAX_REGISTER_N
-
-    @property
-    def cluster(self) -> bool:
-        return self.ranks > 0
 
 
 @functools.cache
@@ -189,11 +172,11 @@ def mix_plan(n_fft: int) -> MixPlan:
         ranks, radices = _cluster_radices(n_fft)
         return MixPlan(n_fft, radices, CLUSTER_THREADS, 1, 1,
                        inverse_plan(MAX_REGISTER_N).shared_f2,
-                       n_fft + 2 * F, ranks)
+                       n_fft + 2 * F, CLUSTER, ranks)
     if n_fft > MAX_REGISTER_N:
         log2 = n_fft.bit_length() - 1
         return MixPlan(n_fft, (2,) * log2, MIX_SPLIT_THREADS, 1, 1,
-                       n_fft // 2 + n_fft + 2 * F, n_fft + 2 * F)
+                       n_fft // 2 + n_fft + 2 * F, n_fft + 2 * F, RADIX2)
     threads = n_fft // POINTS
     # the exchange buffer, and below MAX_REGISTER_N the accumulators'
     # slices beside it
@@ -202,7 +185,7 @@ def mix_plan(n_fft: int) -> MixPlan:
     return MixPlan(n_fft, inverse_plan(n_fft).radices, threads,
                    max(1, MIX_BLOCK_THREADS // threads),
                    1 if threads > MIX_BLOCK_THREADS else 2,
-                   n_fft + n_fft // 16 + acc, n_fft + 2 * F)
+                   n_fft + n_fft // 16 + acc, n_fft + 2 * F, REGISTER)
 
 
 def mix_groups(S: int, nb: int, plan: MixPlan, sms: int) -> int:

@@ -27,12 +27,9 @@ crosses the cluster once through its distributed shared memory, and each
 block then runs the 16384-point register transform on its share, so the
 plan's radices are ``(ranks,)`` and the 16384-point plan's. Each block
 holds the padded exchange buffer of one 16384-point row, so the plan's
-shared figure is one block's and the layout takes this mode wherever the
-split mode is not forced. Above `MAX_CLUSTER_N` the kernel runs the split
-buffer mode of ``csrc/common.cuh``: 256 threads per row, radix-2 passes
-over a device scratch. The plan describes that launch, and its shared
-figure is the full radix-2 layout, which no card's shared memory holds, so
-the layout always picks the split mode there.
+shared figure is one block's. Above `MAX_CLUSTER_N` the plan has the
+`RADIX2` body, 256 threads per row, whose shared figure no card holds, so
+``ops/_layout.py`` always splits it.
 """
 
 from __future__ import annotations
@@ -42,6 +39,8 @@ import math
 from dataclasses import dataclass
 
 import torch
+
+from ._layout import CLUSTER, RADIX2, REGISTER
 
 MAX_RADIX = 16
 # the largest n whose exchange buffer (n + n/16 complex64 per row) fits one
@@ -67,6 +66,7 @@ class InversePlan:
     threads: int  # per row and block: n / (points · ranks)
     rows_per_block: int
     shared_f2: int  # complex64 of shared memory per block, shared mode
+    body: str  # REGISTER, CLUSTER or RADIX2 (``ops/_layout.py``)
     ranks: int = 1  # blocks per row: a thread-block cluster where > 1
 
 
@@ -78,7 +78,7 @@ def inverse_plan(n_fft: int) -> InversePlan:
     log2n = n_fft.bit_length() - 1
     if n_fft > MAX_CLUSTER_N:
         return InversePlan(n_fft, (2,) * log2n, n_fft // SPLIT_THREADS,
-                           SPLIT_THREADS, 1, n_fft // 2 + n_fft)
+                           SPLIT_THREADS, 1, n_fft // 2 + n_fft, RADIX2)
     passes = -(-log2n // 4)
     radices = (MAX_RADIX,) * (passes - 1) + (n_fft >> 4 * (passes - 1),)
     if n_fft > MAX_REGISTER_N:
@@ -86,14 +86,16 @@ def inverse_plan(n_fft: int) -> InversePlan:
         local = inverse_plan(MAX_REGISTER_N)
         ranks = n_fft // MAX_REGISTER_N
         return InversePlan(n_fft, (ranks, *local.radices), MAX_RADIX,
-                           CLUSTER_THREADS, 1, local.shared_f2, ranks)
+                           CLUSTER_THREADS, 1, local.shared_f2, CLUSTER,
+                           ranks)
     points = min(n_fft, MAX_RADIX)
     threads = n_fft // points
     rows = max(1, BLOCK_THREADS // threads)
     # one float2 of padding after every 16 keeps the first pass's
     # stride-16 stores on distinct banks
     row_f2 = n_fft + n_fft // 16 if passes > 1 else 0
-    return InversePlan(n_fft, radices, points, threads, rows, rows * row_f2)
+    return InversePlan(n_fft, radices, points, threads, rows, rows * row_f2,
+                       REGISTER)
 
 
 _TWIDDLES: dict[tuple[torch.device, int], torch.Tensor] = {}

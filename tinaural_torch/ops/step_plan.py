@@ -64,6 +64,7 @@ from __future__ import annotations
 import functools
 from dataclasses import dataclass
 
+from ._layout import PRUNED, RADIX2, REGISTER
 from .spectra_inverse import MAX_REGISTER_N, inverse_plan
 
 POINTS = 16  # values per thread in each register transform
@@ -117,10 +118,7 @@ class StepPlan:
     blocks_per_sm: int  # that __launch_bounds__ asks for
     unit_f2: int  # shared complex64 per row or group; radix-2: per block
     scratch_f2: int  # complex64 of one scratch slice, split mode
-
-    @property
-    def register(self) -> bool:
-        return bool(self.radices)
+    body: str  # REGISTER or RADIX2 (``ops/_layout.py``)
 
     def shared_f2(self, per_block: int) -> int:
         """complex64 of shared memory of a block of ``per_block`` rows or
@@ -149,7 +147,7 @@ def radix2_plan(n_fft: int, mix: bool) -> StepPlan:
     F = n_fft // 2 + 1
     acc = 2 * F if mix else 0
     return StepPlan(n_fft, (), RADIX2_THREADS, 1, 1,
-                    n_fft // 2 + n_fft + acc, n_fft + acc)
+                    n_fft // 2 + n_fft + acc, n_fft + acc, RADIX2)
 
 
 @functools.cache
@@ -168,7 +166,7 @@ def step_plan(n_fft: int, mix: bool) -> StepPlan:
         unit += ACC_SLOTS * threads
     return StepPlan(n_fft, inverse_plan(n_fft).radices, threads,
                     max_per_block(threads), min_blocks(threads), unit,
-                    radix2_plan(n_fft, mix).scratch_f2)
+                    radix2_plan(n_fft, mix).scratch_f2, REGISTER)
 
 
 def spectra_rows(plan: StepPlan, rows: int, sms: int) -> int:
@@ -197,7 +195,7 @@ def mix_groups(plan: StepPlan, chunk: int, blocks: int, sms: int) -> int:
     sources over ``blocks`` CUDA blocks: the power of two, at most the
     plan's and at most the chunk, of the fewest rounds (then the fewest
     groups); 1 on the radix-2 body or with no card (sms 0)."""
-    if not plan.register or sms <= 0:
+    if plan.body != REGISTER or sms <= 0:
         return 1
     best, groups = None, 1
     while groups <= min(chunk, plan.max_per_block):
@@ -229,6 +227,7 @@ class PrunedPlan:
     shared_f2: int  # complex64 of shared memory a block (Q = 16384: with
     # the mirror's kept half, Q/2)
     scratch_f2: int  # the split mode's slice (radix2_plan's)
+    body: str  # PRUNED (``ops/_layout.py``)
 
     @property
     def P(self) -> int:
@@ -292,7 +291,7 @@ def pruned_plan(n_fft: int, mix: bool, B: int) -> PrunedPlan | None:
               + (ACC_SLOTS * threads if shared_acc else 0))
     return PrunedPlan(n_fft, Q, mix, inverse_plan(Q).radices, T, pairs,
                       residues, threads, 1024 // threads, slot, shared_acc,
-                      shared, radix2_plan(n_fft, mix).scratch_f2)
+                      shared, radix2_plan(n_fft, mix).scratch_f2, PRUNED)
 
 
 def pruned_rounds(plan: PrunedPlan, S: int, nb: int, chunk: int,
@@ -334,7 +333,7 @@ def mix_launch(S: int, nb: int, n_fft: int, sms: int, B: int,
             if best is None or key < best[0]:
                 best = (key, chunk)
         return best[1], pruned.residues
-    if not plan.register:
+    if plan.body != REGISTER:
         chunks = min(S, max(1, -(-RADIX2_FILL * sms // nb)))
         return -(-S // chunks), 1
     best = None
