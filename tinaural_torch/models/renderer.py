@@ -226,23 +226,44 @@ def _dedupe_sources(xs: np.ndarray, dirs: np.ndarray, config: RenderConfig):
     track. Exact by linearity — every source in a group convolves the same
     per-direction FIR. The deduped count is bucketed up to a multiple of
     scene_chunk with silent sources; if bucketing erases the win, the scene
-    is returned untouched. Span ``tt.dedupe``."""
+    is returned untouched (counter ``dedupe_rows_merged``, S less the
+    bucketed count, otherwise).
+
+    The groups, their order and the sums are `np.unique(key, axis=0)`'s
+    and `np.add.at`'s, in bits, at a cost linear in the key's bytes:
+    tracks are grouped in a dict of their rows' bytes (−0.0 made 0.0
+    first; where some rows match, a row holding a NaN equal to no other);
+    only where the premix runs are the U groups sorted lexicographically,
+    and each source's row added to its group's in source order. Span
+    ``tt.dedupe``."""
     with span("tt.dedupe"):
         S = xs.shape[0]
-        static = dirs.ndim == 2
-        if static:
-            key = dirs
-        else:
-            key = np.stack([_snap_dirs(d, config.dir_rate) for d in dirs])
-        uniq, inv = np.unique(key.reshape(S, -1), axis=0, return_inverse=True)
-        U = uniq.shape[0]
+        key = dirs if dirs.ndim == 2 else _snap_dirs(dirs, config.dir_rate)
+        rows = key.reshape(S, -1) + 0.0  # −0.0 → 0.0: equal rows, equal bytes
+        b, n = rows.tobytes(), rows.itemsize * rows.shape[1]
+        keys = [b[s * n:(s + 1) * n] for s in range(S)]
+        if len(set(keys)) < S:
+            # np.unique keeps a row holding a NaN apart from its equals
+            for s in np.flatnonzero(np.isnan(rows).any(axis=1)):
+                keys[s] = s
+        group = {}  # a track's key → its first source
+        head = [group.setdefault(k, s) for s, k in enumerate(keys)]
+        U = len(group)
         ch = max(config.scene_chunk, 1)
         Ub = -(-U // ch) * ch
         if Ub >= S:
             return xs, dirs
+        count("dedupe_rows_merged", S - Ub)
+        first = np.fromiter(group.values(), np.intp, U)
+        # np.unique(axis=0)'s order, column 0 the primary key; a stable
+        # sort, so NaN rows alike stay in source order
+        first = first[np.lexsort(rows[first].T[::-1])]
+        rank = np.empty(S, np.intp)
+        rank[first] = np.arange(U)
         xs_u = np.zeros((Ub, xs.shape[1]), np.float32)
-        np.add.at(xs_u, np.asarray(inv).reshape(-1), xs)
-        dirs_u = uniq.reshape((U, 2) if static else (U, -1, 2))
+        for s, h in enumerate(head):
+            xs_u[rank[h]] += xs[s]
+        dirs_u = key[first]
         pad = np.broadcast_to(dirs_u[-1:], (Ub - U, *dirs_u.shape[1:]))
         return xs_u, np.concatenate([dirs_u, pad], axis=0).astype(np.float32)
 

@@ -13,7 +13,8 @@ each boundary (``tt.render_trajectory`` … ``tt.blockify``, ``tt.h2d``,
 ``tt.dedupe``, ``tt.lookup``, ``tt.route``, and inside the natural-order
 route ``tt.input_spectra``, ``tt.epilogue``; a span's self time is its
 duration less the spans it holds) and add to named counters with `count`
-(``h2d_bytes``, ``h2d_pinned_bytes``, ``host_syncs``, ``mac_rows``); the
+(``h2d_bytes``, ``h2d_pinned_bytes``, ``blockify_host_bytes``,
+``host_syncs``, ``mac_rows``, ``dedupe_rows_merged``); the
 kernel wrappers' ``launches`` dicts are `register`-ed here and read as
 ``launches.<kernel>``. Counters always count. Spans record only while
 tracing is on: inside a `tracing()` block, or while a `torch.profiler`
