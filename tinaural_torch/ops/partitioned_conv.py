@@ -39,6 +39,14 @@ block as register FFTs (``ops/partitions_plan.py``), and `stream_conv`,
 radix-2 `partitioned_conv` computes its frame spectra itself and
 `frame_spectra` is not launched). ``launches`` counts each kernel's
 launches.
+
+`partitioned_render` records span ``tt.frames`` around the frame spectra
+and, for each chunk, ``tt.partitions`` around the assembly and ``tt.conv``
+around the convolution (children of the caller's ``tt.route``; the plain
+version makes its partition transforms one at a time inside its
+``tt.conv``), and counts ``partition_rows``, the filter rows × P it
+assembles (a chunk past the first assembles its predecessor row again),
+and, on the CUDA route, ``conv_chunks``, its chunks.
 """
 
 from __future__ import annotations
@@ -175,12 +183,21 @@ def chunked_render(assemble, conv, xb, idx, w, table: TorchTable, *,
     row_bytes = P * 2 * (B + 1) * 8
     chunk = max(1, CHUNK_BYTES // row_bytes) * dir_rate
     out = xb.new_empty((2, nb * B))
-    spectra = frames(xb, P) if frames is not None else None
-    for b0, b1, r0, r1 in render_chunks(nb, dir_rate, chunk):
-        h_re, h_im = assemble(idx[r0:r1], w[r0:r1].to(xb.dtype), table, B,
-                              apply_itd=apply_itd, apply_ild=apply_ild)
-        conv(xb, h_re, h_im, crossfade=crossfade, start=b0, stop=b1,
-             dir_rate=dir_rate, out=out, spectra=spectra)
+    spectra = None
+    if frames is not None:
+        with profiling.span("tt.frames"):
+            spectra = frames(xb, P)
+    chunks = render_chunks(nb, dir_rate, chunk)
+    profiling.count("conv_chunks", len(chunks))
+    for b0, b1, r0, r1 in chunks:
+        profiling.count("partition_rows", (r1 - r0) * P)
+        with profiling.span("tt.partitions"):
+            h_re, h_im = assemble(idx[r0:r1], w[r0:r1].to(xb.dtype), table,
+                                  B, apply_itd=apply_itd,
+                                  apply_ild=apply_ild)
+        with profiling.span("tt.conv"):
+            conv(xb, h_re, h_im, crossfade=crossfade, start=b0, stop=b1,
+                 dir_rate=dir_rate, out=out, spectra=spectra)
     return out
 
 
@@ -249,20 +266,25 @@ def partitioned_render_reference(xb: torch.Tensor, idx: torch.Tensor,
     from the effective filters, so memory stays O(nb·(taps + B)) however
     long the filter (the JAX package's `_partitioned_scan`)."""
     nb, B = xb.shape
-    h, d, g = gather_rows(table, idx, w.to(xb.dtype), apply_itd=apply_itd,
-                          apply_ild=apply_ild)
-    h_eff = effective_filter(h, d, g, table.taps)  # (⌈nb/k⌉, 2, T_pad)
+    P = n_parts(table.taps, B)
+    with profiling.span("tt.partitions"):
+        h, d, g = gather_rows(table, idx, w.to(xb.dtype),
+                              apply_itd=apply_itd, apply_ild=apply_ild)
+        h_eff = effective_filter(h, d, g, table.taps)  # (⌈nb/k⌉, 2, T_pad)
+    profiling.count("partition_rows", h_eff.shape[0] * P)
     row, prow = conv_rows(0, nb, dir_rate, xb.device)
     parts = (partition_spectra(h_eff[..., p * B:(p + 1) * B], B)[:, 0]
-             for p in range(n_parts(table.taps, B)))
-    X = frame_spectra(xb)
+             for p in range(P))
+    with profiling.span("tt.frames"):
+        X = frame_spectra(xb)
     Yn = Yp = 0
-    for p, Hp in enumerate(parts):  # Hp: (⌈nb/k⌉, 2, F2)
-        Xp = delayed(X, p)[:, None]
-        Yn = Yn + Xp * Hp[row]
-        if crossfade:
-            Yp = Yp + Xp * Hp[prow]
-    y = crossfade_tails(Yn, Yp if crossfade else None, B)  # (nb, 2, B)
+    with profiling.span("tt.conv"):
+        for p, Hp in enumerate(parts):  # Hp: (⌈nb/k⌉, 2, F2)
+            Xp = delayed(X, p)[:, None]
+            Yn = Yn + Xp * Hp[row]
+            if crossfade:
+                Yp = Yp + Xp * Hp[prow]
+        y = crossfade_tails(Yn, Yp if crossfade else None, B)  # (nb, 2, B)
     return y.transpose(0, 1).reshape(2, nb * B)
 
 

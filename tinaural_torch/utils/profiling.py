@@ -10,11 +10,13 @@ is why a host clock needs the fence.
 
 The registry: the entry points and the layers under them open a `span` at
 each boundary (``tt.render_trajectory`` … ``tt.blockify``, ``tt.h2d``,
-``tt.dedupe``, ``tt.lookup``, ``tt.route``, and inside the natural-order
-route ``tt.input_spectra``, ``tt.epilogue``; a span's self time is its
-duration less the spans it holds) and add to named counters with `count`
-(``h2d_bytes``, ``h2d_pinned_bytes``, ``blockify_host_bytes``,
-``host_syncs``, ``mac_rows``, ``dedupe_rows_merged``); the
+``tt.dedupe``, ``tt.lookup``, ``tt.route``, inside the natural-order
+route ``tt.input_spectra``, ``tt.epilogue``, and inside the partitioned
+route ``tt.frames``, ``tt.partitions``, ``tt.conv``; a span's self time is
+its duration less the spans it holds) and add to named counters with
+`count` (``h2d_bytes``, ``h2d_pinned_bytes``, ``blockify_host_bytes``,
+``host_syncs``, ``mac_rows``, ``dedupe_rows_merged``, ``partition_rows``,
+``conv_chunks``); the
 kernel wrappers' ``launches`` dicts are `register`-ed here and read as
 ``launches.<kernel>``. Counters always count. Spans record only while
 tracing is on: inside a `tracing()` block, or while a `torch.profiler`
