@@ -33,7 +33,10 @@ Phases, each of which fails the run on any error (nothing is caught):
      body's edges (B 64 and 2048) and on the radix-2 body (B 32, and B
      4096 in the split mode), `assemble_partitions` alone at
      render (j)'s 256 rows × 44,100 taps × B 512 (L = 65536, P = 87: the
-     cluster mode, 4 blocks per row) and at (d)'s, (e)'s, (f)'s and (g)'s
+     cluster mode, 4 blocks per row), its direct body (neither ITD nor
+     ILD) at one room44k.streamed chunk (375 rows of the 44,100-tap
+     table kept whole, B 512, its bound counted without the chain), and
+     at (d)'s, (e)'s, (f)'s and (g)'s
      shapes (the shared mode's register body, checked too at the other
      rows per block), then at the register body's edges (B 64 and 2048, L
      8192, 7 rows, t_pad a multiple of B) and on the radix-2 body (B 32
@@ -116,8 +119,11 @@ Phases, each of which fails the run on any error (nothing is caught):
      `render_streamed` at 44,100 taps (L = 65536, P = 87) and a trajectory
      at 16,384 taps (n_fft = 32768, natural order: `assembly_mac`'s
      cluster mode; B1's split mode timed and profiled beside it), and
-     (j4) the stream at dir_rate 4 — each against the float64 plain path
-     (SNR ≥ 100 dB) with its exact launch counts;
+     (j4) the stream at dir_rate 4, and (jd) the stream on the 44,100-tap
+     table kept whole (`assemble_partitions`' direct body, with its
+     ``direct_partition_rows`` equal to its ``partition_rows``) — each
+     against the float64 plain path (SNR ≥ 100 dB) with its exact launch
+     counts;
   4d. the CLI (`tinaural_torch.cli.main`, in process, after every timing
      and before the profiles; `check_cli`), at the default table (the
      synthetic set, 128 taps), block 1024 and stream block 256, on a
@@ -166,7 +172,10 @@ kernel with its dir_rate 4 check and launches under ``dir_rate_4``; each
 kernel's bound: the larger of its bytes over 3.35 TB/s and its FLOPs,
 FFTs counted as 5·n·log2 n, over 67 TFLOP/s fp32; the partitioned
 convolution's kernels with their device ms, body and forward
-transforms; the block step's two with their device ms and body, and
+transforms, `assemble_partitions` with its direct body's check beside
+its bound and device ms (``direct_shape``) and its launches, device ms
+and counters in (jd) (``direct_render``); the block step's two with
+their device ms and body, and
 `block_spectra` at (h)'s shape with its bound, each with its pruned
 checks and their forced split mode (bounds by `step_work`'s least
 count, the full-transform count beside) and its device ms, launches
@@ -762,6 +771,8 @@ def check_assembly_savings(renders: dict) -> None:
 
 
 PART_FLAGS = dict(apply_itd=True, apply_ild=True)
+# a table kept whole: neither flag, so assemble_partitions' direct body
+NO_FLAGS = dict(apply_itd=False, apply_ild=False)
 
 
 def _report(res: dict, name: str, got, ref, kern, plain, label: str,
@@ -911,61 +922,70 @@ def stream_conv_work(S: int, B: int, P: int, crossfade: bool) -> dict:
                       + n_h * P * (B + 1) * 2 * 8))
 
 
-def partitions_work(table, idx, B: int) -> dict:
-    """assemble_partitions: the effective-filter chain, then P rfft_2B."""
+def partitions_work(table, idx, B: int, chain: bool = True) -> dict:
+    """assemble_partitions: the gather, with ``chain`` the effective-filter
+    chain, then P rfft_2B."""
     L = 1 << math.ceil(math.log2(table.taps + 64))
     P = -(-(table.taps + 64) // B)
     rows = idx.numel() // 4
+    chain_flops = 2 * fft_flops(L) + 16 * (L // 2 + 1) if chain else 0
     return bound(rows * 32 + table_bytes(table, idx)
                  + rows * P * 2 * (B + 1) * 8,
-                 rows * (16 * table.taps + 2 * fft_flops(L) + 16 * (L // 2 + 1)
+                 rows * (16 * table.taps + chain_flops
                          + P * fft_flops(2 * B)))
 
 
 def check_partition_assembly(table, rows: int, B: int, label: str,
-                             reps: int, variants: bool = False) -> dict:
+                             reps: int, variants: bool = False,
+                             flags: dict = PART_FLAGS) -> dict:
     """assemble_partitions alone against its plain fp32 and fp64 versions
-    (SNR ≥ KERNEL_SNR_DB against both), timed beside its bound. Its device
-    time per call comes from a torch.profiler trace of 10 calls (the
-    CUDA-event time of back-to-back calls is the host's below ~0.05 ms),
-    taken in phase 5 (`KERNEL_PROFILES`). With ``variants``, the register
-    body is checked and its device time taken again at the rows per block
-    it takes with no SM count (the most) and at one row per block, where
-    those differ from the plan's."""
+    (SNR ≥ KERNEL_SNR_DB against both), timed beside its bound (without
+    the chain where ``flags`` has neither ITD nor ILD). Its device time
+    per call comes from a torch.profiler trace of 10 calls (the CUDA-event
+    time of back-to-back calls is the host's below ~0.05 ms), taken in
+    phase 5 (`KERNEL_PROFILES`). With ``variants``, the register body is
+    checked and its device time taken again at the rows per block it takes
+    with no SM count (the most) and at one row per block, where those
+    differ from the plan's."""
     import torch
 
     from tinaural_torch.ops import partitioned_conv as pc
     from tinaural_torch.ops._layout import sm_count
     from tinaural_torch.ops.partitions_plan import launch, partitions_plan
 
-    plan = partitions_plan(table.taps, B)
-    G, T, _ = launch(table.taps, B, rows, sm_count(table.device))
+    chain = flags["apply_itd"] or flags["apply_ild"]
+    plan = partitions_plan(table.taps, B, chain)
+    G, T, _ = launch(table.taps, B, rows, sm_count(table.device), chain)
     mode = {"cluster": f"cluster mode, {plan.ranks} blocks per row",
             "register": f"register body, {G} rows per block of {T} threads",
+            "direct": f"direct body, {G} partitions per block of {T} "
+                      "threads",
             }.get(plan.body, "radix-2 body")
     print(f"[{label}] L {plan.L}, P {plan.parts}, {mode}", flush=True)
     idx, w = _rows(table, (rows,), seed=5)
-    kern = lambda: pc.assemble_partitions_cuda(idx, w, table, B, **PART_FLAGS)
+    kern = lambda: pc.assemble_partitions_cuda(idx, w, table, B, **flags)
     plain = lambda: pc.assemble_partitions_reference(idx, w, table, B,
-                                                     **PART_FLAGS)
+                                                     **flags)
     res = {}
     H = torch.complex(*kern())
     _report(res, "assemble_partitions", H, torch.complex(*plain()), kern,
-            plain, label, reps, partitions_work(table, idx, B))
+            plain, label, reps, partitions_work(table, idx, B, chain))
     H64 = torch.complex(*pc.assemble_partitions_reference(
-        idx, w.double(), table, B, **PART_FLAGS))
+        idx, w.double(), table, B, **flags))
     s64 = snr_db(H64, H)
     print(f"[{label}] assemble_partitions: SNR {s64:.2f} dB vs plain fp64",
           flush=True)
     require(s64 >= KERNEL_SNR_DB, f"{label}: SNR {s64:.2f} vs plain fp64")
     out = res["assemble_partitions"]
-    out.update(snr_fp64_db=s64, ranks=plan.ranks, rows_per_block=G)
+    out.update(snr_fp64_db=s64, ranks=plan.ranks, body=plan.body,
+               **{"units_per_block" if plan.body == "direct"
+                  else "rows_per_block": G})
     KERNEL_PROFILES.append((label, out, "device_ms", kern, None,
                             "assemble_partitions"))
     if variants and plan.body == "register":
         real = pc.sm_count
         for sms in (0, rows):  # the most rows per block, then one
-            g, t, _ = launch(table.taps, B, rows, sms)
+            g, t, _ = launch(table.taps, B, rows, sms, chain)
             if g == G or f"G{g}_device_ms" in out:
                 continue
             pc.sm_count = lambda device, sms=sms: sms
@@ -2156,16 +2176,18 @@ def long_inputs(N: int, Bj: int):
 def long_render(name: str, table, Bj: int, N: int, streamed: bool, core,
                 kern, plain_fn, expect: dict, launches_total: dict,
                 reps: int, other=None, dir_rate: int = 1,
-                profile_other: bool = False) -> dict:
+                profile_other: bool = False, counted: tuple = ()) -> dict:
     """One render of (j) or (l) on bench.py's BRIR direction track;
     ``other`` another route timed beside it (and profiled in phase 5 with
     ``profile_other``). Above ``dir_rate`` 1 the
     float64 check is the plain path at dir_rate 1 on the snapped track,
-    and each assembly launch must take ⌈nb/dir_rate⌉ rows."""
+    and each assembly launch must take ⌈nb/dir_rate⌉ rows. ``counted``:
+    program counters read around the public call, into ``counters``."""
     import torch
 
     import tinaural_torch as tt
     from tinaural_torch.models.renderer import _snap_dirs
+    from tinaural_torch.utils import profiling
 
     cfg = tt.RenderConfig(block_size=Bj, stream_block=Bj, dir_rate=dir_rate)
     r = tt.BinauralRenderer(table, cfg)
@@ -2175,8 +2197,17 @@ def long_render(name: str, table, Bj: int, N: int, streamed: bool, core,
     xb = torch.tensor(x.reshape(nb, Bj), device=table.device)
     dirs_t = torch.tensor(dirs, device=table.device)
     rows = (-(-nb // dir_rate),) if streamed else (1, -(-nb // dir_rate))
-    return check_render(
-        name, lambda: public(x, dirs),
+    made = {}
+
+    def public_call():
+        before = profiling.counters()
+        y = public(x, dirs)
+        after = profiling.counters()
+        made.update({k: after.get(k, 0) - before.get(k, 0) for k in counted})
+        return y
+
+    res = check_render(
+        name, public_call,
         lambda plain, dt: core(table, xb.to(dt), dirs_t, cfg,
                                render=plain_fn if plain else kern),
         N / SR, expect, launches_total, reps, NEW_RENDER_SNR_DB,
@@ -2186,6 +2217,11 @@ def long_render(name: str, table, Bj: int, N: int, streamed: bool, core,
                          cfg.replace(dir_rate=1), render=plain_fn),
         assembly_rows=rows if dir_rate > 1 else None,
         profile_routes=profile_other)
+    if counted:
+        res["counters"] = made
+        print(f"[render {name}] counters of the public call: {made}",
+              flush=True)
+    return res
 
 
 # the CLI phase: its inputs' sizes, fit's steps, and each render
@@ -2849,6 +2885,9 @@ def main() -> int:
         tt.TorchTable.from_hrir_table(tt.load_hrir_set("synthetic", taps=n),
                                       dev)
         for n in (2048, 44100, 16384, 8000, 448))
+    # the 44,100-tap table kept whole, as room44k's: neither ITD nor ILD
+    long_whole = tt.TorchTable.from_hrir_table(
+        tt.load_hrir_set("synthetic", taps=44100, decompose=False), dev)
     print(f"long tables: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 3. kernels against their plain versions
@@ -2903,6 +2942,14 @@ def main() -> int:
     k_part_j = check_partition_assembly(long_streamed, 256, 512,
                                         "assemble_partitions 256 rows 44100 "
                                         "taps B=512", reps=5)
+    # the direct body (neither ITD nor ILD) at one chunk of
+    # room44k.streamed: 375 rows of the 44,100-tap table kept whole, B 512
+    k_direct = check_partition_assembly(
+        long_whole, 375, 512, "assemble_partitions direct 375 rows 44100 "
+        "taps B=512", reps=5, flags=NO_FLAGS)["assemble_partitions"]
+    require(k_direct["body"] == "direct",
+            f"assemble_partitions without ITD/ILD ran the {k_direct['body']}"
+            " body, want direct")
     # the shared mode's register body alone at (d)'s, (e)'s, (f)'s and
     # (g)'s shapes, then at its edges and beside the radix-2 body
     k_asm = {key: check_partition_assembly(
@@ -3206,6 +3253,18 @@ def main() -> int:
         True, _partitioned_core, pc.partitioned_render,
         pc.partitioned_render_reference, PART_COUNTS, launches, reps=2,
         dir_rate=4)
+    # (jd) (j)'s stream on the table kept whole: the direct body on the
+    # main path, its rows × P counted around the public call
+    jd = renders["jd_streamed_44100_taps_whole"] = long_render(
+        "jd streamed 44100 taps whole", long_whole, 512, 1 << 17, True,
+        _partitioned_core, pc.partitioned_render,
+        pc.partitioned_render_reference, PART_COUNTS, launches, reps=2,
+        counted=("partition_rows", "direct_partition_rows"))
+    require(jd["counters"]["partition_rows"] > 0
+            and jd["counters"]["direct_partition_rows"]
+            == jd["counters"]["partition_rows"],
+            f"render jd: counters {jd['counters']}, want every partition "
+            "row through the direct body")
 
     # 4d. the CLI, after every timing and before the profiles
     cli_res = check_cli(table)
@@ -3308,6 +3367,17 @@ def main() -> int:
                  "edges": {k: {f: m[f] for f in ("ms", "snr_db",
                                                  "snr_fp64_db")}
                            for k, m in k_edges.items()},
+                 # the direct body alone at one room44k.streamed chunk,
+                 # and in (jd)'s render
+                 "direct_shape": {f: v for f, v in k_direct.items()
+                                  if f in shape_fields or f in (
+                                      "device_ms", "body",
+                                      "units_per_block")},
+                 "direct_render": {
+                     "launches": jd["launches"].get("assemble_partitions"),
+                     "device_ms": render_ms("jd_streamed_44100_taps_whole",
+                                            "assemble_partitions"),
+                     **jd["counters"]},
                  "f_device_ms": renders["f_latency"].get(
                      "assemble_partitions_device_ms", "not measured"),
                  "g_device_ms": renders["g_streamed"].get(

@@ -105,7 +105,7 @@ def check_partitions(dev) -> bool:
         t = tt.TorchTable.from_hrir_table(
             tt.load_hrir_set("synthetic", taps=taps), dev)
         for B in (64, 256, 512, 2048):
-            plan = partitions_plan(taps, B)
+            plan = partitions_plan(taps, B, True)
             idx, w = rows_of(t, 5, seed=taps + B)
             hr, hi = pc.assemble_partitions_cuda(idx, w, t, B, **FLAGS)
             r64, i64 = pc.assemble_partitions_reference(idx, w.double(), t, B,
@@ -146,7 +146,8 @@ def time_partitions(dev, reps: int) -> None:
         idx, w = rows_of(t, rows, seed=1)
         kern = lambda: pc.assemble_partitions_cuda(idx, w, t, B, **FLAGS)
         res = dict(kernel="assemble_partitions", rows=rows, taps=taps, B=B,
-                   ranks=partitions_plan(taps, B).ranks, ms=cuda_ms(kern, reps))
+                   ranks=partitions_plan(taps, B, True).ranks,
+                   ms=cuda_ms(kern, reps))
         if (taps, B, rows) == PARTITION_SHAPES[0]:
             ref = pc.assemble_partitions_reference(idx, w, t, B, **FLAGS)
             res["snr_db_fp32"] = snr_db(torch.complex(*ref),

@@ -85,7 +85,7 @@ def test_forced_split_reaches_the_cluster_sizes(monkeypatch):
         p = inverse_plan(n)
         assert _layout.launch_mode(p.body, p.shared_f2, n, H100_SHARED_BYTES
                                    ) == (_layout.SPLIT, 256)
-    p = partitions_plan(44100, 512)
+    p = partitions_plan(44100, 512, True)
     assert _layout.launch_mode(p.body, p.shared_f2, p.L, H100_SHARED_BYTES
                                ) == (_layout.SPLIT, 256)
 
@@ -99,11 +99,11 @@ def test_partitions_plan(taps, block):
     (the 196 KB carve-out with its reserve), and 8192/B partitions per round; the layout takes it
     unless forced. Other shapes keep the shared mode (L ≤ 8192) or the
     split mode (the shared figure no block holds)."""
-    p = partitions_plan(taps, block)
+    p = partitions_plan(taps, block, True)
     assert p.parts == n_parts(taps, block) == -(-(taps + 64) // block)
     assert p.parts * block <= p.L
     # the figure the layout reads, at the most rows per block (no card)
-    shared_f2 = launch(taps, block, 1000, 0)[2]
+    shared_f2 = launch(taps, block, 1000, 0, True)[2]
     fits = shared_f2 * 8 + _layout._STATIC_SMEM <= H100_SHARED_BYTES
     cluster = (MIN_CLUSTER_L <= p.L <= MAX_CLUSTER_L
                and MIN_CLUSTER_BLOCK <= block <= MAX_CLUSTER_BLOCK)
@@ -326,7 +326,7 @@ def _model_filter(r: int, arrays, taps: int, L: int) -> np.ndarray:
 def _model_partitions(idx, w, table, B: int):
     """The cluster kernel of `assemble_partitions`: → H (rows, P, 2, B+1)
     complex64, one cluster per row."""
-    plan = partitions_plan(table.taps, B)
+    plan = partitions_plan(table.taps, B, True)
     L, C, P, t_pad = plan.L, plan.ranks, plan.parts, plan.t_pad
     M, span = SHARE, SHARE // C
     f32 = np.float32
@@ -434,7 +434,7 @@ def test_partitions_model_matches_reference(taps, B):
     version, which is the float32 floor of these three long transforms
     (110 dB at L = 16384, 105 dB at 65536)."""
     table = _table(taps, seed=taps + B)
-    plan = partitions_plan(taps, B)
+    plan = partitions_plan(taps, B, True)
     assert plan.body == CLUSTER and plan.L in (16384, 65536)
     rng = np.random.default_rng(B)
     idx = torch.from_numpy(rng.integers(0, 8, (2, 4)).astype(np.int32))

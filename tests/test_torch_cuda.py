@@ -18,7 +18,10 @@ its refusal of another plan; each family again in the split buffer mode, forced 
 and at the sizes that need it (a 44,100-tap `render_streamed`, a
 16,384-tap trajectory); the cluster mode of `spectra_inverse` and
 `assemble_partitions` at its edges, under a refused plan, and forced back
-to the split mode; and the dir_rate row map (one filter per group of k
+to the split mode; `assemble_partitions`' direct body (neither ITD nor
+ILD) at room44k's widths and at B 64 … 2048 over L 256 … 65536, under a
+refused plan, its counter on a render of a table kept whole, and ITD or
+ILD never reaching it; and the dir_rate row map (one filter per group of k
 blocks) of B1's, the block step's, the scene mixdown's and the
 partitioned kernels at k = 2, 4 and 8, nb no multiple of k, in chunks,
 in B1's cluster mode at n_fft 32768 and `assemble_partitions`' cluster
@@ -67,6 +70,7 @@ from tinaural_torch.ops.partitions_plan import partitions_plan
 from tinaural_torch.ops.render_plan import filters_plan, mix_plan
 from tinaural_torch.ops.spectra_inverse import inverse_plan
 from tinaural_torch.ops.step_plan import pruned_plan, step_plan
+from tinaural_torch.utils import profiling
 
 from test_torch_mac_plan import _inputs as _random_inputs
 from test_torch_mac_plan import _table as _random_table
@@ -412,7 +416,7 @@ def test_assemble_partitions_matches_plain(long_tables, taps, B):
     4096), the cluster mode at 16,384 taps (L 32768, 2 blocks per row)
     and 44,100 (L 65536, 4 blocks)."""
     t = long_tables[taps]
-    assert (partitions_plan(taps, B).body == CLUSTER) == (taps > 8128)
+    assert (partitions_plan(taps, B, True).body == CLUSTER) == (taps > 8128)
     idx, w = _rows(t, (6,), seed=B)
     hr, hi = pc.assemble_partitions_cuda(idx, w, t, B, **FLAGS)
     r64, i64 = pc.assemble_partitions_reference(idx, w.double(), t, B, **FLAGS)
@@ -451,7 +455,7 @@ def test_assemble_partitions_register_every_size(long_tables, log2L):
     dev = long_tables[128].device
     for i, B in enumerate(64 << k for k in range(6)):
         taps = L - 64 if i % 2 else max(1, L // 2 - 63)
-        plan = partitions_plan(taps, B)
+        plan = partitions_plan(taps, B, True)
         assert plan.body == REGISTER and plan.L == L
         for rows in (1, 7, plan.rows_per_block(10 ** 6, 0) + 1):
             t, idx, w = _exact_delay_inputs(taps, rows, i, dev)
@@ -470,7 +474,7 @@ def test_assemble_partitions_register_refuses_another_plan(long_tables,
     compiled most, raise, and nothing is launched."""
     t = long_tables[2048]
     idx, w = _rows(t, (64,), seed=2)
-    plan = partitions_plan(2048, 256)
+    plan = partitions_plan(2048, 256, True)
     G = plan.rows_per_block(64, 132)
     assert G == 1
     # (G, threads, shared figure) of the launch
@@ -483,6 +487,141 @@ def test_assemble_partitions_register_refuses_another_plan(long_tables,
             with pytest.raises(RuntimeError):
                 pc.assemble_partitions_cuda(idx, w, t, 256, **FLAGS)
             assert pc.launches["assemble_partitions"] == before
+
+
+NO_FLAGS = dict(apply_itd=False, apply_ild=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("taps,B,rows", [(44100, 512, 16), (44100, 512, 61),
+                                         (2048, 512, 7), (8000, 64, 5),
+                                         (8000, 2048, 5), (100, 64, 3),
+                                         (16000, 2048, 3), (44100, 64, 2),
+                                         (44100, 2048, 9)])
+def test_assemble_partitions_direct_matches_plain(taps, B, rows):
+    """The direct body (neither ITD nor ILD) against the float64 plain
+    version, which runs the chain: room44k's widths cut in rows (44,100
+    taps, B 512, P 87, 16 and 61 rows, the last block's slots part
+    empty), L ≤ 8192 shapes, B 64 and 2048 at L 16384 and 65536, the last
+    partition ragged against t_pad; ≥ 100 dB, and ``direct_partition_rows``
+    counts rows × P."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    t = _random_table(taps, seed=taps + B, device=dev)
+    plan = partitions_plan(taps, B, False)
+    assert plan.body == _layout.DIRECT
+    idx, w = _random_inputs(t, rows, 128, seed=rows)[:2]
+    idx, w = idx.to(dev), w.to(dev)
+    before = profiling.counters().get("direct_partition_rows", 0)
+    hr, hi = pc.assemble_partitions_cuda(idx, w, t, B, **NO_FLAGS)
+    assert (profiling.counters()["direct_partition_rows"] - before
+            == rows * plan.parts)
+    r64, i64 = pc.assemble_partitions_reference(idx, w.double(), t, B,
+                                                **NO_FLAGS)
+    assert hr.shape == (rows, plan.parts, 2, B + 1)
+    s = _snr_db(torch.complex(r64, i64), torch.complex(hr, hi))
+    assert s >= 100, s
+
+
+@pytest.mark.gpu
+def test_assemble_partitions_direct_refuses_another_plan(long_tables,
+                                                         monkeypatch):
+    """The direct body takes only a power of two of units a block up to
+    256 threads (the plan's largest block), each 2B/16 of them, and only
+    with neither ITD nor ILD: others raise, and nothing is launched."""
+    t = long_tables[2048]
+    idx, w = _rows(t, (8,), seed=3)
+    for bad in ((3, 3 * 32, 3 * 544), (32, 32 * 32, 32 * 544),
+                (16, 16 * 32, 16 * 544), (4, 4 * 32 + 32, 4 * 544),
+                (0, 0, 0)):
+        with monkeypatch.context() as m:
+            m.setattr(pc, "launch", lambda *args, bad=bad: bad)
+            before = pc.launches["assemble_partitions"]
+            with pytest.raises(RuntimeError):
+                pc.assemble_partitions_cuda(idx, w, t, 256, **NO_FLAGS)
+            assert pc.launches["assemble_partitions"] == before
+    plan_of, launch_of = pc.partitions_plan, pc.launch
+    for flags in (FLAGS, dict(apply_itd=True, apply_ild=False),
+                  dict(apply_itd=False, apply_ild=True)):
+        with monkeypatch.context() as m:
+            m.setattr(pc, "partitions_plan",
+                      lambda taps, block, chain: plan_of(taps, block, False))
+            m.setattr(pc, "launch", lambda taps, block, rows, sms,
+                      chain: launch_of(taps, block, rows, sms, False))
+            before = pc.launches["assemble_partitions"]
+            with pytest.raises(RuntimeError):
+                pc.assemble_partitions_cuda(idx, w, t, 256, **flags)
+            assert pc.launches["assemble_partitions"] == before
+
+
+@pytest.mark.gpu
+def test_direct_partition_rows_counts_a_raw_table_render():
+    """`render_streamed` on a table kept whole takes the direct body in
+    every launch: ``direct_partition_rows`` equals ``partition_rows``; on
+    a decomposed table with ITD and ILD on it counts nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    nb, B_ = 40, 512
+    x = rng.standard_normal(nb * B_).astype(np.float32)
+    dirs = np.stack([np.linspace(0, 200, nb), np.zeros(nb)], 1).astype(
+        np.float32)
+    cfg = tinaural_torch.RenderConfig(block_size=B_, stream_block=B_)
+    for decompose in (False, True):
+        t = TorchTable.from_hrir_table(tinaural_torch.load_hrir_set(
+            "synthetic", taps=2048, decompose=decompose), dev)
+        r = tinaural_torch.BinauralRenderer(t, cfg)
+        before = profiling.counters()
+        r.render_streamed(x, dirs)
+        torch.cuda.synchronize()
+        after = profiling.counters()
+        made = {k: after.get(k, 0) - before.get(k, 0)
+                for k in ("partition_rows", "direct_partition_rows")}
+        want = made["partition_rows"] if not decompose else 0
+        assert made["partition_rows"] > 0
+        assert made["direct_partition_rows"] == want, decompose
+
+
+@pytest.mark.gpu
+def test_itd_and_ild_never_reach_the_direct_body(long_tables, monkeypatch):
+    """On a decomposed table with ITD or ILD on, a stream chain and a
+    partitioned render give the same bits as under the plan rule without
+    the direct body (every plan the chain's), and count no
+    ``direct_partition_rows``."""
+    t = long_tables[2048]
+    B_, S, nb = 256, 3, 24
+    rng = np.random.default_rng(5)
+    xb = torch.from_numpy(rng.standard_normal((nb, B_)).astype(np.float32)
+                          ).to(t.device)
+    idx, w = _rows(t, (nb,), seed=9)
+    sidx, sw = _rows(t, (S,), seed=10)
+    st = init_state(t, tinaural_torch.RenderConfig(stream_block=B_), S)
+    args = (xb[:S].contiguous(), st.prev_in, st.fdl_re, st.fdl_im,
+            st.prev_h_re, st.prev_h_im, st.started)
+
+    def run(flags):
+        render = pc.partitioned_render(xb, idx, w, t, crossfade=True,
+                                       **flags)
+        step = pc.stream_step(t, sidx, sw, *args, crossfade=True, **flags)
+        torch.cuda.synchronize()
+        return (render, *step)
+
+    for flags in (FLAGS, dict(apply_itd=True, apply_ild=False),
+                  dict(apply_itd=False, apply_ild=True)):
+        before = profiling.counters().get("direct_partition_rows", 0)
+        got = run(flags)
+        assert profiling.counters().get("direct_partition_rows", 0) == before
+        plan_of, launch_of = pc.partitions_plan, pc.launch
+        with monkeypatch.context() as m:
+            m.setattr(pc, "partitions_plan",
+                      lambda taps, block, chain: plan_of(taps, block, True))
+            m.setattr(pc, "launch", lambda taps, block, rows, sms,
+                      chain: launch_of(taps, block, rows, sms, True))
+            want = run(flags)
+        for g, r in zip(got, want):
+            assert torch.equal(g, r), flags
 
 
 @pytest.mark.gpu
@@ -1434,7 +1573,7 @@ def test_cluster_mode_boundaries(long_tables):
         f64 = bs.spectra_inverse_reference(Y.to(torch.complex128), n)
         assert _snr_db(f64, bs.spectra_inverse_cuda(Y, n)) >= 120, n
     for taps, L in ((8000, 8192), (9000, 16384)):
-        plan = partitions_plan(taps, 512)
+        plan = partitions_plan(taps, 512, True)
         assert plan.L == L and (plan.body == CLUSTER) == (L == 16384)
         t = long_tables[taps]
         idx, w = _rows(t, (5,), seed=taps)
@@ -1459,8 +1598,8 @@ def test_cluster_mode_refuses_another_plan(long_tables, monkeypatch):
     assert bs.launches["spectra_inverse"] == before
     t = long_tables[9000]
     idx, w = _rows(t, (2,), seed=1)
-    plan = partitions_plan(9000, 512)
-    monkeypatch.setattr(pc, "partitions_plan", lambda taps, B:
+    plan = partitions_plan(9000, 512, True)
+    monkeypatch.setattr(pc, "partitions_plan", lambda taps, B, chain:
                         dataclasses.replace(plan, ranks=2))
     before = pc.launches["assemble_partitions"]
     with pytest.raises(RuntimeError):

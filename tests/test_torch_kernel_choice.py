@@ -68,7 +68,7 @@ NS = [1 << k for k in range(6, 19)]
 TAPS = (64, 128, 512, 2048, 8128, 16000, 30000, 44100)
 BLOCKS = (64, 128, 256, 512, 1024, 2048, 4096)
 LETTER = {_layout.REGISTER: "R", _layout.CLUSTER: "C", _layout.PRUNED: "P",
-          _layout.RADIX2: "2", _layout.SPLIT: "S"}
+          _layout.RADIX2: "2", _layout.SPLIT: "S", _layout.DIRECT: "D"}
 FORCED_WORK = 256  # two passes take 65536 points: larger FFTs raise (X)
 
 
@@ -120,8 +120,8 @@ def _inverse(n):
 
 
 def _partitions(taps, B, rows=1024):
-    p = partitions_plan(taps, B)
-    return _mode(p.body, launch(taps, B, rows, SMS)[2], max(p.L, 2 * B))
+    p = partitions_plan(taps, B, True)
+    return _mode(p.body, launch(taps, B, rows, SMS, True)[2], max(p.L, 2 * B))
 
 
 def _conv(taps, B, stream):
@@ -318,3 +318,63 @@ def test_launch_mode_table(kernel, forced, monkeypatch):
     want = (FORCED if forced else AT_THE_LIMIT)[kernel]
     got = {row: "".join(mode_of(row, c) for c in cols) for row in rows}
     assert got == want
+
+
+# `assemble_partitions` by its flags (the wrapper's rule: the rows need the
+# chain where ITD or ILD applies): with neither, the direct body (D) at
+# blocks 64 … 2048 at every L, up to L 131072 (100,000 taps) and beyond
+# the cluster mode (200,000 taps, L 262144); forced, the split mode, which
+# runs the chain, so L above two passes of FORCED_WORK raises (X); with
+# either flag, the modes of the tables above.
+DIRECT_TAPS = (*TAPS, 100000, 200000)
+DIRECT_MODES = {
+    "limit": {**{taps: "DDDDDD2" for taps in TAPS[:5]},
+              **{taps: "DDDDDDS" for taps in DIRECT_TAPS[5:]}},
+    "forced": {**{taps: "SSSSSSS" for taps in TAPS},
+               100000: "XXXXXXX", 200000: "XXXXXXX"},
+}
+FLAG_PAIRS = [(False, False), (True, False), (False, True), (True, True)]
+
+
+def _partitions_flags(taps, B, itd, ild, rows=1024):
+    chain = itd or ild
+    p = partitions_plan(taps, B, chain)
+    return _mode(p.body, launch(taps, B, rows, SMS, chain)[2],
+                 max(p.L, 2 * B))
+
+
+@pytest.mark.parametrize("forced", [False, True], ids=["limit", "forced"])
+@pytest.mark.parametrize("itd,ild", FLAG_PAIRS)
+def test_assemble_partitions_direct_rule(itd, ild, forced, monkeypatch):
+    """The direct body exactly where both flags are off and B is 64 …
+    2048, at every L; with either flag on, each shape's mode is the one
+    of the tables above and no plan is the direct body's."""
+    monkeypatch.setattr(_layout, "force_work", FORCED_WORK if forced else 0)
+    got = {taps: "".join(_partitions_flags(taps, B, itd, ild)
+                         for B in BLOCKS) for taps in DIRECT_TAPS}
+    if itd or ild:
+        want = (FORCED if forced else AT_THE_LIMIT)["assemble_partitions"]
+        assert {t: got[t] for t in TAPS} == want
+        for taps in DIRECT_TAPS:
+            for B in BLOCKS:
+                assert partitions_plan(taps, B, True).body != _layout.DIRECT
+    else:
+        assert got == DIRECT_MODES["forced" if forced else "limit"]
+
+
+@pytest.mark.parametrize("B,rows,want", [
+    (512, 375, (1, 64, 1088)),  # room44k.streamed's chunk: P 87
+    (128, 375, (4, 64, 4 * 272)),
+    (64, 4106, (8, 64, 8 * 136)),
+    (64, 1, (4, 32, 4 * 136)),  # one stream's push: 691 units, 132 SMs
+    (2048, 375, (1, 256, 4352)),
+])
+def test_assemble_partitions_direct_launch(B, rows, want):
+    """The direct body's launch at 44,100 taps: S units a block, the
+    largest power of two up to 64/(2B/16), at least 1, that leaves every
+    SM a block over rows × P, on S·2B/16 threads with S padded 2B-point
+    exchange buffers."""
+    plan = partitions_plan(44100, B, False)
+    assert plan.body == _layout.DIRECT and plan.ranks == 0
+    assert plan.radices_L == () and plan.parts == n_parts(44100, B)
+    assert launch(44100, B, rows, SMS, False) == want

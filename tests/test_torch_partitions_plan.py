@@ -91,13 +91,13 @@ def test_shared_mode_plans(log2L):
     for log2B in range(1, 14):
         B = 1 << log2B
         for taps in _taps(L, log2B):
-            p = partitions_plan(taps, B)
+            p = partitions_plan(taps, B, True)
             assert (p.L, p.t_pad, p.ranks) == (L, taps + DELAY_PAD, 0)
             assert p.parts == -(-p.t_pad // B) and p.body != CLUSTER
             reg = MIN_CLUSTER_BLOCK <= B <= MAX_CLUSTER_BLOCK
             assert (p.body == REGISTER) == reg
             # the launch at the most rows per block (no card)
-            G, T, f2 = launch(taps, B, 1000, 0)
+            G, T, f2 = launch(taps, B, 1000, 0, True)
             fits = f2 * 8 + _layout._STATIC_SMEM <= H100_SHARED_BYTES
             mode, work = _layout.launch_mode(p.body, f2, max(L, 2 * B),
                                              H100_SHARED_BYTES)
@@ -107,7 +107,7 @@ def test_shared_mode_plans(log2L):
                 assert (p.threads, p.max_rows) == (SHARED_THREADS, 1)
                 assert p.shared_f2 == max(L, 2 * B) // 2 + 2 * L + 2 * B
                 assert (G, T, f2) == (1, p.threads, p.shared_f2)
-                assert launch(taps, B, 1000, H100_SMS) == (G, T, f2)
+                assert launch(taps, B, 1000, H100_SMS, True) == (G, T, f2)
                 continue
             assert fits
             assert p.radices_L == _compiled_plan(L)[0]
@@ -145,12 +145,12 @@ def test_rows_per_block():
              ((60, 2048), 10, 0, 16, 512),
              ((8000, 64), 7, H100_SMS, 1, 512)]
     for (taps, B), rows, sms, G, T in cases:
-        p = partitions_plan(taps, B)
+        p = partitions_plan(taps, B, True)
         assert p.rows_per_block(rows, sms) == G, (taps, B, rows)
         assert p.block_threads(G) == T
-        assert launch(taps, B, rows, sms) == (G, T, p.block_shared_f2(G))
+        assert launch(taps, B, rows, sms, True) == (G, T, p.block_shared_f2(G))
     for taps, B in ((128, 64), (2048, 512), (100, 2048), (8000, 64)):
-        p = partitions_plan(taps, B)
+        p = partitions_plan(taps, B, True)
         for rows in (1, 7, 131, 132, 1000, 4096):
             for sms in (0, H100_SMS):
                 G = p.rows_per_block(rows, sms)
@@ -165,7 +165,7 @@ def test_cluster_and_split_modes_keep_their_plans():
     mode."""
     assert MAX_REGISTER_L == 8192
     for B, cluster in ((32, False), (64, True), (2048, True), (4096, False)):
-        p = partitions_plan(9000, B)
+        p = partitions_plan(9000, B, True)
         assert (p.L, p.body == CLUSTER,
                 p.body == REGISTER) == (16384, cluster, False)
         assert p.rows_per_block(5000, H100_SMS) == 1
@@ -224,7 +224,7 @@ def _model_rounds(smem: np.ndarray, r0: int, rows: int, G: int, plan,
 def _model_shared(idx, w, table, B: int, G: int) -> np.ndarray:
     """The register body's map by its index maps, G rows per CUDA block:
     → H (rows, P, 2, B+1) complex64."""
-    p = partitions_plan(table.taps, B)
+    p = partitions_plan(table.taps, B, True)
     assert p.body == REGISTER
     L, P, t_pad = p.L, p.parts, p.t_pad
     TL, size = L // 16, p.block_shared_f2(G)
@@ -284,7 +284,7 @@ def test_shared_model_matches_reference(taps, B, rows, sms):
     each shape, on 1 and 7 rows with the card's G and on G + 1 rows with
     the most rows per block (the second block holds one live row): ≥ 100
     dB and no more than 1 dB below the plain float32 version."""
-    p = partitions_plan(taps, B)
+    p = partitions_plan(taps, B, True)
     if rows == "G+1":
         rows = p.rows_per_block(10 ** 6, sms) + 1
     G = p.rows_per_block(rows, sms)
@@ -310,7 +310,7 @@ def test_partition_rounds_match_partition_spectra(taps, B, G):
     g·t_pad as the hand-off leaves it (the last block with one row fewer
     where G > 1), against `filters.partition_spectra` in float64:
     ≥ 120 dB."""
-    p = partitions_plan(taps, B)
+    p = partitions_plan(taps, B, True)
     assert G <= p.max_rows
     rows = max(1, 2 * G - 1)
     rng = np.random.default_rng(taps + B)

@@ -9,19 +9,55 @@
 // fused_stream_step (:2215; _stream_step_asm_kernel :2006). partitioned.cu's
 // header says how the partitioned map splits over its three kernels.
 //
-// Bound on the H100 by its transforms' latency, not by bytes: a row reads
-// 4 table rows (the table stays in L2) and writes its planes, P·2·(B+1)
-// complex64 (render (g): 2048 rows × 2048 taps × B 512, 84 MB, 0.030 ms at
-// 3.35 TB/s). Three modes, picked on the host from the shapes
-// (ops/partitions_plan.py, ops/_layout.py), all named
-// assemble_partitions_kernel so that a profile names them alike:
+// With the chain, bound on the H100 by its transforms' latency, not by
+// bytes: a row reads 4 table rows (the table stays in L2) and writes its
+// planes, P·2·(B+1) complex64 (render (g): 2048 rows × 2048 taps × B 512,
+// 84 MB, 0.030 ms at 3.35 TB/s). Four bodies, picked on the host from
+// the shapes and the flags (ops/partitions_plan.py, ops/_layout.py), all
+// named assemble_partitions_kernel so that a profile names them alike:
 //
-// The register body, the shared mode at L = 128 … 8192 and B = 64 … 2048.
-// The radix-2 body took 24× the byte bound at (g): one block of 256
-// threads per row, twiddles rebuilt with sincospif in every block, the
-// L-point chain and then the P partitions one after another as radix-2
-// FFTs with a barrier per stage (~74 stages a row at (g)). Here, on the
-// register FFT of csrc/fft_reg.cuh (16 points a thread, radix-16 passes):
+// The direct body, wherever neither ITD nor ILD applies (apply_itd and
+// apply_ild both 0, as for a table kept whole) and B = 64 … 2048, at
+// every L. Then the chain is an exact identity: the delay is
+// clip(ALIGN_GUARD − ALIGN_GUARD) = 0, whose ramp_bin is twL[0]·(cos 0,
+// sin 0) = 1 at every bin, the gain is 1, and L ≥ t_pad, so nothing
+// wraps: h_eff is the lerp of the 4 table rows, zero from `taps` on. So
+// this body runs no L-point transform, no ramp, no cluster and no shared
+// h_eff: its unit of work is one (row r, partition q), the grid covers
+// rows × P with u = r·P + q, and a block of S·2B/16 threads runs units
+// b·S … b·S + S − 1 (S from the plan: 64 threads a block, or one
+// transform's 2B/16 where that is more), so consecutive blocks take
+// neighbouring rows, whose table rows (neighbouring head azimuths) stay in
+// L2. Small blocks wait on small barriers: in the design sweep at
+// room44k.streamed's shape a call took 1.93 ms at 64 threads a block,
+// 2.72 ms at 512 (H100, 700 W); the entry point takes at most 256, the
+// plan's largest block (one transform at B 2048):
+//   prologue   lane `lane` of unit u loads its first pass's 8 samples
+//              t = qB + lane + m·2B/16, m < 8, straight from the 4 table
+//              rows with __ldg (a row of weight 0 is skipped), lerps them
+//              in registers and packs both ears as conj(h0 + i·h1), 0
+//              from t = taps on; the padded half (m ≥ 8) is 0;
+//   transform  the 2B-point register transform of partition_rounds
+//              (RegPlan, the forward one as the conjugate of the inverse)
+//              through the slot's own padded exchange buffer, the bins
+//              conjugated into it in natural order;
+//   store      lane `lane` unpacks the ear pair at bins lane + i·2B/16
+//              and 2B − k and writes H's planes coalesced: a block's
+//              units are H's rows b·S … b·S + S − 1, contiguous.
+// The chain's irfft_L carried L·h_eff, scaled back by 1/L; here nothing
+// is scaled. Bound by bytes: the planes it writes (room44k.streamed's call,
+// 4,106 rows × 87 partitions × B 512, 2.93 GB of planes, 0.911 ms at 3.35
+// TB/s with the table rows and inputs): this body takes 1.95 ms a call
+// there, 2.1× that bound and 1.65× the 1.18 ms in which the card fills
+// the same planes, where the cluster chain took 15.22 ms (H100, 700 W).
+//
+// The register body, the shared mode at L = 128 … 8192 and B = 64 … 2048
+// where ITD or ILD applies. The radix-2 body took 24× the byte bound at
+// (g): one block of 256 threads per row, twiddles rebuilt with sincospif
+// in every block, the L-point chain and then the P partitions one after
+// another as radix-2 FFTs with a barrier per stage (~74 stages a row at
+// (g)). Here, on the register FFT of csrc/fft_reg.cuh (16 points a
+// thread, radix-16 passes):
 //   rows       G rows per block of T threads, T/G ≥ TL = L/16 of them per
 //              row. The rows' L-point chains (gather, rfft_L as the
 //              conjugate of the inverse, table ramp and gain, irfft_L:
@@ -64,7 +100,8 @@
 // effective-filter chain of common.cuh, then the P partitions in turn.
 //
 // The cluster mode, for
-// L = 16384 … 131072 and B = 64 … 2048 (ops/partitions_plan.py), where the
+// L = 16384 … 131072 and B = 64 … 2048 where ITD or ILD applies
+// (ops/partitions_plan.py), where the
 // split mode's radix-2 passes over a device scratch took 4.3 ms for
 // render (j)'s 256 rows × 44,100 taps (32× the bound: the 355 MB table
 // read once and 91 MB of planes written, 0.134 ms at 3.35 TB/s). One
@@ -552,6 +589,115 @@ int launch_partitions_register(int log2L, int log2B2, int threads, int G,
   }
 }
 
+// ------------------------------------------------------------------------
+// The direct body, neither ITD nor ILD and 2B = 128 … 4096 at every L: S
+// units (row, partition) per block of S·2B/16 threads, S from
+// ops/partitions_plan.py `direct_slots` (a power of two, checked here).
+
+// per block: the plan's largest, one transform of 2B = 4096 on 256 threads;
+// 4 such blocks an SM cap a thread at 64 registers
+constexpr int kDirectMaxThreads = 1 << (kPartMaxLog2B2 - 4);
+
+// The direct body: see the header comment. Thread tid is lane tid mod Tp
+// of slot tid / Tp, which transforms unit u = blockIdx.x·S + slot of the
+// rows × P, row u / P, partition u mod P.
+template <int kLog2B2>
+__global__ void __launch_bounds__(kDirectMaxThreads, 4)
+    assemble_partitions_kernel(const PartitionArgs a, int units) {
+  using PB = RegPlan<kLog2B2>;
+  constexpr int n2 = PB::n, B = n2 / 2, Tp = PB::threads, F2 = B + 1;
+  constexpr int RB = PB::radix(PB::passes - 1), NsB = n2 / RB;
+  static_assert(PB::points == 16 && PB::passes > 1 &&
+                    Tp <= kDirectMaxThreads,
+                "a partition takes 2B/16 threads of 16 points");
+  extern __shared__ float2 smem[];
+  const int tid = threadIdx.x;
+  const int lane = tid % Tp;
+  const int slot = tid / Tp;
+  const int u = static_cast<int>(blockIdx.x) * (blockDim.x / Tp) + slot;
+  const bool on = u < units;  // the same for the slot's threads
+  float2 v[16];
+  if (on) {
+    // the lerp of the 4 table rows at t = qB + lane + m·Tp, m < 8, both
+    // ears, each row's 16 loads at once; a row of weight 0 adds 0 and is
+    // not read (two of the four on a one-ring grid, three in the nearest
+    // lookup)
+    const int r = u / a.P;
+    const int t0 = (u - r * a.P) * B + lane;
+    const int taps = a.p.taps;
+#pragma unroll
+    for (int m = 0; m < 16; ++m) v[m] = make_float2(0.f, 0.f);
+#pragma unroll 1
+    for (int k = 0; k < 4; ++k) {
+      const float wk = __ldg(a.w + 4 * r + k);
+      if (wk == 0.f) continue;
+      const float* row =
+          a.h_table + static_cast<size_t>(__ldg(a.idx + 4 * r + k)) * 2 * taps;
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        const int t = t0 + m * Tp;
+        if (t < taps) {
+          v[m].x += wk * __ldg(row + t);
+          v[m].y += wk * __ldg(row + taps + t);
+        }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < 8; ++m) v[m] = conj(v[m]);
+    dft<16>(v);
+  }
+  float2* buf = smem + slot * PB::row_f2;
+  reg_passes_live<kLog2B2, 1>(v, buf, lane, a.tw2B, on);
+  __syncthreads();  // the last pass has read buf
+  if (on) {
+#pragma unroll
+    for (int s = 0; s < 16 / RB; ++s)
+#pragma unroll
+      for (int i = 0; i < RB; ++i)
+        buf[lane + s * Tp + i * NsB] = conj(v[s * RB + i]);
+  }
+  __syncthreads();
+  if (on) {  // unit u is H's row u of the rows × P
+    const size_t o = static_cast<size_t>(u) * 2 * F2;
+    auto bin = [&](int k) {
+      float2 A, Bk;
+      unpack_pair(buf[k], buf[(n2 - k) & (n2 - 1)], &A, &Bk);
+      a.H_re[o + k] = A.x;
+      a.H_im[o + k] = A.y;
+      a.H_re[o + F2 + k] = Bk.x;
+      a.H_im[o + F2 + k] = Bk.y;
+    };
+#pragma unroll
+    for (int i = 0; i < 8; ++i) bin(lane + i * Tp);
+    if (lane == 0) bin(B);
+  }
+}
+
+template <int kLog2B2>
+int launch_partitions_direct(int log2B2, int slots, const PartitionArgs& a,
+                             int units, cudaStream_t stream) {
+  if constexpr (kLog2B2 > kPartMaxLog2B2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (log2B2 != kLog2B2)
+      return launch_partitions_direct<kLog2B2 + 1>(log2B2, slots, a, units,
+                                                   stream);
+    using PB = RegPlan<kLog2B2>;
+    if (slots < 1 || (slots & (slots - 1)) ||
+        slots * PB::threads > kDirectMaxThreads)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const auto kernel = static_cast<void (*)(const PartitionArgs, int)>(
+        assemble_partitions_kernel<kLog2B2>);
+    const int smem = slots * PB::row_f2 * static_cast<int>(sizeof(float2));
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<(units + slots - 1) / slots, slots * PB::threads, smem,
+             stream>>>(a, units);
+    return static_cast<int>(cudaGetLastError());
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -559,20 +705,25 @@ extern "C" {
 // idx, w: (rows, 4) int32 / f32; h_table: (R, 2, taps) f32; delays, gains:
 // (R, 2) f32; H_re, H_im: (rows, P, 2, B+1) f32. slices > 0: split mode,
 // scratch holds slices · (2L + 2B) complex64, and the tables, ranks,
-// threads and rows_per_block are unused. Otherwise the shared mode (L ≤
+// threads and per_block are unused. Otherwise, with direct (the plan's
+// body, ops/partitions_plan.py; only where apply_itd and apply_ild are
+// both 0 and B = 64 … 2048), the direct body at every L: tw2B the table
+// of exp(+2πi·m/2B), ranks 0, per_block its units a block (a power of
+// two) and threads per_block·2B/16. Else the shared mode (L ≤
 // 8192; ranks 0) or the cluster mode (L ≥ 16384): twL, twM and tw2B the
 // tables of exp(+2πi·m/L), exp(+2πi·m/16384) (cluster mode only) and
 // exp(+2πi·m/2B), taper the ramp's taper at bins 0 … L/2, and ranks,
-// threads and rows_per_block the plan's (ops/partitions_plan.py): the
-// shared mode's register body at B = 64 … 2048 takes rows_per_block > 0
-// and its threads, its radix-2 body at other blocks takes 0 for both.
+// threads and per_block the plan's (ops/partitions_plan.py): the shared
+// mode's register body at B = 64 … 2048 takes its rows per block as
+// per_block > 0 and its threads, its radix-2 body at other blocks takes 0
+// for both.
 int tt_assemble_partitions(const void* idx, const void* w, const void* h_table,
                            const void* delays, const void* gains, void* H_re,
                            void* H_im, const void* twL, const void* twM,
                            const void* tw2B, const void* taper, int rows,
                            int taps, int t_pad, int B, int P, int apply_itd,
-                           int apply_ild, int ranks, int threads,
-                           int rows_per_block, float align_guard,
+                           int apply_ild, int direct, int ranks,
+                           int threads, int per_block, float align_guard,
                            float max_shift, float taper_lo, float taper_hi,
                            void* scratch, int slices, int work, void* stream) {
   const AssemblyParams p =
@@ -592,16 +743,25 @@ int tt_assemble_partitions(const void* idx, const void* w, const void* h_table,
                         static_cast<const float*>(taper),
                         p,
                         P};
-  if (slices == 0 && p.L > (1 << kRegMaxLog2L))
-    return launch_partitions_cluster<kRegMaxLog2N>(p.log2L, ilog2(2 * B),
-                                                   ranks, a, rows, s);
   const int log2B2 = ilog2(2 * B);
-  const bool reg = p.log2L >= kRegMinLog2L && log2B2 >= kPartMinLog2B2 &&
-                   log2B2 <= kPartMaxLog2B2;
-  if (slices == 0 && (ranks != 0 || (rows_per_block > 0) != reg))
+  const bool blocks = log2B2 >= kPartMinLog2B2 && log2B2 <= kPartMaxLog2B2;
+  if (direct) {
+    const long long units = static_cast<long long>(rows) * P;
+    if (slices != 0 || !blocks || apply_itd || apply_ild || ranks != 0 ||
+        P < 1 || units > (1LL << 31) - 1 || a.tw2B == nullptr ||
+        threads != per_block * (1 << (log2B2 - 4)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_partitions_direct<kPartMinLog2B2>(
+        log2B2, per_block, a, static_cast<int>(units), s);
+  }
+  if (slices == 0 && p.L > (1 << kRegMaxLog2L))
+    return launch_partitions_cluster<kRegMaxLog2N>(p.log2L, log2B2, ranks, a,
+                                                   rows, s);
+  const bool reg = p.log2L >= kRegMinLog2L && blocks;
+  if (slices == 0 && (ranks != 0 || (per_block > 0) != reg))
     return static_cast<int>(cudaErrorInvalidValue);
   if (slices == 0 && reg) {
-    const int G = rows_per_block;
+    const int G = per_block;
     if (G > partition_max_rows(p.log2L) || (G & (G - 1)) || P < 1 ||
         threads != partition_block_threads(p.log2L, log2B2, G, P) ||
         a.twL == nullptr || a.tw2B == nullptr || a.taper == nullptr)

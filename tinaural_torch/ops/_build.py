@@ -34,7 +34,7 @@ _SIGNATURES = {
     "tt_assemble_filters_clusters": [_I],
     "tt_block_spectra_mix_inverse": [_P] * 5 + [_I] * 10 + _SPLIT,
     "tt_overlap_add": [_P] * 2 + [_I] * 6 + [_P],
-    "tt_assemble_partitions": [_P] * 11 + [_I] * 10 + [_F] * 4 + _SPLIT,
+    "tt_assemble_partitions": [_P] * 11 + [_I] * 11 + [_F] * 4 + _SPLIT,
     "tt_stream_conv": [_P] * 14 + [_I] * 7 + _SPLIT,
     "tt_frame_spectra": [_P] * 3 + [_I] * 7 + [_P],
     "tt_partitioned_conv": [_P] * 6 + [_I] * 11 + _SPLIT,

@@ -7,7 +7,10 @@ blocks hold a share of its buffers each, ``csrc/fft_reg.cuh``
 `ClusterPlan`: `spectra_inverse`, `block_spectra_mix_inverse`,
 `assemble_partitions`, `assembly_mac` and `assemble_filters` above n_fft
 or L 16384), `PRUNED` (the block step's n/Q transforms of Q ≤ 16384
-points above n_fft 16384, ``ops/step_plan.py``) or `RADIX2`. A plan's
+points above n_fft 16384, ``ops/step_plan.py``), `DIRECT`
+(`assemble_partitions` where neither ITD nor ILD applies: each partition's
+register transform straight from the table rows, no L-point chain,
+``ops/partitions_plan.py``) or `RADIX2`. A plan's
 shared figure is one block's. `launch_mode`, THE launch-mode rule, runs
 the body where that figure fits the card's limit for one block (227 KB on
 the H100) and `force_work` is 0; else the split mode, `SPLIT`: the
@@ -44,8 +47,8 @@ RUN_WAVES = 1
 # The FFT bodies a plan states (its ``body``), each of which a launch runs
 # with its buffers in shared memory, and the split mode: the radix-2 body
 # over a device scratch.
-REGISTER, CLUSTER, PRUNED, RADIX2, SPLIT = (
-    "register", "cluster", "pruned", "radix2", "split")
+REGISTER, CLUSTER, PRUNED, DIRECT, RADIX2, SPLIT = (
+    "register", "cluster", "pruned", "direct", "radix2", "split")
 
 # Tests set this to a small power of two to force the split mode with that
 # work size at any shape, the cluster mode's included; 0 picks the mode

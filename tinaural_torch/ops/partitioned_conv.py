@@ -33,7 +33,10 @@ The kernels take every filter length and block: above shared memory they
 run with their buffers in a device scratch (``ops/_layout.py``), except
 `assemble_partitions` at L = 16384 … 131072, which spreads each row over a
 thread-block cluster; below, at blocks 64 … 2048, it runs G rows per CUDA
-block as register FFTs (``ops/partitions_plan.py``), and `stream_conv`,
+block as register FFTs (``ops/partitions_plan.py``); where neither ITD nor
+ILD applies, at blocks 64 … 2048 it takes the direct body at every filter
+length, one register transform a partition straight from the table rows,
+with no L-point chain; and `stream_conv`,
 `frame_spectra` and `partitioned_conv` run as register FFTs too
 (``ops/conv_plan.py``; at other blocks, and in the split mode, the
 radix-2 `partitioned_conv` computes its frame spectra itself and
@@ -47,6 +50,9 @@ version makes its partition transforms one at a time inside its
 ``tt.conv``), and counts ``partition_rows``, the filter rows × P it
 assembles (a chunk past the first assembles its predecessor row again),
 and, on the CUDA route, ``conv_chunks``, its chunks.
+`assemble_partitions_cuda` counts ``direct_partition_rows``, the rows × P
+of its direct-body launches (on the card only: the plain versions run the
+chain).
 """
 
 from __future__ import annotations
@@ -56,7 +62,7 @@ import torch
 from ..data.table import (ALIGN_GUARD, MAX_RENDER_SHIFT, TAPER_HI,
                           TAPER_LO, TorchTable)
 from ..utils import profiling
-from ._layout import (CLUSTER, REGISTER, cuda_inputs, filter_rows,
+from ._layout import (CLUSTER, DIRECT, REGISTER, cuda_inputs, filter_rows,
                       launch_mode, layout, shared_limit, sm_count)
 from .filters import (effective_filter, filter_partitions, n_parts,
                       partition_spectra)
@@ -301,7 +307,9 @@ def assemble_partitions_cuda(idx: torch.Tensor, w: torch.Tensor,
                              apply_itd: bool, apply_ild: bool):
     """Kernel `assemble_partitions`: idx (..., 4) int32 flat table rows
     (unchecked: a range check would synchronise the host), w (..., 4) f32
-    → (h_re, h_im), each (..., P, 2, block+1) f32."""
+    → (h_re, h_im), each (..., P, 2, block+1) f32. With neither flag the
+    rows need no chain (``ops/partitions_plan.py``): the direct body,
+    counted in ``direct_partition_rows`` (rows × P)."""
     from . import _build
 
     stream = cuda_inputs(idx, w, table.h, table.delays, table.gains)
@@ -311,36 +319,43 @@ def assemble_partitions_cuda(idx: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"idx and w must be (..., 4) with rows, got "
                          f"{tuple(idx.shape)} and {tuple(w.shape)}")
     _check_block(block)
-    plan = partitions_plan(table.taps, block)
+    chain = bool(apply_itd or apply_ild)
+    plan = partitions_plan(table.taps, block, chain)
     L, P = plan.L, plan.parts
     shape = (*idx.shape[:-1], P, 2, block + 1)
     h_re = torch.empty(shape, dtype=torch.float32, device=idx.device)
     h_im = torch.empty_like(h_re)
     rows = idx.numel() // 4
     G, block_threads, shared_f2 = launch(table.taps, block, rows,
-                                         sm_count(idx.device))
+                                         sm_count(idx.device), chain)
     lay = layout(idx.device, plan.body, shared_f2, plan.scratch_f2, rows,
                  max(L, 2 * block))
     # the split mode and the radix-2 body take neither tables nor plan
-    tables, ranks, threads, rows_per_block = (0, 0, 0, 0), 0, 0, 0
+    tables, ranks, threads, per_block = (0, 0, 0, 0), 0, 0, 0
     if lay.mode == CLUSTER:
         ranks = plan.ranks
         tables = tuple(t.data_ptr() for t in (
             twiddles(L, idx.device), twiddles(RANK_SAMPLES, idx.device),
             twiddles(2 * block, idx.device), ramp_taper(L, idx.device)))
     elif lay.mode == REGISTER:
-        threads, rows_per_block = block_threads, G
+        threads, per_block = block_threads, G
         tables = (twiddles(L, idx.device).data_ptr(), 0,
                   twiddles(2 * block, idx.device).data_ptr(),
                   ramp_taper(L, idx.device).data_ptr())
+    elif lay.mode == DIRECT:
+        threads, per_block = block_threads, G
+        tables = (0, 0, twiddles(2 * block, idx.device).data_ptr(), 0)
     _build.check(_build.library().tt_assemble_partitions(
         idx.data_ptr(), w.data_ptr(), table.h.data_ptr(),
         table.delays.data_ptr(), table.gains.data_ptr(), h_re.data_ptr(),
         h_im.data_ptr(), *tables, rows, table.taps, plan.t_pad, block, P,
-        int(apply_itd), int(apply_ild), ranks, threads, rows_per_block,
+        int(apply_itd), int(apply_ild), int(lay.mode == DIRECT), ranks,
+        threads, per_block,
         ALIGN_GUARD, MAX_RENDER_SHIFT, TAPER_LO, TAPER_HI, *lay.split_args,
         stream), "assemble_partitions")
     launches["assemble_partitions"] += 1
+    if lay.mode == DIRECT:
+        profiling.count("direct_partition_rows", rows * P)
     return h_re, h_im
 
 

@@ -16,7 +16,7 @@ route ``tt.frames``, ``tt.partitions``, ``tt.conv``; a span's self time is
 its duration less the spans it holds) and add to named counters with
 `count` (``h2d_bytes``, ``h2d_pinned_bytes``, ``blockify_host_bytes``,
 ``host_syncs``, ``mac_rows``, ``dedupe_rows_merged``, ``partition_rows``,
-``conv_chunks``); the
+``conv_chunks``, ``direct_partition_rows``); the
 kernel wrappers' ``launches`` dicts are `register`-ed here and read as
 ``launches.<kernel>``. Counters always count. Spans record only while
 tracing is on: inside a `tracing()` block, or while a `torch.profiler`
